@@ -1,0 +1,35 @@
+"""Object helpers the validator needs (copies of tpu_operator/utils/objects.py)."""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Mapping, Optional
+
+
+def deep_get(obj: Optional[Mapping], *path: str, default: Any = None) -> Any:
+    """Walk nested mappings; return ``default`` on any missing step."""
+    cur: Any = obj
+    for step in path:
+        if not isinstance(cur, Mapping) or step not in cur:
+            return default
+        cur = cur[step]
+    return cur
+
+
+_QUANTITY_RE = re.compile(r"^([0-9.]+)([a-zA-Z]*)$")
+_SUFFIXES = {
+    "": 1,
+    "k": 10**3, "M": 10**6, "G": 10**9, "T": 10**12, "P": 10**15,
+    "Ki": 2**10, "Mi": 2**20, "Gi": 2**30, "Ti": 2**40, "Pi": 2**50,
+    "m": 1e-3,
+}
+
+
+def parse_quantity(value: Any) -> float:
+    """Parse a k8s resource quantity ("4", "500m", "1Gi") to a float."""
+    if isinstance(value, (int, float)):
+        return float(value)
+    m = _QUANTITY_RE.match(str(value))
+    if not m or m.group(2) not in _SUFFIXES:
+        raise ValueError(f"unparseable quantity: {value!r}")
+    return float(m.group(1)) * _SUFFIXES[m.group(2)]
