@@ -8,8 +8,12 @@ Phases, each of which exits non-zero on failure:
 1. environment: the card's name and power limit (nvidia-smi), torch, CUDA
 2. build every CUDA source of the port with nvcc (timed)
 3. each kernel against its plain PyTorch version on the card, bit-exact
+   (K1: the main shape, ragged lengths, chunk boundaries, every relative
+   alignment of the two ends with their neighbours untouched, and a plan
+   the C entry must refuse)
 4. each kernel's time beside its plain version, its library call and its
-   bound, at the shapes the main path gives it
+   bound, at the shapes the main path gives it; K1 also across ring shapes
+   (chunk bytes, stages, CTAs per SM), and the HBM probe's one op beside it
 5. main path: the validator's ``workload-local`` sweep (matrix 512), then
    ``perf`` at the CLI defaults (4096 / 512 MiB); kernel launch counts are
    zeroed before and read after, and every kernel must have launched
@@ -68,7 +72,8 @@ def main() -> int:
         from tpu_operator_torch.kernels import _build
         from tpu_operator_torch.kernels import stream_copy as k1
         from tpu_operator_torch.validator import main as vmain
-        from tpu_operator_torch.validator.perf import lookup_peaks, stream_rows
+        from tpu_operator_torch.validator.perf import (HBM_STREAMING_BAND, lookup_peaks,
+                                                       scale_add, stream_rows)
         from tpu_operator_torch.validator.status import StatusFiles
         from tpu_operator_torch import graft_entry
     except ImportError as e:
@@ -94,6 +99,10 @@ def main() -> int:
     print(json.dumps({"build_s": round(time.perf_counter() - t0, 3), "per_source_s": built}))
     for name, log in _build.build_logs.items():
         print(f"-- ptxas {name}:\n{log.strip()}")
+    print(f"K1 ring: {k1.STAGES} stages x {k1.CHUNK_BYTES} B = "
+          f"{k1.STAGES * (k1.CHUNK_BYTES + 8)} B dynamic shared memory per CTA "
+          f"(barriers included; the request is raised to cap residency at "
+          f"{k1.CTAS_PER_SM} CTAs per SM), a run of {k1.RUN} chunks per CTA")
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -117,31 +126,116 @@ def main() -> int:
         check(bits_equal(y, ref), f"stream_copy differs from its plain version: {label}")
         max_err = max(max_err, (y - ref).abs().max().item())
         print(f"{label}: bit-exact")
-    # both ends at element 1: scalar head, float4 body, scalar tail
-    dst = torch.zeros((1_000_005,), device=dev)
-    k1.launch(base[1:], dst[1:])
-    torch.cuda.synchronize()
-    check(bits_equal(dst[1:], base[1:]) and dst[0].item() == 0.0,
-          "stream_copy differs from its plain version: both ends at element 1")
-    print("both ends at element 1: bit-exact, neighbour untouched")
-    check(k1.launches == before + len(cases) + 1,
-          f"launch count {k1.launches - before}, expected {len(cases) + 1}")
+    # chunk boundaries: a body of one chunk, one chunk +- 16 B, two chunks,
+    # and more chunks than CTAs with a ragged tail, each at element offsets
+    # 0 and 1 of both ends (scalar head, bulk body, scalar tail)
+    chunk = k1.CHUNK_BYTES // 4
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lengths = [chunk, chunk - 4, chunk + 4, chunk + 3, 2 * chunk,
+               3 * sms * chunk + 4 * 7 + 3]
+    pool = torch.randn((max(lengths) + 8,), generator=gen, device=dev)
+    sentinel = -12345.0
+    expected = len(cases)
+
+    def placed(n: int, src_off: int, dst_off: int, label: str) -> None:
+        dst = torch.full((n + 8,), sentinel, device=dev)
+        k1.launch(pool[src_off:src_off + n], dst[dst_off:dst_off + n])
+        torch.cuda.synchronize()
+        check(bits_equal(dst[dst_off:dst_off + n], pool[src_off:src_off + n]),
+              f"stream_copy differs from its plain version: {label}")
+        check(bool((dst[:dst_off] == sentinel).all()) and
+              bool((dst[dst_off + n:] == sentinel).all()),
+              f"stream_copy wrote outside its destination: {label}")
+
+    for n in lengths:
+        for off in (0, 1):
+            placed(n, off, off, f"n={n} at element {off}")
+            expected += 1
+    print(f"chunk boundaries {lengths} at element offsets 0 and 1: bit-exact, "
+          f"neighbours untouched")
+    # every relative alignment of the two ends (element offsets 0-3 each)
+    for src_off in range(4):
+        for dst_off in range(4):
+            placed(1_000_003, src_off, dst_off, f"offsets src {src_off} dst {dst_off}")
+            expected += 1
+    print("every relative alignment (offsets 0-3 x 0-3): bit-exact, neighbours untouched")
+    bad = k1.launch_plan(x_main.data_ptr(), x_main.data_ptr(), x_main.numel())
+    try:
+        k1.run_plan(x_main, torch.empty_like(x_main), bad._replace(tail=bad.tail + 1))
+        fail("stream_copy accepted a plan that does not cover the tensor")
+    except RuntimeError as e:
+        print(f"inconsistent plan refused: {e}")
+    check(k1.launches == before + expected,
+          f"launch count {k1.launches - before}, expected {expected}")
 
     phase("K1 timing")
     out = torch.empty_like(x_main)
-    fns = {"kernel": k1.stream_copy, "plain": k1.stream_copy_reference,
-           "library": lambda t: out.copy_(t)}
-    samples = {name: [] for name in fns}
-    for name in ("plain", "kernel", "library", "library", "kernel", "plain"):
-        samples[name].append(cuda_ms(fns[name], x_main, reps=50))
     bytes_moved = 2 * x_main.numel() * 4
+    one_cuda = torch.ones((), device=dev)
+    fns = {"kernel": k1.stream_copy, "plain": k1.stream_copy_reference,
+           "library": lambda t: out.copy_(t),
+           # the HBM probe's one op, and the form it replaced (addend a 0-dim
+           # CUDA tensor rather than a 0-dim CPU one)
+           "probe": scale_add,
+           "probe_cuda_addend": lambda t: torch.add(one_cuda, t, alpha=1.0001)}
+    samples = {name: [] for name in fns}
+    order = list(fns)
+    for name in order + order[::-1]:
+        samples[name].append(cuda_ms(fns[name], x_main, reps=50))
     timing = {name: statistics.median(v) for name, v in samples.items()}
+    gbps = {name: bytes_moved / ms / 1e6 for name, ms in timing.items()}
     bound_ms = bytes_moved / (hbm_peak_gbps * 1e9) * 1e3
     print(json.dumps({"kernel": "stream_copy", "shape": list(x_main.shape),
                       "kernel_ms": timing["kernel"], "plain_ms": timing["plain"],
-                      "library_ms": timing["library"], "bound_ms": bound_ms,
-                      "kernel_gbps": bytes_moved / timing["kernel"] / 1e6,
-                      "card": card}))
+                      "library_ms": timing["library"], "probe_ms": timing["probe"],
+                      "probe_cuda_addend_ms": timing["probe_cuda_addend"],
+                      "bound_ms": bound_ms, "gbps": gbps, "card": card}))
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            scale_add(x_main)
+            torch.cuda.synchronize()
+        probe_kernels = [e.key for e in prof.key_averages() if e.device_time_total > 0]
+    except Exception as e:  # the profiler is a reading here, not a gate
+        probe_kernels = [f"profiler failed: {e}"]
+    print(f"probe device kernels (torch.profiler): {probe_kernels}")
+
+    # ring shapes: (chunk bytes, stages, run of chunks per CTA, CTAs per SM,
+    # grid); grid None is one run per CTA in address order (the default's
+    # layout), grid = SM count a persistent grid. The default comes first;
+    # then in-flight windows of 4, 8, 12 and 25 MiB at one ring shape, other
+    # ring shapes, and persistent grids.
+    configs = [(k1.CHUNK_BYTES, k1.STAGES, k1.RUN, k1.CTAS_PER_SM, None),
+               (16384, 2, 2, 1, None), (16384, 2, 2, 3, None), (16384, 2, 2, 6, None),
+               (32768, 2, 2, 1, None), (32768, 2, 2, 3, None), (16384, 4, 4, 1, None),
+               (16384, 4, 4, 3, None), (65536, 2, 1, 1, None), (16384, 4, 8, 1, None),
+               (32768, 6, 1, 1, sms), (16384, 4, 1, 1, sms), (16384, 4, 8, 1, sms)]
+    props = torch.cuda.get_device_properties(dev)
+    smem_sm = getattr(props, "shared_memory_per_multiprocessor", 233472)
+
+    def in_flight_mib(c) -> float:
+        """Bytes the chip keeps in flight: SMs x resident CTAs x loads per CTA."""
+        chunk_b, stages, run, ctas, grid = c
+        resident = min(ctas, smem_sm // (stages * (chunk_b + 8) + 1024))
+        ctas_total = min(grid or 10**9, sms * resident)
+        return ctas_total * min(stages, run if grid is None else stages) * chunk_b / 2**20
+    config_ms = {c: [] for c in configs}
+    for c in configs:  # each ring shape bit-exact before it is timed
+        y = k1.launch(x_main, torch.empty_like(x_main), chunk_bytes=c[0], stages=c[1],
+                      run=c[2], ctas_per_sm=c[3], grid=c[4])
+        torch.cuda.synchronize()
+        check(bits_equal(y, x_main), f"stream_copy ring shape {c} differs from its input")
+        del y
+    for c in configs + configs[::-1]:
+        config_ms[c].append(cuda_ms(
+            lambda t: k1.launch(t, out, chunk_bytes=c[0], stages=c[1], run=c[2],
+                                ctas_per_sm=c[3], grid=c[4]), x_main, reps=50))
+    print(json.dumps({"k1_ring_shapes": [
+        {"chunk_bytes": c[0], "stages": c[1], "run": c[2], "ctas_per_sm": c[3],
+         "grid": "one run per CTA" if c[4] is None else c[4],
+         "in_flight_mib": in_flight_mib(c), "ms": statistics.median(v),
+         "gbps": bytes_moved / statistics.median(v) / 1e6}
+        for c, v in config_ms.items()], "copy_ms": timing["library"], "card": card}))
     del x_main, out, fns
 
     phase("main path: workload-local, then perf")
@@ -163,6 +257,14 @@ def main() -> int:
           f"perf barrier without a streaming-kernel reading: {report}")
     check(k1_main_launches > perf_before, "stream_copy was not launched by perf")
     print(json.dumps({"perf_report": report, "card": card}))
+    ratio = report.get("hbm_streaming_cross_check_ratio")
+    check(ratio is not None and HBM_STREAMING_BAND[0] <= ratio <= HBM_STREAMING_BAND[1],
+          f"probe/K1 ratio {ratio} outside {HBM_STREAMING_BAND}")
+    probe_vs_copy = report["hbm_gbps"] / gbps["library"]
+    print(f"perf hbm_gbps {report['hbm_gbps']} / copy_ {gbps['library']:.3f} GB/s "
+          f"= {probe_vs_copy:.4f}")
+    check(abs(probe_vs_copy - 1.0) <= 0.05,
+          f"the HBM probe streams at {probe_vs_copy:.4f} of copy_'s rate, not within 5%")
 
     phase("graft entry")
     fn, args = graft_entry.entry()

@@ -1,9 +1,11 @@
 """K1, the streaming-copy kernel (tpu_operator_torch/kernels/stream_copy.py),
-its plain version and the whole-block rule it shares with the Pallas kernel
-(tpu_operator/validator/perf.py:measure_hbm_pallas_gbps).
+its launch plan, its plain version and the whole-block rule it shares with
+the Pallas kernel (tpu_operator/validator/perf.py:measure_hbm_pallas_gbps);
+and the HBM probe it is checked against (``perf.scale_add``).
 
 The tests marked ``gpu`` launch the CUDA kernel and skip without a card;
-run them on one with ``python -m pytest tests/test_torch_stream_copy.py -m gpu``."""
+run them on one with
+``python -m pytest tests/test_torch_stream_copy.py -m gpu --noconftest``."""
 
 import numpy as np
 import pytest
@@ -46,6 +48,133 @@ def test_cpu_copy_of_misaligned_view():
     view = base[1:]
     assert view.is_contiguous() and view.data_ptr() % 16 != 0
     assert torch.equal(_bits(k1.stream_copy(view)), _bits(view))
+
+
+CHUNK = k1.CHUNK_BYTES // 4  # elements of one bulk chunk
+#: element counts: tiny, one chunk and one chunk +- 16 B, many chunks + ragged
+PLAN_LENGTHS = [1, 3, 4, 5, CHUNK - 4, CHUNK, CHUNK + 4, 37 * CHUNK + 7]
+
+
+def _plan_intervals(plan, src, dst, n):
+    """Element intervals [start, end) of the plan's ops, checking each bulk op
+    on the way: 16-byte-aligned on both ends, a positive multiple of 16 B, at
+    most one chunk."""
+    if plan.n_chunks == 0:
+        assert (plan.head, plan.last_bytes, plan.tail) == (n, 0, 0)
+        return [(0, n)]
+    assert 0 <= plan.head < 4 and 0 <= plan.tail < 4
+    intervals = [(0, plan.head)]
+    offset = 4 * plan.head
+    for i in range(plan.n_chunks):
+        size = plan.last_bytes if i == plan.n_chunks - 1 else plan.chunk_bytes
+        assert 0 < size <= plan.chunk_bytes and size % 16 == 0
+        assert (src + offset) % 16 == 0 and (dst + offset) % 16 == 0
+        intervals.append((offset // 4, (offset + size) // 4))
+        offset += size
+    intervals.append((n - plan.tail, n))
+    return intervals
+
+
+def _assert_exact_cover(intervals, n):
+    end = 0
+    for start, stop in intervals:
+        assert start == end, f"gap or overlap at element {start} (covered to {end})"
+        assert stop >= start
+        end = stop
+    assert end == n
+
+
+@pytest.mark.parametrize("n", PLAN_LENGTHS)
+@pytest.mark.parametrize("src_off", range(4))
+@pytest.mark.parametrize("dst_off", range(4))
+def test_launch_plan_covers_every_element_once(n, src_off, dst_off):
+    base = 0x7F00_0000_0000  # a 512-byte-aligned allocation, as the caching allocator's
+    src, dst = base + 4 * src_off, base + (1 << 30) + 4 * dst_off
+    plan = k1.launch_plan(src, dst, n)
+    _assert_exact_cover(_plan_intervals(plan, src, dst, n), n)
+    if src_off != dst_off:  # misaligned relative to each other: whole range scalar
+        assert plan == (n, k1.CHUNK_BYTES, 0, 0, 0)
+    elif n - (-src_off % 4) >= 4:  # a 16-byte group past the head: bulk body
+        assert plan.n_chunks == -(-(n - plan.head - plan.tail) * 4 // k1.CHUNK_BYTES)
+
+
+@pytest.mark.parametrize("chunk_bytes", [16, 4096, 49152, 65536])
+def test_launch_plan_honours_the_chunk(chunk_bytes):
+    n = (1 << 20) + 3
+    plan = k1.launch_plan(64, 128, n, chunk_bytes)
+    assert plan.chunk_bytes == chunk_bytes
+    _assert_exact_cover(_plan_intervals(plan, 64, 128, n), n)
+
+
+@pytest.mark.parametrize("chunk_bytes, src, n", [
+    (0, 0, 16), (24, 0, 16), (-16, 0, 16), (16, 2, 16), (16, 0, 0),
+])
+def test_launch_plan_rejects(chunk_bytes, src, n):
+    with pytest.raises(ValueError):
+        k1.launch_plan(src, 0, n, chunk_bytes)
+
+
+def test_main_path_plan_is_all_bulk():
+    n = perf.stream_rows(512) * perf.STREAM_LANES
+    plan = k1.launch_plan(0x7F00_0000_0000, 0x7F20_0000_0000, n)
+    assert (plan.head, plan.tail, plan.last_bytes) == (0, 0, k1.CHUNK_BYTES)
+    assert plan.n_chunks * k1.CHUNK_BYTES == n * 4
+
+
+def _ulps(a, b):
+    return np.abs(a.view(np.int32).astype(np.int64) - b.view(np.int32).astype(np.int64))
+
+
+def test_probe_matches_numpy_and_the_jax_touch(monkeypatch):
+    """The probe's step against ``x * 1.0001 + 1.0`` on seeded data. XLA
+    and PyTorch both contract it into one fused multiply-add (one rounding
+    of the exact value), so numpy computes it in float64, where the product
+    of two fp32 values is exact, and rounds once to fp32: at most 1 ulp
+    apart (the float64 sum may itself round once). Two fp32 roundings would
+    differ from both frameworks by up to half an ulp of the product, which
+    near the zero crossing is thousands of ulps of the result."""
+    x = np.random.default_rng(7).standard_normal(1_000_003, dtype=np.float32)
+    got = perf.scale_add(torch.from_numpy(x)).numpy()
+    exact = (x.astype(np.float64) * np.float64(np.float32(1.0001)) + 1.0).astype(np.float32)
+    assert got.dtype == np.float32 and _ulps(got, exact).max() <= 1
+
+    # the reference's own jitted touch (tpu_operator/validator/perf.py:253-255),
+    # captured where its chain timing receives it
+    import jax.numpy as jnp
+    captured = {}
+
+    def capture(fn, x, iters):
+        captured["touch"] = fn
+        return 1.0, True, iters, None
+
+    monkeypatch.setattr(ref_perf, "_chain_time", capture)
+    ref_perf.measure_hbm_gbps(mib=1, iters=1)
+    ref = np.asarray(captured["touch"](jnp.asarray(x)))
+    assert _ulps(got, ref).max() <= 1
+
+
+def test_probe_is_one_elementwise_op():
+    """One aten op, its addend lifted as a CPU scalar: one read and one write."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.append((func, [a.device.type for a in args
+                                     if isinstance(a, torch.Tensor)]))
+            return func(*args, **(kwargs or {}))
+
+    x = torch.ones(64)
+    with Ops() as ops:
+        perf.scale_add(x)
+    assert len(ops.seen) == 1
+    func, devices = ops.seen[0]
+    assert func is torch.ops.aten.add.Tensor
+    assert devices == ["cpu", "cpu"]
+    assert perf._PROBE_ONE.dim() == 0 and perf._PROBE_ONE.device.type == "cpu"
 
 
 def _reference_rows(mib):
@@ -130,18 +259,80 @@ def test_gpu_kernel_bit_exact(cuda_device, shape):
     assert torch.equal(_bits(y), _bits(k1.stream_copy_reference(x)))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("src_offset, dst_offset", [(1, 0), (1, 1), (2, 2), (3, 1)])
-def test_gpu_kernel_misaligned(cuda_device, src_offset, dst_offset):
-    n = 100_003
-    src = _seeded((n + 4,)).to(cuda_device)
-    dst = torch.zeros(n + 4, device=cuda_device)
-    k1.launch(src[src_offset:src_offset + n], dst[dst_offset:dst_offset + n])
+def _placed_copy(device, n, src_offset, dst_offset, **config):
+    """Copy n elements between views at the given element offsets; assert
+    bit-exact and that nothing outside the destination view was written."""
+    src = _seeded((n + 4,)).to(device)
+    dst = torch.zeros(n + 4, device=device)
+    k1.launch(src[src_offset:src_offset + n], dst[dst_offset:dst_offset + n], **config)
     torch.cuda.synchronize()
     assert torch.equal(_bits(dst[dst_offset:dst_offset + n]),
                        _bits(src[src_offset:src_offset + n]))
-    # nothing written outside the destination view
     assert not dst[:dst_offset].any() and not dst[dst_offset + n:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("src_offset", range(4))
+@pytest.mark.parametrize("dst_offset", range(4))
+def test_gpu_kernel_misaligned(cuda_device, src_offset, dst_offset):
+    _placed_copy(cuda_device, 100_003, src_offset, dst_offset)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", PLAN_LENGTHS[4:] + [3 * 132 * CHUNK + 31])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_gpu_kernel_chunk_boundaries(cuda_device, n, offset):
+    _placed_copy(cuda_device, n, offset, offset)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk_bytes, stages, run, ctas_per_sm, grid", [
+    (16, 2, 1, 2, None), (16384, 12, 1, 1, 132), (49152, 4, 4, 1, None),
+    (32768, 3, 6, 1, None), (65536, 2, 1, 3, None), (32768, 6, 8, 1, 2),
+    (4096, 2, 7, 1, 1), (16384, 2, 2, 16, None),
+])
+def test_gpu_kernel_ring_shapes(cuda_device, chunk_bytes, stages, run, ctas_per_sm, grid):
+    _placed_copy(cuda_device, 1_000_003, 1, 1, chunk_bytes=chunk_bytes, stages=stages,
+                 run=run, ctas_per_sm=ctas_per_sm, grid=grid)
+
+
+@pytest.mark.gpu
+def test_gpu_kernel_over_4_gib(cuda_device):
+    """Byte offsets past 2^32: 4 GiB + 64 KiB + 12 B, with a scalar head."""
+    n = (1 << 30) + (1 << 14) + 3
+    src = torch.empty(n + 1, device=cuda_device)
+    src.copy_(torch.arange(n + 1, device=cuda_device, dtype=torch.int32).view(torch.float32))
+    dst = torch.zeros(n + 1, device=cuda_device)
+    k1.launch(src[1:], dst[1:])
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(dst[1:]), _bits(src[1:])) and dst[0].item() == 0.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("field, delta", [("tail", 1), ("head", 1), ("n_chunks", 1),
+                                          ("last_bytes", -16), ("chunk_bytes", 8)])
+def test_gpu_kernel_refuses_an_inconsistent_plan(cuda_device, field, delta):
+    x = _seeded((1 << 20,)).to(cuda_device)
+    out = torch.empty_like(x)
+    plan = k1.launch_plan(x.data_ptr(), out.data_ptr(), x.numel())
+    bad = plan._replace(**{field: getattr(plan, field) + delta})
+    before = k1.launches
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        k1.run_plan(x, out, bad, grid=1)
+    assert k1.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ring", [dict(stages=1), dict(run=0), dict(grid=0),
+                                  dict(grid=10**6), dict(stages=64), dict(ctas_per_sm=0)])
+def test_gpu_kernel_refuses_a_bad_ring(cuda_device, ring):
+    """A ring without two stages, an empty run, a CTA without a chunk, more
+    shared memory than a CTA may have, or no CTA on an SM."""
+    x = _seeded((1 << 20,)).to(cuda_device)
+    out = torch.empty_like(x)
+    plan = k1.launch_plan(x.data_ptr(), out.data_ptr(), x.numel())
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        k1.run_plan(x, out, plan, **{"grid": 1, **ring})
 
 
 @pytest.mark.gpu

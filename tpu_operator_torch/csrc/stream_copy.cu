@@ -2,81 +2,185 @@
 //
 // Replaces tpu_operator/validator/perf.py:measure_hbm_pallas_gbps, the
 // Pallas kernel that streams an fp32 array HBM -> VMEM -> HBM in 2 MiB
-// blocks: one read and one write per element, no arithmetic. The perf
-// validator times it beside the elementwise scale-add probe, and the two
-// must agree (HBM_STREAMING_BAND) for the probe's bandwidth to count as the
-// card's streaming limit.
+// double-buffered blocks: one read and one write per element, no
+// arithmetic. The perf validator times it beside the elementwise scale-add
+// probe, and the two must agree (HBM_STREAMING_BAND) for the probe's
+// bandwidth to count as the card's streaming limit.
 //
 // Bound: device-memory bandwidth only. At the perf validator's default of
 // 512 MiB the copy moves 2 x 536,870,912 B = 1,073,741,824 B, which takes at
 // least 1,073,741,824 B / 3.35 TB/s = 0.32 ms on an H100 SXM5 (NVIDIA data
 // sheet; a card under a lower power limit streams slower).
 //
-// Design: the whole copy is bytes in flight, so every thread moves 16 bytes
-// per access (float4, 128-bit loads and stores, neighbouring threads on
-// neighbouring addresses) in a grid-stride loop over the aligned body, with
-// streaming cache hints (ld.global.cs / st.global.cs) since no element is
-// read twice. A scalar head covers a source that is not 16-byte aligned and
-// a scalar tail covers a count that is not a multiple of 4. When source and
-// destination are misaligned relative to each other no float4 pairing
-// exists and the whole range takes the scalar path. Indices are 64-bit, so
-// arrays beyond 2^31 elements copy whole. The grid is a few blocks per SM:
-// enough resident warps to keep the memory system saturated without
-// launching one block per 4 KiB.
+// Design: a copy needs many bytes in flight and no instruction per byte, so
+// the aligned body moves through the Tensor Memory Accelerator as 1-D bulk
+// copies (cp.async.bulk, no tensor map) global -> shared -> global, as the
+// TPU kernel streams through VMEM. Each CTA keeps a ring of `stages` chunk
+// buffers in dynamic shared memory with one mbarrier each, and one thread
+// drives it: it issues the first `stages` loads, waits for the oldest
+// load's barrier phase, issues that chunk's bulk store, and refills the
+// buffer the previous chunk used once that chunk's store has finished
+// reading it (wait_group.read 1). The ring is written and read by the async
+// proxy only (bulk load, bulk store), so no proxy fence is needed between a
+// stage's load and its store; the one generic-proxy write, mbarrier.init,
+// is fenced before the first bulk load.
+//
+// What the card rewards is a compact window: the bytes in flight should be
+// about what covers the memory latency (some 8 MiB on an H100) and lie
+// close together. Chunks are dealt to CTAs block-cyclically, runs of `run`
+// consecutive chunks in turn; the launcher's default is one run per CTA
+// (grid = n_chunks / run), so CTAs start in address order and the window
+// moves through the array as a plain copy's does, and the dynamic
+// shared-memory request is raised to the SM's share for `ctas_per_sm` CTAs,
+// which caps how many CTAs, and so how many bytes, are in flight per SM.
+// A persistent grid (one CTA per SM, chunks blockIdx.x + k * gridDim.x)
+// lets the CTAs drift apart over their ~120 chunks each and measured about
+// 3% slower; a window of three times the size about 1% slower (PERF.md).
+//
+// The launch plan (kernels/stream_copy.py:launch_plan) is computed by the
+// caller and validated here: a scalar head of fewer than 4 elements up to
+// the first 16-byte boundary (bulk copies need 16-byte-aligned global
+// addresses on both ends and sizes that are multiples of 16 B), n_chunks
+// bulk chunks of chunk_bytes with a last one of last_bytes, and a scalar
+// tail of fewer than 4 elements. When source and destination are
+// misaligned relative to each other no bulk pairing exists: the plan is
+// then head = n, no chunks, and the whole range takes a grid-stride scalar
+// loop. Byte offsets are 64-bit, so arrays beyond 4 GiB copy whole.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBlocksPerSm = 8;
+constexpr int kBulkThreads = 32;  // lane 0 drives the ring; lanes 0-3 copy head and tail
+constexpr int kScalarThreads = 256;
+constexpr int kScalarBlocksPerSm = 8;
 
-__global__ void __launch_bounds__(kThreads)
-stream_copy_f32_kernel(const float* __restrict__ src, float* __restrict__ dst,
-                       int64_t n, int64_t head, int64_t nvec) {
-  const int64_t tid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+// Waits until the barrier's phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;"
+               ::"l"(dst), "r"(src), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kBulkThreads)
+stream_copy_f32_bulk_kernel(const float* __restrict__ src, float* __restrict__ dst,
+                            int64_t n, int head, int tail, uint32_t chunk_bytes,
+                            int64_t n_chunks, uint32_t last_bytes, int stages, int run) {
+  extern __shared__ __align__(128) unsigned char ring[];
+
+  if (blockIdx.x == 0) {
+    const int lane = static_cast<int>(threadIdx.x);
+    if (lane < head) dst[lane] = src[lane];
+    if (lane < tail) dst[n - tail + lane] = src[n - tail + lane];
+  }
+  if (threadIdx.x != 0) return;
+
+  const char* body_src = reinterpret_cast<const char*>(src + head);
+  char* body_dst = reinterpret_cast<char*>(dst + head);
+  const uint32_t buf0 = shared_addr(ring);
+  const uint32_t bar0 = buf0 + static_cast<uint32_t>(stages) * chunk_bytes;
+
+  for (int s = 0; s < stages; ++s) mbar_init(bar0 + 8u * s);
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+
+  // block-cyclic: runs of `run` consecutive chunks dealt to the CTAs in turn;
+  // this CTA's k-th chunk is chunk_of(k), for k < count
+  const int64_t cycle = static_cast<int64_t>(gridDim.x) * run;
+  const int64_t rem = n_chunks % cycle - static_cast<int64_t>(blockIdx.x) * run;
+  const int64_t count = n_chunks / cycle * run + (rem < 0 ? 0 : rem < run ? rem : run);
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * run;
+  auto chunk_of = [&](int64_t k) { return k / run * cycle + first + k % run; };
+  auto load = [&](int64_t k) {
+    const int s = static_cast<int>(k % stages);
+    const int64_t c = chunk_of(k);
+    const uint32_t bytes = c == n_chunks - 1 ? last_bytes : chunk_bytes;
+    mbar_expect_tx(bar0 + 8u * s, bytes);
+    bulk_load(buf0 + s * chunk_bytes, body_src + c * static_cast<int64_t>(chunk_bytes), bytes,
+              bar0 + 8u * s);
+  };
+
+  const int64_t prologue = count < stages ? count : stages;
+  for (int64_t k = 0; k < prologue; ++k) load(k);
+  for (int64_t k = 0; k < count; ++k) {
+    const int s = static_cast<int>(k % stages);
+    mbar_wait(bar0 + 8u * s, static_cast<uint32_t>((k / stages) & 1));
+    const int64_t c = chunk_of(k);
+    const uint32_t bytes = c == n_chunks - 1 ? last_bytes : chunk_bytes;
+    bulk_store(body_dst + c * static_cast<int64_t>(chunk_bytes), buf0 + s * chunk_bytes, bytes);
+    // refill the stage chunk k - 1 used once its store has read it; the
+    // store just issued (chunk k) may stay in flight
+    if (k >= 1 && k - 1 + stages < count) {
+      asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
+      load(k - 1 + stages);
+    }
+  }
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
+}
+
+__global__ void __launch_bounds__(kScalarThreads)
+stream_copy_f32_scalar_kernel(const float* __restrict__ src, float* __restrict__ dst,
+                              int64_t n) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-
-  // scalar head: up to the first 16-byte boundary of src (the whole range
-  // when src and dst cannot both be aligned)
-  for (int64_t i = tid; i < head; i += stride) {
-    dst[i] = src[i];
-  }
-
-  const float4* __restrict__ src4 = reinterpret_cast<const float4*>(src + head);
-  float4* __restrict__ dst4 = reinterpret_cast<float4*>(dst + head);
-  for (int64_t i = tid; i < nvec; i += stride) {
-    __stcs(dst4 + i, __ldcs(src4 + i));
-  }
-
-  // scalar tail: fewer than 4 elements after the last whole float4
-  const int64_t t = head + nvec * 4 + tid;
-  if (t < n) {
-    dst[t] = src[t];
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    __stcs(dst + i, __ldcs(src + i));
   }
 }
+
+constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
 
 }  // namespace
 
 extern "C" {
 
-// Copies n fp32 elements src -> dst on `stream`. Returns the CUDA error of
-// the launch (0 on success); the caller raises on anything else.
-int tpuop_stream_copy_f32(const void* src, void* dst, int64_t n, void* stream) {
-  if (n <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+// Copies n fp32 elements src -> dst on `stream` by the launch plan (head,
+// chunk_bytes, n_chunks, last_bytes, tail): `grid` CTAs, dealt runs of `run`
+// consecutive chunks in turn, each with a ring of `stages` chunk buffers,
+// at most `ctas_per_sm` of them resident on an SM.
+// Returns the CUDA error of the launch (0 on success), or
+// cudaErrorInvalidValue for a plan that does not cover [0, n) exactly with
+// aligned bulk copies or a ring that leaves a CTA without a chunk; the
+// caller raises on anything but 0.
+int tpuop_stream_copy_f32(const void* src, void* dst, int64_t n, int64_t head,
+                          int64_t chunk_bytes, int64_t n_chunks, int64_t last_bytes,
+                          int64_t tail, int stages, int run, int grid, int ctas_per_sm,
+                          void* stream) {
   const uintptr_t s = reinterpret_cast<uintptr_t>(src);
   const uintptr_t d = reinterpret_cast<uintptr_t>(dst);
-  int64_t head = n;
-  int64_t nvec = 0;
-  if ((s & 15u) == (d & 15u) && (s & 3u) == 0) {
-    head = static_cast<int64_t>(((16u - (s & 15u)) & 15u) / 4u);
-    if (head > n) head = n;
-    nvec = (n - head) / 4;
-  }
-  const int64_t work = nvec > head ? nvec : head;
+  if (n <= 0 || head < 0 || tail < 0 || n_chunks < 0 || ((s | d) & 3u) != 0) return kInvalid;
 
   int dev = 0;
   int sms = 0;
@@ -84,15 +188,47 @@ int tpuop_stream_copy_f32(const void* src, void* dst, int64_t n, void* stream) {
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
 
-  int64_t blocks = (work + kThreads - 1) / kThreads;
-  const int64_t max_blocks = static_cast<int64_t>(sms) * kBlocksPerSm;
-  if (blocks > max_blocks) blocks = max_blocks;
-  if (blocks < 1) blocks = 1;
+  if (n_chunks == 0) {  // no bulk body: the whole range is scalar
+    if (head != n || tail != 0 || last_bytes != 0) return kInvalid;
+    int64_t blocks = (n + kScalarThreads - 1) / kScalarThreads;
+    const int64_t max_blocks = static_cast<int64_t>(sms) * kScalarBlocksPerSm;
+    if (blocks > max_blocks) blocks = max_blocks;
+    stream_copy_f32_scalar_kernel<<<static_cast<unsigned int>(blocks), kScalarThreads, 0, st>>>(
+        static_cast<const float*>(src), static_cast<float*>(dst), n);
+    return static_cast<int>(cudaGetLastError());
+  }
 
-  stream_copy_f32_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(src), static_cast<float*>(dst), n, head, nvec);
+  int smem_optin = 0;
+  int smem_sm = 0;
+  int smem_reserved = 0;
+  err = cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&smem_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&smem_reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (head >= 4 || tail >= 4 || stages < 2 || run < 1 || ctas_per_sm < 1) return kInvalid;
+  if (chunk_bytes <= 0 || chunk_bytes % 16 != 0 || chunk_bytes > smem_optin) return kInvalid;
+  if (last_bytes <= 0 || last_bytes > chunk_bytes || last_bytes % 16 != 0) return kInvalid;
+  if (n_chunks > (n * 4) / chunk_bytes + 1) return kInvalid;  // keeps the sum below from overflowing
+  const int64_t body_bytes = (n_chunks - 1) * chunk_bytes + last_bytes;
+  if (head + body_bytes / 4 + tail != n) return kInvalid;
+  if (((s + 4 * head) & 15u) != 0 || ((d + 4 * head) & 15u) != 0) return kInvalid;
+  int64_t smem = static_cast<int64_t>(stages) * (chunk_bytes + 8);
+  if (smem > smem_optin) return kInvalid;
+  const int64_t share = smem_sm / ctas_per_sm - smem_reserved;  // at most ctas_per_sm per SM
+  if (share > smem) smem = share < smem_optin ? share : smem_optin;
+  if (grid < 1 || grid > (n_chunks + run - 1) / run) return kInvalid;  // >= 1 run per CTA
+
+  err = cudaFuncSetAttribute(stream_copy_f32_bulk_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stream_copy_f32_bulk_kernel<<<static_cast<unsigned int>(grid), kBulkThreads, static_cast<size_t>(smem), st>>>(
+      static_cast<const float*>(src), static_cast<float*>(dst), n, static_cast<int>(head),
+      static_cast<int>(tail), static_cast<uint32_t>(chunk_bytes), n_chunks,
+      static_cast<uint32_t>(last_bytes), stages, run);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -189,21 +189,30 @@ def measure_mxu_tflops(dim: int = 4096, iters: int = 5, device: DeviceLike = Non
     return flops / t / 1e12, ok, ratio
 
 
+#: the probe's addend as a 0-dim CPU tensor: on a CUDA input TensorIterator
+#: lifts it into the kernel as a scalar argument, so the kernel sees one
+#: contiguous input and takes its vectorised path. A 0-dim CUDA tensor is
+#: instead an operand broadcast with stride 0, which keeps the kernel off
+#: that path (about 16% slower than a copy on an H100, PERF.md).
+_PROBE_ONE = torch.ones((), dtype=torch.float32)
+
+
+def scale_add(x: torch.Tensor) -> torch.Tensor:
+    """The HBM probe's step, the reference's ``x * 1.0001 + 1.0``, as ONE
+    elementwise kernel with one read and one write: ``1 + 1.0001 * x``,
+    contracted to one fused multiply-add in fp32, as XLA computes it.
+    Written as ``x * 1.0001 + 1.0``, eager PyTorch would launch two
+    kernels and move twice the bytes, halving the reading."""
+    return torch.add(_PROBE_ONE, x, alpha=1.0001)
+
+
 def measure_hbm_gbps(mib: int = 512, iters: int = 5, device: DeviceLike = None
                      ) -> Tuple[float, bool]:
-    """Memory-bound scale-add ``x * 1.0001 + 1``: reads + writes `mib` MiB."""
+    """Memory-bound scale-add (:func:`scale_add`): reads + writes `mib` MiB."""
     dev = resolve_device(device)
     n = mib * 1024 * 1024 // 4  # fp32 elements
-    one = torch.ones((), dtype=torch.float32, device=dev)
-
-    def touch(x):
-        # one + 1.0001 * x as ONE elementwise kernel (one read, one write);
-        # written as x * 1.0001 + 1.0 eager PyTorch would launch two kernels
-        # and move twice the bytes, halving the reading
-        return torch.add(one, x, alpha=1.0001)
-
     x = torch.ones((n,), dtype=torch.float32, device=dev)
-    t, ok, _, _ = _chain_time(touch, x, iters, dev)
+    t, ok, _, _ = _chain_time(scale_add, x, iters, dev)
     bytes_moved = 2.0 * n * 4  # one read + one write of the array
     return bytes_moved / t / 1e9, ok
 
