@@ -12,8 +12,8 @@ Phases, each of which exits non-zero on failure:
    alignment of the two ends with their neighbours untouched, and a plan
    the C entry must refuse)
 4. each kernel's time beside its plain version, its library call and its
-   bound, at the shapes the main path gives it; K1 also across ring shapes
-   (chunk bytes, stages, CTAs per SM), and the HBM probe's one op beside it
+   bound, at the shapes the main path gives it; K1 also beside the HBM
+   probe's one op, which must run as one device kernel
 5. main path: the validator's ``workload-local`` sweep (matrix 512), then
    ``perf`` at the CLI defaults (4096 / 512 MiB); kernel launch counts are
    zeroed before and read after, and every kernel must have launched
@@ -99,10 +99,8 @@ def main() -> int:
     print(json.dumps({"build_s": round(time.perf_counter() - t0, 3), "per_source_s": built}))
     for name, log in _build.build_logs.items():
         print(f"-- ptxas {name}:\n{log.strip()}")
-    print(f"K1 ring: {k1.STAGES} stages x {k1.CHUNK_BYTES} B = "
-          f"{k1.STAGES * (k1.CHUNK_BYTES + 8)} B dynamic shared memory per CTA "
-          f"(barriers included; the request is raised to cap residency at "
-          f"{k1.CTAS_PER_SM} CTAs per SM), a run of {k1.RUN} chunks per CTA")
+    print(f"K1: bulk copies of {k1.CHUNK_BYTES} B, two per CTA, dynamic shared memory "
+          f"raised to cap residency at two CTAs per SM (csrc/stream_copy.cu)")
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -171,13 +169,8 @@ def main() -> int:
     phase("K1 timing")
     out = torch.empty_like(x_main)
     bytes_moved = 2 * x_main.numel() * 4
-    one_cuda = torch.ones((), device=dev)
     fns = {"kernel": k1.stream_copy, "plain": k1.stream_copy_reference,
-           "library": lambda t: out.copy_(t),
-           # the HBM probe's one op, and the form it replaced (addend a 0-dim
-           # CUDA tensor rather than a 0-dim CPU one)
-           "probe": scale_add,
-           "probe_cuda_addend": lambda t: torch.add(one_cuda, t, alpha=1.0001)}
+           "library": lambda t: out.copy_(t), "probe": scale_add}
     samples = {name: [] for name in fns}
     order = list(fns)
     for name in order + order[::-1]:
@@ -188,54 +181,14 @@ def main() -> int:
     print(json.dumps({"kernel": "stream_copy", "shape": list(x_main.shape),
                       "kernel_ms": timing["kernel"], "plain_ms": timing["plain"],
                       "library_ms": timing["library"], "probe_ms": timing["probe"],
-                      "probe_cuda_addend_ms": timing["probe_cuda_addend"],
                       "bound_ms": bound_ms, "gbps": gbps, "card": card}))
-    try:
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            scale_add(x_main)
-            torch.cuda.synchronize()
-        probe_kernels = [e.key for e in prof.key_averages() if e.device_time_total > 0]
-    except Exception as e:  # the profiler is a reading here, not a gate
-        probe_kernels = [f"profiler failed: {e}"]
-    print(f"probe device kernels (torch.profiler): {probe_kernels}")
-
-    # ring shapes: (chunk bytes, stages, run of chunks per CTA, CTAs per SM,
-    # grid); grid None is one run per CTA in address order (the default's
-    # layout), grid = SM count a persistent grid. The default comes first;
-    # then in-flight windows of 4, 8, 12 and 25 MiB at one ring shape, other
-    # ring shapes, and persistent grids.
-    configs = [(k1.CHUNK_BYTES, k1.STAGES, k1.RUN, k1.CTAS_PER_SM, None),
-               (16384, 2, 2, 1, None), (16384, 2, 2, 3, None), (16384, 2, 2, 6, None),
-               (32768, 2, 2, 1, None), (32768, 2, 2, 3, None), (16384, 4, 4, 1, None),
-               (16384, 4, 4, 3, None), (65536, 2, 1, 1, None), (16384, 4, 8, 1, None),
-               (32768, 6, 1, 1, sms), (16384, 4, 1, 1, sms), (16384, 4, 8, 1, sms)]
-    props = torch.cuda.get_device_properties(dev)
-    smem_sm = getattr(props, "shared_memory_per_multiprocessor", 233472)
-
-    def in_flight_mib(c) -> float:
-        """Bytes the chip keeps in flight: SMs x resident CTAs x loads per CTA."""
-        chunk_b, stages, run, ctas, grid = c
-        resident = min(ctas, smem_sm // (stages * (chunk_b + 8) + 1024))
-        ctas_total = min(grid or 10**9, sms * resident)
-        return ctas_total * min(stages, run if grid is None else stages) * chunk_b / 2**20
-    config_ms = {c: [] for c in configs}
-    for c in configs:  # each ring shape bit-exact before it is timed
-        y = k1.launch(x_main, torch.empty_like(x_main), chunk_bytes=c[0], stages=c[1],
-                      run=c[2], ctas_per_sm=c[3], grid=c[4])
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        scale_add(x_main)
         torch.cuda.synchronize()
-        check(bits_equal(y, x_main), f"stream_copy ring shape {c} differs from its input")
-        del y
-    for c in configs + configs[::-1]:
-        config_ms[c].append(cuda_ms(
-            lambda t: k1.launch(t, out, chunk_bytes=c[0], stages=c[1], run=c[2],
-                                ctas_per_sm=c[3], grid=c[4]), x_main, reps=50))
-    print(json.dumps({"k1_ring_shapes": [
-        {"chunk_bytes": c[0], "stages": c[1], "run": c[2], "ctas_per_sm": c[3],
-         "grid": "one run per CTA" if c[4] is None else c[4],
-         "in_flight_mib": in_flight_mib(c), "ms": statistics.median(v),
-         "gbps": bytes_moved / statistics.median(v) / 1e6}
-        for c, v in config_ms.items()], "copy_ms": timing["library"], "card": card}))
+    probe_kernels = [e.key for e in prof.key_averages() if e.device_time_total > 0]
+    print(f"probe device kernels (torch.profiler): {probe_kernels}")
+    check(len(probe_kernels) == 1, f"the HBM probe ran {len(probe_kernels)} device kernels")
     del x_main, out, fns
 
     phase("main path: workload-local, then perf")

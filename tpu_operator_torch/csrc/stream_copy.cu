@@ -15,33 +15,32 @@
 // Design: a copy needs many bytes in flight and no instruction per byte, so
 // the aligned body moves through the Tensor Memory Accelerator as 1-D bulk
 // copies (cp.async.bulk, no tensor map) global -> shared -> global, as the
-// TPU kernel streams through VMEM. Each CTA keeps a ring of `stages` chunk
-// buffers in dynamic shared memory with one mbarrier each, and one thread
-// drives it: it issues the first `stages` loads, waits for the oldest
-// load's barrier phase, issues that chunk's bulk store, and refills the
-// buffer the previous chunk used once that chunk's store has finished
-// reading it (wait_group.read 1). The ring is written and read by the async
-// proxy only (bulk load, bulk store), so no proxy fence is needed between a
-// stage's load and its store; the one generic-proxy write, mbarrier.init,
-// is fenced before the first bulk load.
+// TPU kernel streams through VMEM. CTA b copies chunks [b * kRun, b * kRun +
+// kRun), one shared-memory buffer and one mbarrier per chunk, and one thread
+// drives it: it issues every load (mbarrier.arrive.expect_tx, then the bulk
+// load), waits for each chunk's barrier in turn, issues that chunk's bulk
+// store, and ends with wait_group 0 so the buffers outlive the stores that
+// read them. The buffers are written and read by the async proxy only (bulk
+// load, bulk store), so no proxy fence is needed between a load and its
+// store; the one generic-proxy write, mbarrier.init, is fenced before the
+// first bulk load.
 //
 // What the card rewards is a compact window: the bytes in flight should be
 // about what covers the memory latency (some 8 MiB on an H100) and lie
-// close together. Chunks are dealt to CTAs block-cyclically, runs of `run`
-// consecutive chunks in turn; the launcher's default is one run per CTA
-// (grid = n_chunks / run), so CTAs start in address order and the window
-// moves through the array as a plain copy's does, and the dynamic
-// shared-memory request is raised to the SM's share for `ctas_per_sm` CTAs,
-// which caps how many CTAs, and so how many bytes, are in flight per SM.
-// A persistent grid (one CTA per SM, chunks blockIdx.x + k * gridDim.x)
-// lets the CTAs drift apart over their ~120 chunks each and measured about
-// 3% slower; a window of three times the size about 1% slower (PERF.md).
+// close together. CTAs start in address order, so the window moves through
+// the array as a plain copy's does, and the dynamic shared-memory request
+// is raised to the SM's share for kCtasPerSm CTAs, which caps how many CTAs,
+// and so how many bytes, are in flight per SM: 132 SMs x 2 CTAs x 2 chunks x
+// 16 KiB = 8.25 MiB. A persistent grid (one CTA per SM, chunks blockIdx.x +
+// k * gridDim.x, a refilled ring) lets the CTAs drift apart and measured
+// about 4% slower; a window of three times the size about 1% slower
+// (PERF.md).
 //
 // The launch plan (kernels/stream_copy.py:launch_plan) is computed by the
 // caller and validated here: a scalar head of fewer than 4 elements up to
 // the first 16-byte boundary (bulk copies need 16-byte-aligned global
 // addresses on both ends and sizes that are multiples of 16 B), n_chunks
-// bulk chunks of chunk_bytes with a last one of last_bytes, and a scalar
+// bulk chunks of kChunkBytes with a last one of last_bytes, and a scalar
 // tail of fewer than 4 elements. When source and destination are
 // misaligned relative to each other no bulk pairing exists: the plan is
 // then head = n, no chunks, and the whole range takes a grid-stride scalar
@@ -52,7 +51,10 @@
 
 namespace {
 
-constexpr int kBulkThreads = 32;  // lane 0 drives the ring; lanes 0-3 copy head and tail
+constexpr int kBulkThreads = 32;  // lane 0 drives the copies; lanes 0-3 copy head and tail
+constexpr int64_t kChunkBytes = 16 * 1024;  // one bulk copy; kernels/stream_copy.py:CHUNK_BYTES
+constexpr int kRun = 2;                     // chunks per CTA, a buffer and an mbarrier each
+constexpr int kCtasPerSm = 2;               // resident CTAs per SM, capped by shared memory
 constexpr int kScalarThreads = 256;
 constexpr int kScalarBlocksPerSm = 8;
 
@@ -96,9 +98,9 @@ __device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t byt
 
 __global__ void __launch_bounds__(kBulkThreads)
 stream_copy_f32_bulk_kernel(const float* __restrict__ src, float* __restrict__ dst,
-                            int64_t n, int head, int tail, uint32_t chunk_bytes,
-                            int64_t n_chunks, uint32_t last_bytes, int stages, int run) {
-  extern __shared__ __align__(128) unsigned char ring[];
+                            int64_t n, int head, int tail, int64_t n_chunks,
+                            uint32_t last_bytes) {
+  extern __shared__ __align__(128) unsigned char bufs[];
 
   if (blockIdx.x == 0) {
     const int lane = static_cast<int>(threadIdx.x);
@@ -109,43 +111,28 @@ stream_copy_f32_bulk_kernel(const float* __restrict__ src, float* __restrict__ d
 
   const char* body_src = reinterpret_cast<const char*>(src + head);
   char* body_dst = reinterpret_cast<char*>(dst + head);
-  const uint32_t buf0 = shared_addr(ring);
-  const uint32_t bar0 = buf0 + static_cast<uint32_t>(stages) * chunk_bytes;
+  const uint32_t buf0 = shared_addr(bufs);
+  const uint32_t bar0 = buf0 + kRun * static_cast<uint32_t>(kChunkBytes);
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kRun;
+  const int count = n_chunks - first < kRun ? static_cast<int>(n_chunks - first) : kRun;
+  auto bytes_of = [&](int64_t c) {
+    return c == n_chunks - 1 ? last_bytes : static_cast<uint32_t>(kChunkBytes);
+  };
 
-  for (int s = 0; s < stages; ++s) mbar_init(bar0 + 8u * s);
+  for (int i = 0; i < count; ++i) mbar_init(bar0 + 8u * i);
   asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 
-  // block-cyclic: runs of `run` consecutive chunks dealt to the CTAs in turn;
-  // this CTA's k-th chunk is chunk_of(k), for k < count
-  const int64_t cycle = static_cast<int64_t>(gridDim.x) * run;
-  const int64_t rem = n_chunks % cycle - static_cast<int64_t>(blockIdx.x) * run;
-  const int64_t count = n_chunks / cycle * run + (rem < 0 ? 0 : rem < run ? rem : run);
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * run;
-  auto chunk_of = [&](int64_t k) { return k / run * cycle + first + k % run; };
-  auto load = [&](int64_t k) {
-    const int s = static_cast<int>(k % stages);
-    const int64_t c = chunk_of(k);
-    const uint32_t bytes = c == n_chunks - 1 ? last_bytes : chunk_bytes;
-    mbar_expect_tx(bar0 + 8u * s, bytes);
-    bulk_load(buf0 + s * chunk_bytes, body_src + c * static_cast<int64_t>(chunk_bytes), bytes,
-              bar0 + 8u * s);
-  };
-
-  const int64_t prologue = count < stages ? count : stages;
-  for (int64_t k = 0; k < prologue; ++k) load(k);
-  for (int64_t k = 0; k < count; ++k) {
-    const int s = static_cast<int>(k % stages);
-    mbar_wait(bar0 + 8u * s, static_cast<uint32_t>((k / stages) & 1));
-    const int64_t c = chunk_of(k);
-    const uint32_t bytes = c == n_chunks - 1 ? last_bytes : chunk_bytes;
-    bulk_store(body_dst + c * static_cast<int64_t>(chunk_bytes), buf0 + s * chunk_bytes, bytes);
-    // refill the stage chunk k - 1 used once its store has read it; the
-    // store just issued (chunk k) may stay in flight
-    if (k >= 1 && k - 1 + stages < count) {
-      asm volatile("cp.async.bulk.wait_group.read 1;" ::: "memory");
-      load(k - 1 + stages);
-    }
+  for (int i = 0; i < count; ++i) {
+    const uint32_t bytes = bytes_of(first + i);
+    mbar_expect_tx(bar0 + 8u * i, bytes);
+    bulk_load(buf0 + i * static_cast<uint32_t>(kChunkBytes),
+              body_src + (first + i) * kChunkBytes, bytes, bar0 + 8u * i);
+  }
+  for (int i = 0; i < count; ++i) {
+    mbar_wait(bar0 + 8u * i, 0);
+    bulk_store(body_dst + (first + i) * kChunkBytes,
+               buf0 + i * static_cast<uint32_t>(kChunkBytes), bytes_of(first + i));
   }
   asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
@@ -167,17 +154,13 @@ constexpr int kInvalid = static_cast<int>(cudaErrorInvalidValue);
 extern "C" {
 
 // Copies n fp32 elements src -> dst on `stream` by the launch plan (head,
-// chunk_bytes, n_chunks, last_bytes, tail): `grid` CTAs, dealt runs of `run`
-// consecutive chunks in turn, each with a ring of `stages` chunk buffers,
-// at most `ctas_per_sm` of them resident on an SM.
+// chunk_bytes, n_chunks, last_bytes, tail), kRun chunks per CTA.
 // Returns the CUDA error of the launch (0 on success), or
 // cudaErrorInvalidValue for a plan that does not cover [0, n) exactly with
-// aligned bulk copies or a ring that leaves a CTA without a chunk; the
-// caller raises on anything but 0.
+// aligned bulk copies of kChunkBytes; the caller raises on anything but 0.
 int tpuop_stream_copy_f32(const void* src, void* dst, int64_t n, int64_t head,
                           int64_t chunk_bytes, int64_t n_chunks, int64_t last_bytes,
-                          int64_t tail, int stages, int run, int grid, int ctas_per_sm,
-                          void* stream) {
+                          int64_t tail, void* stream) {
   const uintptr_t s = reinterpret_cast<uintptr_t>(src);
   const uintptr_t d = reinterpret_cast<uintptr_t>(dst);
   if (n <= 0 || head < 0 || tail < 0 || n_chunks < 0 || ((s | d) & 3u) != 0) return kInvalid;
@@ -200,6 +183,15 @@ int tpuop_stream_copy_f32(const void* src, void* dst, int64_t n, int64_t head,
     return static_cast<int>(cudaGetLastError());
   }
 
+  if (head >= 4 || tail >= 4 || chunk_bytes != kChunkBytes) return kInvalid;
+  if (last_bytes <= 0 || last_bytes > kChunkBytes || last_bytes % 16 != 0) return kInvalid;
+  if (n_chunks > (n * 4) / kChunkBytes + 1) return kInvalid;  // keeps the sum below from overflowing
+  const int64_t body_bytes = (n_chunks - 1) * kChunkBytes + last_bytes;
+  if (head + body_bytes / 4 + tail != n) return kInvalid;
+  if (((s + 4 * head) & 15u) != 0 || ((d + 4 * head) & 15u) != 0) return kInvalid;
+  const int64_t grid = (n_chunks + kRun - 1) / kRun;
+  if (grid > 0x7fffffff) return kInvalid;
+
   int smem_optin = 0;
   int smem_sm = 0;
   int smem_reserved = 0;
@@ -209,26 +201,18 @@ int tpuop_stream_copy_f32(const void* src, void* dst, int64_t n, int64_t head,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&smem_reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (head >= 4 || tail >= 4 || stages < 2 || run < 1 || ctas_per_sm < 1) return kInvalid;
-  if (chunk_bytes <= 0 || chunk_bytes % 16 != 0 || chunk_bytes > smem_optin) return kInvalid;
-  if (last_bytes <= 0 || last_bytes > chunk_bytes || last_bytes % 16 != 0) return kInvalid;
-  if (n_chunks > (n * 4) / chunk_bytes + 1) return kInvalid;  // keeps the sum below from overflowing
-  const int64_t body_bytes = (n_chunks - 1) * chunk_bytes + last_bytes;
-  if (head + body_bytes / 4 + tail != n) return kInvalid;
-  if (((s + 4 * head) & 15u) != 0 || ((d + 4 * head) & 15u) != 0) return kInvalid;
-  int64_t smem = static_cast<int64_t>(stages) * (chunk_bytes + 8);
-  if (smem > smem_optin) return kInvalid;
-  const int64_t share = smem_sm / ctas_per_sm - smem_reserved;  // at most ctas_per_sm per SM
+  // the buffers and barriers, raised to the SM's share for kCtasPerSm CTAs
+  int64_t smem = kRun * (kChunkBytes + 8);
+  const int64_t share = smem_sm / kCtasPerSm - smem_reserved;
   if (share > smem) smem = share < smem_optin ? share : smem_optin;
-  if (grid < 1 || grid > (n_chunks + run - 1) / run) return kInvalid;  // >= 1 run per CTA
+  if (smem > smem_optin) return kInvalid;
 
   err = cudaFuncSetAttribute(stream_copy_f32_bulk_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   stream_copy_f32_bulk_kernel<<<static_cast<unsigned int>(grid), kBulkThreads, static_cast<size_t>(smem), st>>>(
       static_cast<const float*>(src), static_cast<float*>(dst), n, static_cast<int>(head),
-      static_cast<int>(tail), static_cast<uint32_t>(chunk_bytes), n_chunks,
-      static_cast<uint32_t>(last_bytes), stages, run);
+      static_cast<int>(tail), n_chunks, static_cast<uint32_t>(last_bytes));
   return static_cast<int>(cudaGetLastError());
 }
 

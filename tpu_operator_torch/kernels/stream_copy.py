@@ -3,9 +3,10 @@
 Replaces ``tpu_operator/validator/perf.py:measure_hbm_pallas_gbps`` (the
 Pallas ``copy_kernel``); the CUDA source is ``csrc/stream_copy.cu``. It is
 bound by device-memory bandwidth: one read and one write of every element.
-The aligned body moves as bulk asynchronous copies (TMA) through a ring of
-shared-memory stages; :func:`launch_plan` cuts the range into a scalar
-head, bulk chunks and a scalar tail, and the C entry checks that plan.
+The aligned body moves as bulk asynchronous copies (TMA) through shared
+memory, two chunks per CTA; :func:`launch_plan` cuts the range into a
+scalar head, bulk chunks and a scalar tail, and the C entry checks that
+plan.
 
 ``stream_copy`` launches the kernel for a CUDA tensor and raises if it
 cannot; it takes the plain version only for a tensor on the CPU.
@@ -14,7 +15,7 @@ cannot; it takes the plain version only for a tensor on the CPU.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
@@ -24,14 +25,10 @@ from . import _build
 #: do not count); callers reset it to 0 to see what a run launched
 launches = 0
 
-#: bytes of one bulk copy, ring stages per CTA, consecutive chunks per CTA
-#: and CTAs resident per SM, chosen on the card (PERF.md): one short run
-#: per CTA, CTAs launched in address order, 132 SMs x 2 CTAs x 2 chunks x
-#: 16 KiB = 8.25 MiB in flight on an H100
+#: bytes of one bulk copy: ``kChunkBytes`` of ``csrc/stream_copy.cu``, which
+#: refuses a plan cut to any other size (the kernel's shape, chosen on the
+#: card, is fixed there: PERF.md)
 CHUNK_BYTES = 16 * 1024
-STAGES = 2
-RUN = 2
-CTAS_PER_SM = 2
 
 #: bulk copies need 16-byte-aligned global addresses and 16-byte multiples
 BULK_ALIGN = 16
@@ -50,26 +47,22 @@ class Plan(NamedTuple):
     tail: int
 
 
-def launch_plan(src_addr: int, dst_addr: int, n: int,
-                chunk_bytes: int = CHUNK_BYTES) -> Plan:
+def launch_plan(src_addr: int, dst_addr: int, n: int) -> Plan:
     """The launch plan for copying ``n`` fp32 elements from byte address
     ``src_addr`` to ``dst_addr`` (both multiples of 4)."""
-    if chunk_bytes <= 0 or chunk_bytes % BULK_ALIGN:
-        raise ValueError(f"chunk_bytes must be a positive multiple of {BULK_ALIGN}, "
-                         f"got {chunk_bytes}")
     if n <= 0 or src_addr % _ELEM or dst_addr % _ELEM:
         raise ValueError(f"launch_plan takes n > 0 and 4-byte-aligned addresses, got "
                          f"n={n} src={src_addr:#x} dst={dst_addr:#x}")
-    scalar = Plan(head=n, chunk_bytes=chunk_bytes, n_chunks=0, last_bytes=0, tail=0)
+    scalar = Plan(head=n, chunk_bytes=CHUNK_BYTES, n_chunks=0, last_bytes=0, tail=0)
     if (src_addr - dst_addr) % BULK_ALIGN:
         return scalar  # misaligned relative to each other: no bulk pairing
     head = (-src_addr) % BULK_ALIGN // _ELEM
     body_bytes = max(n - head, 0) * _ELEM // BULK_ALIGN * BULK_ALIGN
     if body_bytes == 0:
         return scalar
-    n_chunks = -(-body_bytes // chunk_bytes)
-    return Plan(head=head, chunk_bytes=chunk_bytes, n_chunks=n_chunks,
-                last_bytes=body_bytes - (n_chunks - 1) * chunk_bytes,
+    n_chunks = -(-body_bytes // CHUNK_BYTES)
+    return Plan(head=head, chunk_bytes=CHUNK_BYTES, n_chunks=n_chunks,
+                last_bytes=body_bytes - (n_chunks - 1) * CHUNK_BYTES,
                 tail=n - head - body_bytes // _ELEM)
 
 
@@ -83,8 +76,7 @@ def _entry():
     fn = lib.tpuop_stream_copy_f32
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                    ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_int64, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.tpuop_cuda_error_string.argtypes = [ctypes.c_int]
     lib.tpuop_cuda_error_string.restype = ctypes.c_char_p
@@ -109,23 +101,16 @@ def _check_pair(x: torch.Tensor, out: torch.Tensor) -> None:
                          f"{out.device} {tuple(out.shape)}")
 
 
-def run_plan(x: torch.Tensor, out: torch.Tensor, plan: Plan, stages: int = STAGES,
-             run: int = RUN, ctas_per_sm: int = CTAS_PER_SM, grid: Optional[int] = None
-             ) -> torch.Tensor:
+def run_plan(x: torch.Tensor, out: torch.Tensor, plan: Plan) -> torch.Tensor:
     """Launch the kernel copying CUDA tensor ``x`` into ``out`` by ``plan``
-    on the current stream: ``grid`` CTAs (default one run of ``run``
-    chunks each), each with a ring of ``stages`` chunk buffers, at most
-    ``ctas_per_sm`` resident on an SM. Raises if the C entry refuses the
-    plan or the launch fails. No synchronisation."""
+    on the current stream. Raises if the C entry refuses the plan or the
+    launch fails. No synchronisation."""
     global launches
     _check_pair(x, out)
     lib, fn = _entry()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        if grid is None:
-            grid = max(1, -(-plan.n_chunks // run))
-        err = fn(x.data_ptr(), out.data_ptr(), x.numel(), *plan, stages, run, grid,
-                 ctas_per_sm, stream)
+        err = fn(x.data_ptr(), out.data_ptr(), x.numel(), *plan, stream)
     if err != 0:
         raise RuntimeError("stream_copy launch failed: "
                            f"{lib.tpuop_cuda_error_string(err).decode()} ({err})")
@@ -133,14 +118,11 @@ def run_plan(x: torch.Tensor, out: torch.Tensor, plan: Plan, stages: int = STAGE
     return out
 
 
-def launch(x: torch.Tensor, out: torch.Tensor, chunk_bytes: int = CHUNK_BYTES,
-           **config) -> torch.Tensor:
+def launch(x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """Launch the kernel copying CUDA tensor ``x`` into ``out`` (same shape,
     fp32, contiguous, same device; either may start at any 4-byte offset)
-    on the current stream. ``config`` overrides :func:`run_plan`'s ring
-    shape. No synchronisation."""
-    plan = launch_plan(x.data_ptr(), out.data_ptr(), x.numel(), chunk_bytes)
-    return run_plan(x, out, plan, **config)
+    on the current stream. No synchronisation."""
+    return run_plan(x, out, launch_plan(x.data_ptr(), out.data_ptr(), x.numel()))
 
 
 def stream_copy(x: torch.Tensor) -> torch.Tensor:
