@@ -18,17 +18,33 @@ Phases, each of which exits non-zero on failure:
    ``perf`` at the CLI defaults (4096 / 512 MiB); kernel launch counts are
    zeroed before and read after, and every kernel must have launched
 6. the graft entry points (single-GPU check, 1-rank mesh dry run)
+7. serving: the decode step's CUDA graph replay against the eager step,
+   bit-equal on seeded integer inputs at batch 8, dim 256; both steps
+   timed; then ``serving`` at the CLI defaults (ladder 1, 4, 8, 32 steps,
+   dim 256) must pass with a three-point frontier on platform ``gpu``.
+   The serving path launches no hand-written kernel: its two products are
+   cuBLAS, as the reference's are XLA dots
+8. prewarm: in subprocesses (so the earlier phases' K1 stays the one built
+   in phase 2), ``prewarm`` builds K1 into a fresh
+   ``$GPU_COMPILATION_CACHE_DIR``; a second process with no ``nvcc``
+   reachable loads it from there and runs it bit-exact
+
+``workload`` spawns a pod through an apiserver, which this machine lacks:
+the CPU tests (``tests/test_torch_join_chain.py``) cover it.
 
 Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Needs a CUDA device and the rest of the repository beside this file.
 """
 
+import glob
 import json
+import os
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import torch
 
@@ -63,6 +79,170 @@ def cuda_ms(fn, x, reps: int) -> float:
 
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def step_wall_ms(step, load, n: int) -> list:
+    """Per-step wall milliseconds as the probe times a step: the buffers
+    are written and the card idle before the clock starts, and the window
+    ends with a synchronize."""
+    out = []
+    for i in range(n):
+        load(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def serving_phase(dev, gen, card) -> None:
+    from tpu_operator_torch.device import set_numerics
+    from tpu_operator_torch.kernels import stream_copy as k1
+    from tpu_operator_torch.serving import probe
+    from tpu_operator_torch.validator import main as vmain
+    from tpu_operator_torch.validator.status import StatusFiles
+
+    set_numerics()
+    batch, dim = 8, 256  # the deepest rung and the width of the CLI defaults
+    engine = probe.DecodeEngine(batch, dim, dev)
+    engine.w.copy_(torch.randint(-2, 3, (dim, dim), generator=gen, device=dev))
+    engine.tokens.copy_(torch.randint(-2, 3, (batch, dim), generator=gen, device=dev))
+    t0 = time.perf_counter()
+    engine.capture()
+    capture_s = time.perf_counter() - t0
+    # the eager step, run under the sync debugger: any op that waits on the
+    # host would also have refused capture
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            probe.engine_step(*engine.args())
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    syncs = sorted({str(w.message).splitlines()[0] for w in caught
+                    if "called a synchronizing" in str(w.message)})
+    print(json.dumps({"capture_s": capture_s, "host_syncs_in_eager_step": syncs}))
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        engine.graph.replay()
+        torch.cuda.synchronize()
+    print(json.dumps({"graph_replay_kernels_us": [
+        (e.key[:80], round(e.device_time_total, 3))
+        for e in prof.key_averages() if e.device_time_total > 0]}))
+
+    n_pages = batch + 1
+    for trial in range(4):
+        pages = torch.randint(-8, 9, (n_pages, probe.PAGE_SIZE, dim), generator=gen,
+                              device=dev).float()
+        table = torch.randperm(n_pages, generator=gen, device=dev)[:batch]
+        active = torch.randint(0, 2, (batch,), generator=gen, device=dev).float()
+        active[trial] = 0.0
+        admit = torch.randint(0, 2, (batch,), generator=gen, device=dev).float()
+        eager_pages = pages.clone()
+        eager_out, _ = probe.engine_step(engine.tokens, eager_pages, table, active, admit,
+                                         engine.w)
+        engine.pages.copy_(pages)
+        engine.page_table.copy_(table)
+        engine.active.copy_(active)
+        engine.admit.copy_(admit)
+        out = engine.step()
+        torch.cuda.synchronize()
+        check(torch.equal(out, eager_out), f"graph argmax differs from the eager step ({trial})")
+        check(bits_equal(engine.pages, eager_pages),
+              f"graph cache differs from the eager step ({trial})")
+    print("graph replay == eager step: argmax and cache bit-equal on 4 seeded integer inputs")
+
+    # time both at batch 8: the probe's per-step window, in turns (eager,
+    # graph, graph, eager), and back-to-back device time by CUDA events
+    engine.pages.zero_()
+    engine.set_depth(batch)
+    host_gen = torch.Generator().manual_seed(0)
+    tables = [torch.randperm(n_pages, generator=host_gen)[:batch].tolist() for _ in range(64)]
+
+    def load(i):
+        engine.load(tables[i % 64], admit_slot=i % batch)
+
+    eager = lambda: probe.engine_step(*engine.args())  # noqa: E731
+    wall = {"eager": [], "graph": []}
+    for name in ("eager", "graph", "graph", "eager"):
+        wall[name] += step_wall_ms(eager if name == "eager" else engine.step, load, 200)
+    device_ms = {"eager": cuda_ms(lambda _: eager(), None, reps=500),
+                 "graph": cuda_ms(lambda _: engine.graph.replay(), None, reps=500)}
+    steps = {name: {"wall_p50_ms": statistics.median(v),
+                    "wall_p99_ms": probe._percentile(sorted(v), 0.99),
+                    "device_ms": device_ms[name], "samples": len(v)}
+             for name, v in wall.items()}
+    print(json.dumps({"serving_step": steps, "batch": batch, "dim": dim, "card": card}))
+    del engine
+
+    status_dir = tempfile.mkdtemp(prefix="chip-smoke-serving-")
+    k1.launches = 0
+    rc = vmain.run(["-c", "serving", f"--status-dir={status_dir}"])
+    check(k1.launches == 0, f"the serving path launched K1 {k1.launches} times")
+    report = StatusFiles(status_dir).read("serving")
+    check(rc == 0, f"serving exited {rc}: {report and report.get('failures')}")
+    check(report.get("passed") is True and report.get("platform") == "gpu",
+          f"serving barrier {report}")
+    check(report["failures"] == [], f"serving failures {report['failures']}")
+    points = report["frontier"]["points"]
+    check([p["batch"] for p in points] == [1, 4, 8] and
+          all(p["samples"] >= probe.MIN_FRONTIER_SAMPLES for p in points),
+          f"frontier {points}")
+    check(report["frontier"]["model_dim"] == 256, "probe width")
+    print(json.dumps({"serving": {k: report[k] for k in (
+        "compile_s", "elapsed_s", "decode_p50_ms", "decode_p99_ms",
+        "throughput_tokens_per_s", "slo_attainment", "n_devices")},
+        "rungs": [{k: r[k] for k in ("batch", "samples", "p50_ms", "p99_ms", "mean_ms",
+                                     "tokens_per_s")} for r in report["batches"]],
+        "card": card}))
+
+
+def prewarm_phase(card) -> None:
+    """``prewarm`` in a fresh cache dir, then a process that cannot reach
+    ``nvcc`` loads and runs K1 from it."""
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-kernel-cache-") as cache:
+        env = dict(os.environ, GPU_COMPILATION_CACHE_DIR=cache)
+        cold = subprocess.run([sys.executable, "-m", "tpu_operator_torch.cmd.validator",
+                               "-c", "prewarm"], env=env, capture_output=True, text=True,
+                              timeout=300)
+        check(cold.returncode == 0, f"prewarm exited {cold.returncode}: {cold.stderr[-2000:]}")
+        lines = [ln for ln in cold.stdout.splitlines() if ln.startswith("{")]
+        check(bool(lines), f"prewarm printed no result: {cold.stderr[-2000:]}")
+        cold_result = json.loads(lines[-1])
+        built = glob.glob(os.path.join(cache, "libstream_copy-*.so"))
+        check(len(built) == 1, f"K1 not built into the cache dir: {os.listdir(cache)}")
+
+        no_nvcc = [d for d in os.environ.get("PATH", "").split(os.pathsep)
+                   if d and not os.access(os.path.join(d, "nvcc"), os.X_OK)]
+        env.update(PATH=os.pathsep.join(no_nvcc), CUDA_HOME=os.path.join(cache, "no-cuda"))
+        script = (
+            "import json, torch\n"
+            "from tpu_operator_torch.kernels import _build, stream_copy as k1\n"
+            "from tpu_operator_torch.validator.workload import prewarm_compile_cache\n"
+            "try:\n"
+            "    _build.find_nvcc()\n"
+            "    reachable = True\n"
+            "except RuntimeError:\n"
+            "    reachable = False\n"
+            "warm = prewarm_compile_cache()\n"
+            "x = torch.randn(1_000_003, device='cuda')\n"
+            "y = k1.stream_copy(x)\n"
+            "torch.cuda.synchronize()\n"
+            "print(json.dumps({'nvcc_reachable': reachable, 'warm': warm,\n"
+            "                  'lib': str(_build.library_path('stream_copy')),\n"
+            "                  'launches': k1.launches, 'equal': torch.equal(x, y)}))\n")
+        warm = subprocess.run([sys.executable, "-c", script], env=env, capture_output=True,
+                              text=True, timeout=300)
+        check(warm.returncode == 0, f"warm load failed: {warm.stderr[-2000:]}")
+        warm_result = json.loads(warm.stdout.strip().splitlines()[-1])
+        check(warm_result["nvcc_reachable"] is False, "nvcc was reachable in the warm process")
+        check(warm_result["lib"] == built[0], f"warm process loaded {warm_result['lib']}")
+        check(warm_result["equal"] and warm_result["launches"] == 1,
+              f"K1 from the cache: {warm_result}")
+        print(json.dumps({"prewarm_cold": cold_result, "prewarm_warm": warm_result["warm"],
+                          "card": card}))
 
 
 def main() -> int:
@@ -225,6 +405,12 @@ def main() -> int:
     check(bool(checks.all()) and tuple(c.shape) == (512, 512), f"entry checks {checks}")
     graft_entry.dryrun_multichip(1)
     print("entry ok, dryrun_multichip(1) ok")
+
+    phase("serving: the decode step as a CUDA graph")
+    serving_phase(dev, gen, card)
+
+    phase("prewarm: K1 into a fresh build cache, then loaded without nvcc")
+    prewarm_phase(card)
 
     print(json.dumps({"kernels": [{
         "name": "stream_copy",

@@ -52,7 +52,9 @@ def test_port_module_list_is_complete():
     for expected in ("consts", "utils", "device", "ranks", "graft_entry",
                      "validator.status", "validator.driver", "validator.plugin",
                      "validator.workload", "validator.perf", "validator.main",
-                     "kernels._build", "kernels.stream_copy", "cmd.validator"):
+                     "kernels._build", "kernels.stream_copy", "cmd.validator",
+                     "client", "serving", "serving.frontier", "serving.probe",
+                     "validator.serving"):
         assert f"tpu_operator_torch.{expected}" in names
 
 

@@ -25,3 +25,31 @@ GPU_DEV_GLOBS_ENV = "GPU_DEV_GLOBS"
 
 #: schedulable extended resource
 GPU_RESOURCE_NAME = "nvidia.com/gpu"
+
+# -- build cache ----------------------------------------------------------------
+#: host-path directory the CUDA sources are built into, so that a prewarm
+#: (or any earlier validation) leaves libraries a later process loads
+#: without ``nvcc``; unset means the build directory under the checkout
+COMPILATION_CACHE_DIR_ENV = "GPU_COMPILATION_CACHE_DIR"
+
+# -- node health and serving ----------------------------------------------------
+# Label and annotation keys stay the operator's until its control plane is
+# ported; env names take GPU_ where the TPU operator's take TPU_.
+#: per-node chip-health state machine label (healthy -> degraded ->
+#: quarantined -> remediating -> recovered | failed)
+HEALTH_STATE_LABEL = "tpu.ai/health-state"
+#: pod env that carries the node's health state when the template stamps it
+HEALTH_STATE_ENV = "GPU_HEALTH_STATE"
+#: pod env that carries the node template hash the serving probe ran under
+TEMPLATE_HASH_ENV = "GPU_TEMPLATE_HASH"
+#: the node's serving-barrier verdict ("passed" | "failed" | "corrupt")
+SERVING_SLO_LABEL = "tpu.ai/serving-slo"
+#: measured serving numbers for the verdict label (annotation: commas and
+#: decimals are not label-safe)
+SERVING_SLO_ANNOTATION = "tpu.ai/serving-slo-detail"
+#: the node's measured latency-vs-throughput curve, compact codec
+#: (serving/frontier.py)
+SERVING_FRONTIER_ANNOTATION = "tpu.ai/serving-frontier"
+#: operator -> node-agent re-probe request (template hash that invalidated
+#: the node's frontier)
+SERVING_REPROBE_ANNOTATION = "tpu.ai/serving-reprobe"

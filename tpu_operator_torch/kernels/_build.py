@@ -2,10 +2,13 @@
 
 Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds, not minutes),
-built at first use into ``build/tpu_operator_torch/`` at the repository
-root and keyed by a hash of the source and the flags: an edited source
-builds anew, an unchanged one loads from the cache. :func:`build_all` starts
-one ``nvcc`` per source, all at once.
+built at first use into the build directory and keyed by a hash of the
+source and the flags: an edited source builds anew, an unchanged one loads
+from the cache. The build directory is ``$GPU_COMPILATION_CACHE_DIR`` when
+that is set (a host path that outlives the pod, which the ``prewarm``
+component fills ahead of the validations), else ``build/tpu_operator_torch/``
+at the repository root. :func:`build_all` starts one ``nvcc`` per source,
+all at once.
 
 No fallback: a missing ``nvcc`` or a failed build raises.
 """
@@ -22,7 +25,10 @@ import time
 from pathlib import Path
 from typing import Dict, List
 
+from .. import consts
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
+#: the build directory when ``$GPU_COMPILATION_CACHE_DIR`` is unset
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpu_operator_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -47,13 +53,18 @@ def sources() -> List[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
+def build_dir() -> Path:
+    cache_dir = os.environ.get(consts.COMPILATION_CACHE_DIR_ENV)
+    return Path(cache_dir) if cache_dir else BUILD_DIR
+
+
 def library_path(name: str) -> Path:
     digest = hashlib.sha256()
     digest.update(" ".join(NVCC_FLAGS).encode())
     digest.update((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def _tmp(out: Path) -> Path:

@@ -5,16 +5,28 @@ Components:
 
 ==================  =========================================================
 driver              validate the CUDA driver library + device nodes; barrier
-plugin              wait for the GPU extended resource on this node
+plugin              wait for the GPU extended resource on this node;
+                    ``--prewarm`` builds the CUDA sources into the build
+                    cache in a background thread meanwhile
+workload            spawn a pod on this node that requests every GPU and
+                    runs ``workload-local``; write barrier
 workload-local      run the GPU health sweep in-process, one rank per GPU
 workload-multihost  one rank of a sweep spanning hosts (torch.distributed)
+prewarm             build the CUDA sources into ``$GPU_COMPILATION_CACHE_DIR``
+                    (never blocks: a failed warm-up just means the first
+                    validation builds them)
 perf                measured GEMM TFLOP/s, HBM GB/s (probe and hand-written
                     streaming kernel), NVLink all-reduce GB/s; optional
                     floors turn it into a gate
+serving             decode-step SLO probe, the step as one CUDA graph
+                    (p50/p99 latency, tokens/s over a batch ladder);
+                    health-gated — a quarantined node fails closed; writes
+                    its barrier on pass AND fail
 wait                block on another component's barrier (--for)
 ==================  =========================================================
 
-Everything runs on ``cuda`` unless ``--device=cpu`` is given.
+Everything that touches a device runs on ``cuda`` unless ``--device=cpu``
+is given.
 """
 
 from __future__ import annotations
@@ -24,6 +36,8 @@ import json
 import logging
 import os
 import sys
+import threading
+import time
 
 from .. import consts
 from .status import StatusFiles
@@ -39,8 +53,9 @@ def _default_coordinator() -> str:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="gpu-validator")
     p.add_argument("-c", "--component", required=True,
-                   choices=["driver", "plugin", "workload-local",
-                            "workload-multihost", "perf", "wait"])
+                   choices=["driver", "plugin", "workload", "workload-local",
+                            "workload-multihost", "prewarm", "perf", "serving",
+                            "wait"])
     p.add_argument("--device", default="cuda",
                    help="torch device to validate on (cuda; cpu for tests)")
     p.add_argument("--install-dir", default=consts.DEFAULT_DRIVER_LIB_DIR)
@@ -50,6 +65,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--timeout", type=float, default=300.0)
     p.add_argument("--poll", type=float, default=None,
                    help="plugin: resource poll period in seconds (default 5)")
+    p.add_argument("--prewarm", action="store_true",
+                   help="plugin: build the CUDA sources into the build cache "
+                        "in a background thread while polling for the "
+                        "resource, so the build rides a wait window")
     p.add_argument("--matrix-dim", type=int, default=512)
     p.add_argument("--perf-matrix-dim", type=int, default=4096)
     p.add_argument("--perf-hbm-mib", type=int, default=512)
@@ -60,6 +79,17 @@ def build_parser() -> argparse.ArgumentParser:
                    default=float(os.environ.get("MIN_HBM_GBPS", "0")))
     p.add_argument("--min-ici-gbps", type=float,
                    default=float(os.environ.get("MIN_ICI_GBPS", "0")))
+    p.add_argument("--serving-batch-sizes",
+                   default=os.environ.get("SERVING_BATCH_SIZES", "1,4,8"),
+                   help="comma-separated batch ladder for the serving probe")
+    p.add_argument("--serving-steps", type=int,
+                   default=int(os.environ.get("SERVING_STEPS", "32")))
+    p.add_argument("--max-decode-p99-ms", type=float,
+                   default=float(os.environ.get("MAX_DECODE_P99_MS", "200")))
+    p.add_argument("--min-tokens-per-s", type=float,
+                   default=float(os.environ.get("MIN_TOKENS_PER_S", "0")))
+    p.add_argument("--min-slo-attainment", type=float,
+                   default=float(os.environ.get("MIN_SLO_ATTAINMENT", "0.99")))
     p.add_argument("--coordinator", default=_default_coordinator(),
                    help="rendezvous: host:port (TCP) or a file:// URL")
     p.add_argument("--num-processes", type=int,
@@ -77,9 +107,16 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def make_client():
+    """The validator's apiserver client (:class:`~tpu_operator_torch.client.ApiClient`)."""
+    from ..client import ApiClient
+
+    return ApiClient.from_env()
+
+
 def run(argv=None, client=None) -> int:
-    """Run one component; ``client`` is the apiserver client the plugin
-    component reads the node through (see :mod:`.plugin`)."""
+    """Run one component; ``client`` is the apiserver client the ``plugin``,
+    ``workload`` and ``serving`` components use (default :func:`make_client`)."""
     args = build_parser().parse_args(argv)
     logging.basicConfig(level=getattr(logging, args.log_level.upper()),
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
@@ -103,11 +140,75 @@ def _dispatch(args, status, client) -> int:
         from . import plugin
 
         if client is None:
-            client = plugin.ApiNodeReader.from_env()
+            client = make_client()
+        # concurrent prewarm: the resource poll below blocks on the
+        # device-plugin DS rolling out, so the cold nvcc build runs in this
+        # thread's shadow instead of as its own serial init container
+        warm: dict = {}
+
+        def _prewarm() -> None:
+            from .workload import prewarm_compile_cache
+
+            try:
+                warm["result"] = prewarm_compile_cache(device=args.device)
+            except Exception as e:  # never fail the plugin gate over a warm-up
+                warm["error"] = str(e)
+
+        warm_thread = None
+        if args.prewarm:
+            warm_thread = threading.Thread(target=_prewarm, daemon=True,
+                                           name="prewarm-build")
+            warm_thread.start()
         kwargs = {} if args.poll is None else {"poll": args.poll}
         ok = plugin.validate(client, resource=args.resource, status=status,
                              timeout=args.timeout, **kwargs)
+        if warm_thread is not None:
+            # bounded join: an exited poll must not hang behind a wedged
+            # build — the first validation would just build the sources
+            warm_thread.join(timeout=max(30.0, args.timeout))
+            result = warm.get("result")
+            if result:
+                log.info("build cache warmed in %.2fs (%s), inside the plugin "
+                         "poll window", result["compile_s"], result["cache_dir"])
+            elif "error" in warm:
+                log.warning("concurrent prewarm failed (%s); the first "
+                            "validation builds the sources", warm["error"])
         return 0 if ok else 1
+
+    if component == "workload":
+        from .workload import spawn_workload_pod
+
+        if client is None:
+            client = make_client()
+        node_name = os.environ.get("NODE_NAME", "")
+        namespace = os.environ.get(consts.NAMESPACE_ENV, consts.DEFAULT_NAMESPACE)
+        image = os.environ.get("VALIDATOR_IMAGE", "")
+        if not node_name or not image:
+            log.error("workload: NODE_NAME and VALIDATOR_IMAGE required")
+            return 1
+        # a status record (NOT the workload barrier, which waiters would
+        # take as satisfied) that the handshake is open before the spawn
+        status.write("workload-handshake", {"node": node_name, "phase": "spawning"})
+        spawn_start = time.time()
+        ok = spawn_workload_pod(client, namespace, node_name, image,
+                                resource_name=args.resource, timeout=args.timeout,
+                                status_dir=args.status_dir)
+        # the pod mounts the status hostPath and its in-pod sweep writes the
+        # DETAILED barrier (per-GPU failed_chips) itself; a barrier stamped
+        # after spawn is that write — preserve it, the parent only knows the
+        # coarse pod phase
+        fresh = status.read("workload")
+        in_pod_wrote = bool(fresh) and fresh.get("timestamp", 0) >= spawn_start
+        if ok:
+            if not in_pod_wrote:
+                status.write("workload", {"mode": "pod"})
+            return 0
+        if ok is False and not in_pod_wrote:
+            # the pod RAN and failed without a detailed write: record the
+            # coarse regression. ok is None on timeout (scheduling or image
+            # trouble, not a GPU verdict): leave the previous barrier alone
+            status.write("workload", {"mode": "pod", "passed": False})
+        return 1
 
     if component == "workload-local":
         from .workload import ici_health_check
@@ -142,6 +243,24 @@ def _dispatch(args, status, client) -> int:
         status.write("workload", report.to_dict())
         return 0 if report.passed else 1
 
+    if component == "prewarm":
+        from .workload import prewarm_compile_cache
+
+        try:
+            result = prewarm_compile_cache(device=args.device)
+        except Exception as e:
+            # prewarm is an optimisation: a failed warm-up must never block
+            # the init chain — the first validation builds the sources
+            log.warning("build-cache prewarm failed (%s); the first validation "
+                        "builds the sources", e)
+            return 0
+        if result is None:
+            log.info("prewarm skipped: %s unset", consts.COMPILATION_CACHE_DIR_ENV)
+            return 0
+        print(json.dumps(result))
+        log.info("build cache warmed in %.2fs (%s)", result["compile_s"], result["cache_dir"])
+        return 0
+
     if component == "perf":
         from .perf import run_perf
 
@@ -156,6 +275,27 @@ def _dispatch(args, status, client) -> int:
         if report.passed:
             status.write("perf", report.to_dict())
         return 0 if report.passed else 1
+
+    if component == "serving":
+        from .serving import run_serving
+
+        batch_sizes = [int(b) for b in str(args.serving_batch_sizes).split(",") if b.strip()]
+        # the health gate reads the node's health-state label through the
+        # apiserver; off-cluster the client cannot be built, and the gate
+        # falls back to the GPU_HEALTH_STATE env alone
+        if client is None:
+            try:
+                client = make_client()
+            except Exception as e:
+                log.warning("serving: no apiserver client (%s); health gate "
+                            "limited to %s", e, consts.HEALTH_STATE_ENV)
+        return run_serving(
+            status, batch_sizes=batch_sizes or [1],
+            steps_per_batch=args.serving_steps,
+            max_decode_p99_ms=args.max_decode_p99_ms,
+            min_throughput_tokens_per_s=args.min_tokens_per_s,
+            min_slo_attainment=args.min_slo_attainment,
+            client=client, device=args.device)
 
     if component == "wait":
         ok = status.wait_for(args.wait_for, timeout=args.timeout)

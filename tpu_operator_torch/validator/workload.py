@@ -17,11 +17,19 @@ One process per GPU (NCCL's model): :func:`ici_health_check` runs one rank
 per local GPU and takes the merged matrix from rank 0; with one GPU it runs
 in this process as a world of one. :func:`run_multihost` is one rank of a
 group that spans hosts.
+
+:func:`spawn_workload_pod` is the deployed form of the check: the
+``workload`` component spawns a pod on its own node that requests every
+GPU through the device plugin and runs ``workload-local`` inside it.
+:func:`prewarm_compile_cache` fills the build cache ahead of the
+validations.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import os
 import time
 from typing import Optional
 
@@ -29,8 +37,51 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import consts
+from ..client import is_not_found
 from ..device import DeviceLike, platform_of, resolve_device, synchronize
+from ..kernels import _build
 from ..ranks import init_group, rank_device, run_ranks
+from ..utils import deep_get
+
+
+def enable_compilation_cache() -> Optional[str]:
+    """The host-path build cache, ``$GPU_COMPILATION_CACHE_DIR``, created if
+    missing; None when unset. ``kernels/_build.py`` builds the CUDA sources
+    there, so a build outlives the pod that made it (the counterpart of
+    pointing XLA's persistent compilation cache at that path)."""
+    cache_dir = os.environ.get(consts.COMPILATION_CACHE_DIR_ENV)
+    if not cache_dir:
+        return None
+    try:
+        os.makedirs(cache_dir, exist_ok=True)
+    except OSError:  # the cache is an optimisation, never a failure
+        return None
+    return cache_dir
+
+
+def prewarm_compile_cache(device: DeviceLike = None) -> Optional[dict]:
+    """Build (never launch) every CUDA source of the port into the build
+    cache, so that a later process loads them without ``nvcc``.
+
+    The reference compiles its ICI sweep into XLA's persistent cache here.
+    The port's sweep builds nothing that persists: its ``compile_s`` is
+    per-process set-up (CUDA context, cuBLAS, NCCL). The port's one
+    persistent compile artefact is the ``nvcc`` build of its CUDA sources
+    (K1, the streaming copy ``perf`` launches), so that is what is warmed;
+    ``perf`` then loads K1 from the cache. Returns ``{"cache_dir",
+    "compile_s", "n_devices"}``, or None when no cache dir is configured
+    (nothing would persist, so nothing to warm)."""
+    cache_dir = enable_compilation_cache()
+    if cache_dir is None:
+        return None
+    dev = resolve_device(device)
+    t0 = time.monotonic()
+    _build.build_all()
+    return {"cache_dir": cache_dir,
+            "compile_s": round(time.monotonic() - t0, 4),
+            "n_devices": torch.cuda.device_count() if dev.type == "cuda" else 1}
+
 
 CHECK_NAMES = ("compute", "psum", "ring", "all_gather")
 
@@ -189,3 +240,95 @@ def run_multihost(coordinator: str, num_processes: int, process_id: int,
         dist.destroy_process_group()
     return build_report(flags, [process_id], platform_of(dev),
                         elapsed_s=elapsed, compile_s=setup)
+
+
+# -- pod-spawning mode: a validation pod on this node, through the device plugin
+
+WORKLOAD_POD_TEMPLATE = {
+    "apiVersion": "v1",
+    "kind": "Pod",
+    "metadata": {"name": "gpu-workload-validation", "labels": {"app": "gpu-workload-validation"}},
+    "spec": {
+        "restartPolicy": "Never",
+        "tolerations": [{"key": consts.GPU_RESOURCE_NAME, "operator": "Exists",
+                         "effect": "NoSchedule"}],
+        "containers": [{
+            "name": "gpu-workload",
+            "image": "FILLED_BY_VALIDATOR",
+            "command": ["gpu-validator"],
+            "args": ["-c", "workload-local"],
+            "resources": {"limits": {consts.GPU_RESOURCE_NAME: "FILLED_BY_VALIDATOR"}},
+            # the status hostPath rides along so the in-pod sweep writes the
+            # DETAILED barrier (per-GPU failed_chips) straight to the host —
+            # the spawner only has a pass/fail pod phase
+            "env": [{"name": "STATUS_DIR", "value": "FILLED_BY_VALIDATOR"}],
+            "volumeMounts": [{"name": "validation-status",
+                              "mountPath": "FILLED_BY_VALIDATOR"}],
+        }],
+        "volumes": [{"name": "validation-status",
+                     "hostPath": {"path": "FILLED_BY_VALIDATOR",
+                                  "type": "DirectoryOrCreate"}}],
+    },
+}
+
+
+def _delete_pod(client, name: str, namespace: str) -> None:
+    try:
+        client.delete("v1", "Pod", name, namespace)
+    except Exception as e:
+        if not is_not_found(e):
+            raise
+
+
+def spawn_workload_pod(client, namespace: str, node_name: str, image: str,
+                       resource_name: str = consts.GPU_RESOURCE_NAME,
+                       chips: Optional[int] = None, timeout: float = 300.0,
+                       poll: float = 1.0, status_dir: Optional[str] = None) -> Optional[bool]:
+    """Create a validation pod pinned to this node that requests every
+    allocatable GPU through the device plugin, and wait for it to finish.
+
+    Returns True on Succeeded, False when the pod RAN and Failed (a real
+    sweep verdict), None on timeout (never scheduled / image trouble — not
+    a verdict about the GPUs). The pod is deleted afterwards either way."""
+    if chips is None:
+        node = client.get("v1", "Node", node_name)
+        chips = int(deep_get(node, "status", "allocatable", resource_name,
+                             default=deep_get(node, "status", "capacity", resource_name,
+                                              default=1)))
+    pod = copy.deepcopy(WORKLOAD_POD_TEMPLATE)
+    name = f"gpu-workload-validation-{node_name}"[:63]
+    pod["metadata"]["namespace"] = namespace
+    pod["metadata"]["name"] = name
+    pod["spec"]["nodeName"] = node_name
+    status_dir = status_dir or consts.VALIDATION_STATUS_DIR
+    pod["spec"]["volumes"][0]["hostPath"]["path"] = status_dir
+    ctr = pod["spec"]["containers"][0]
+    ctr["image"] = image
+    ctr["resources"]["limits"] = {resource_name: str(chips)}
+    ctr["env"][0]["value"] = status_dir
+    ctr["volumeMounts"][0]["mountPath"] = status_dir
+    # the node's build cache rides along, so the pod's sweep and perf load
+    # the kernels a prewarm built instead of running nvcc
+    cache_dir = os.environ.get(consts.COMPILATION_CACHE_DIR_ENV)
+    if cache_dir:
+        ctr["env"].append({"name": consts.COMPILATION_CACHE_DIR_ENV, "value": cache_dir})
+        ctr["volumeMounts"].append({"name": "kernel-cache", "mountPath": cache_dir})
+        pod["spec"]["volumes"].append({
+            "name": "kernel-cache",
+            "hostPath": {"path": cache_dir, "type": "DirectoryOrCreate"}})
+
+    _delete_pod(client, name, namespace)
+    client.create(pod)
+    deadline = time.monotonic() + timeout
+    try:
+        while time.monotonic() < deadline:
+            live = client.get("v1", "Pod", name, namespace)
+            phase = deep_get(live, "status", "phase")
+            if phase == "Succeeded":
+                return True
+            if phase == "Failed":
+                return False
+            time.sleep(poll)
+        return None
+    finally:
+        _delete_pod(client, name, namespace)
