@@ -28,6 +28,17 @@ Phases, each of which exits non-zero on failure:
    in phase 2), ``prewarm`` builds K1 into a fresh
    ``$GPU_COMPILATION_CACHE_DIR``; a second process with no ``nvcc``
    reachable loads it from there and runs it bit-exact
+9. steady state and node identity, on the status dir phases 5-8 wrote
+   (with ``$GPU_TRACE_PARENT`` set from the start, so every component
+   logged its spans there): ``info --json``; a feature-discovery pass
+   against an in-memory apiserver, and the same pass in a fresh process
+   that must hold no CUDA context; ``revalidate_local`` on the idle card
+   (rewrites the barrier, keeps a planted drain ack) and on a card held
+   all but 256 MiB (skips, barrier bytes unchanged); ``-c sleep`` until
+   two revalidations; five re-probes in one process with
+   ``memory_reserved`` flat, then ``-c serving --serving-interval=1`` in a
+   fresh process for three probes; the metrics exporter, in process and
+   over HTTP. This path launches no hand-written kernel
 
 ``workload`` spawns a pod through an apiserver, which this machine lacks:
 the CPU tests (``tests/test_torch_join_chain.py``) cover it.
@@ -36,14 +47,25 @@ Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Needs a CUDA device and the rest of the repository beside this file.
 """
 
+import contextlib
+import copy
+import ctypes
 import glob
+import io
 import json
 import os
+import queue
+import re
+import signal
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
+import uuid
 import warnings
 
 import torch
@@ -96,7 +118,7 @@ def step_wall_ms(step, load, n: int) -> list:
     return out
 
 
-def serving_phase(dev, gen, card) -> None:
+def serving_phase(dev, gen, card, status_dir) -> dict:
     from tpu_operator_torch.device import set_numerics
     from tpu_operator_torch.kernels import stream_copy as k1
     from tpu_operator_torch.serving import probe
@@ -177,7 +199,6 @@ def serving_phase(dev, gen, card) -> None:
     print(json.dumps({"serving_step": steps, "batch": batch, "dim": dim, "card": card}))
     del engine
 
-    status_dir = tempfile.mkdtemp(prefix="chip-smoke-serving-")
     k1.launches = 0
     rc = vmain.run(["-c", "serving", f"--status-dir={status_dir}"])
     check(k1.launches == 0, f"the serving path launched K1 {k1.launches} times")
@@ -197,16 +218,17 @@ def serving_phase(dev, gen, card) -> None:
         "rungs": [{k: r[k] for k in ("batch", "samples", "p50_ms", "p99_ms", "mean_ms",
                                      "tokens_per_s")} for r in report["batches"]],
         "card": card}))
+    return report
 
 
-def prewarm_phase(card) -> None:
+def prewarm_phase(card, status_dir) -> None:
     """``prewarm`` in a fresh cache dir, then a process that cannot reach
     ``nvcc`` loads and runs K1 from it."""
     with tempfile.TemporaryDirectory(prefix="chip-smoke-kernel-cache-") as cache:
         env = dict(os.environ, GPU_COMPILATION_CACHE_DIR=cache)
         cold = subprocess.run([sys.executable, "-m", "tpu_operator_torch.cmd.validator",
-                               "-c", "prewarm"], env=env, capture_output=True, text=True,
-                              timeout=300)
+                               "-c", "prewarm", f"--status-dir={status_dir}"], env=env,
+                              capture_output=True, text=True, timeout=300)
         check(cold.returncode == 0, f"prewarm exited {cold.returncode}: {cold.stderr[-2000:]}")
         lines = [ln for ln in cold.stdout.splitlines() if ln.startswith("{")]
         check(bool(lines), f"prewarm printed no result: {cold.stderr[-2000:]}")
@@ -245,6 +267,343 @@ def prewarm_phase(card) -> None:
                           "card": card}))
 
 
+class DictClient:
+    """An in-memory apiserver for v1 Nodes: get, and JSON merge patch with
+    the resourceVersion precondition (409 on a stale version)."""
+
+    class Conflict(Exception):
+        code = 409
+
+    def __init__(self, node: dict):
+        self.nodes = {node["metadata"]["name"]: copy.deepcopy(node)}
+        self.nodes[node["metadata"]["name"]]["metadata"]["resourceVersion"] = "1"
+        self.patches = []
+
+    def get(self, api_version, kind, name, namespace=None) -> dict:
+        return copy.deepcopy(self.nodes[name])
+
+    @staticmethod
+    def _merge(target: dict, patch: dict) -> None:
+        for key, value in patch.items():
+            if value is None:
+                target.pop(key, None)
+            elif isinstance(value, dict):
+                DictClient._merge(target.setdefault(key, {}), value)
+            else:
+                target[key] = value
+
+    def patch(self, api_version, kind, name, patch, namespace=None) -> dict:
+        node = self.nodes[name]
+        patch = copy.deepcopy(patch)
+        sent = patch.get("metadata", {}).pop("resourceVersion", None)
+        if sent is not None and sent != node["metadata"]["resourceVersion"]:
+            raise DictClient.Conflict(f"resourceVersion {sent} is stale")
+        self.patches.append(copy.deepcopy(patch))
+        self._merge(node, patch)
+        node["metadata"]["resourceVersion"] = str(int(node["metadata"]["resourceVersion"]) + 1)
+        return copy.deepcopy(node)
+
+
+def primary_contexts_active() -> list:
+    """Whether this process holds each GPU's primary context, from the
+    driver API itself (``cuDevicePrimaryCtxGetState``)."""
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cuda.cuInit.argtypes = [ctypes.c_uint]
+    cuda.cuDeviceGetCount.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    cuda.cuDeviceGet.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+    cuda.cuDevicePrimaryCtxGetState.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_uint),
+                                                ctypes.POINTER(ctypes.c_int)]
+    check(cuda.cuInit(0) == 0, "cuInit failed")
+    count = ctypes.c_int()
+    check(cuda.cuDeviceGetCount(ctypes.byref(count)) == 0, "cuDeviceGetCount failed")
+    active = []
+    for i in range(count.value):
+        dev, flags, state = ctypes.c_int(), ctypes.c_uint(), ctypes.c_int()
+        check(cuda.cuDeviceGet(ctypes.byref(dev), i) == 0, "cuDeviceGet failed")
+        check(cuda.cuDevicePrimaryCtxGetState(dev, ctypes.byref(flags), ctypes.byref(state))
+              == 0, "cuDevicePrimaryCtxGetState failed")
+        active.append(bool(state.value))
+    return active
+
+
+def compute_app_pids() -> list:
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi --query-compute-apps failed: {out.stderr}")
+    return [line.strip() for line in out.stdout.splitlines() if line.strip()]
+
+
+def scrape_samples(text: str) -> dict:
+    """``{'name{labels}': value}`` from Prometheus text, comments skipped."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, _, value = line.rpartition(" ")
+            out[key] = float(value)
+    return out
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class CliProcess:
+    """A validator component run in its own process group (its revalidation
+    sweeps are children of it), stdout read line by line on a thread, and
+    the whole group killed by :meth:`stop`."""
+
+    def __init__(self, argv: list):
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "tpu_operator_torch.cmd.validator", *argv],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, start_new_session=True)
+        self.lines: "queue.Queue[str]" = queue.Queue()
+        self.stderr: list = []
+        threading.Thread(target=self._pump, args=(self.proc.stdout, self.lines.put),
+                         daemon=True).start()
+        threading.Thread(target=self._pump, args=(self.proc.stderr, self.stderr.append),
+                         daemon=True).start()
+
+    @staticmethod
+    def _pump(stream, sink) -> None:
+        for line in stream:
+            sink(line)
+
+    def json_lines(self, n: int, timeout: float) -> list:
+        out, deadline = [], time.monotonic() + timeout
+        while len(out) < n:
+            check(self.proc.poll() is None,
+                  f"component exited {self.proc.returncode}: {''.join(self.stderr)[-2000:]}")
+            try:
+                line = self.lines.get(timeout=max(0.01, min(1.0, deadline - time.monotonic())))
+            except queue.Empty:
+                check(time.monotonic() < deadline,
+                      f"no result within {timeout}s: {''.join(self.stderr)[-2000:]}")
+                continue
+            if line.startswith("{"):
+                out.append(json.loads(line))
+        return out
+
+    def stop(self) -> None:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        self.proc.wait(timeout=60)
+
+
+def steady_state_phase(dev, card, status_dir, trace_id, serving_report) -> None:
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.health import drain
+    from tpu_operator_torch.joinprofile.records import decode_annotation
+    from tpu_operator_torch.serving import frontier
+    from tpu_operator_torch.validator import feature_discovery as fd
+    from tpu_operator_torch.validator import main as vmain
+    from tpu_operator_torch.validator.metrics import NodeMetrics
+    from tpu_operator_torch.validator.serving import run_serving
+    from tpu_operator_torch.validator.status import StatusFiles
+
+    status = StatusFiles(status_dir)
+    props = torch.cuda.get_device_properties(0)
+    numbers = {"card": card}
+
+    # 1. info --json, through the CLI
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        info_rc = vmain.run(["-c", "info", "--json", f"--status-dir={status_dir}"])
+    collected = json.loads(buf.getvalue().strip().splitlines()[-1])
+    check(len(collected["chips"]) == torch.cuda.device_count(), f"info chips {collected}")
+    chip = collected["chips"][0]
+    check(chip["kind"] == torch.cuda.get_device_name(0), f"info kind {chip}")
+    check(chip["hbm_total_bytes"] == props.total_memory, f"info total {chip}")
+    written = {c: status.read(c) is not None for c in collected["validations"]}
+    check(collected["validations"] == written and written == {
+        "driver": False, "plugin": False, "workload": True, "perf": True, "serving": True},
+        f"info validations {collected['validations']} vs barriers {written}")
+    numbers["info"] = {"rc": info_rc, "chip": chip}
+    print(json.dumps({"info": collected}))
+
+    # 2. one feature-discovery pass, in process and in a fresh process
+    node = {"apiVersion": "v1", "kind": "Node",
+            "metadata": {"name": "smoke-node", "labels": {}, "annotations": {}}}
+    client = DictClient(node)
+    t0 = time.perf_counter()
+    fd.sync_node_labels(client, "smoke-node", status_dir=status_dir)
+    numbers["fd_pass_ms"] = (time.perf_counter() - t0) * 1e3
+    meta = client.get("v1", "Node", "smoke-node")["metadata"]
+    labels, ann = meta["labels"], meta["annotations"]
+    check(labels.get(consts.TPU_CHIP_TYPE_LABEL) == fd.chip_type_from_kind(props.name),
+          f"chip-type label {labels}")
+    if props.name == "NVIDIA H100 80GB HBM3":
+        check(labels[consts.TPU_CHIP_TYPE_LABEL] == "nvidia-h100-80gb", f"labels {labels}")
+    check(labels.get(consts.TPU_CHIP_COUNT_LABEL) == str(torch.cuda.device_count()),
+          f"count label {labels}")
+    check(labels.get(consts.TPU_MEMORY_LABEL) == f"{round(props.total_memory / 2**30)}Gi",
+          f"memory label {labels}")
+    check(ann.get(consts.WORKLOAD_HEALTH_ANNOTATION) == "passed", f"workload-health {ann}")
+    check(labels.get(consts.SERVING_SLO_LABEL) == "passed", f"serving-slo {labels}")
+    mirrored = frontier.decode_annotation(ann.get(consts.SERVING_FRONTIER_ANNOTATION))
+    check(mirrored is not None and
+          [(p.batch, p.p99_ms, p.samples) for p in mirrored.points] ==
+          [(r["batch"], r["p99_ms"], r["samples"]) for r in serving_report["batches"]],
+          f"frontier annotation {ann.get(consts.SERVING_FRONTIER_ANNOTATION)}")
+    spans = decode_annotation(ann.get(consts.TRACE_SPANS_ANNOTATION))
+    names = {r["n"] for r in spans if r["t"] == trace_id}
+    wanted = {"operand.workload-local", "ici-sweep", "xla-compile", "perf.sweep",
+              "serving.probe"}
+    check(wanted <= names, f"trace-spans under the smoke's trace hold {sorted(names)}")
+    print(json.dumps({"feature_discovery": {"labels": labels, "annotations": {
+        k: v for k, v in ann.items() if k != consts.TRACE_SPANS_ANNOTATION},
+        "span_names": sorted(names), "pass_ms": numbers["fd_pass_ms"]}}))
+
+    node_file = os.path.join(status_dir, "smoke-node.json")
+    with open(node_file, "w") as f:
+        json.dump(node, f)
+    script = (
+        "import json, os, time\n"
+        "from chip_smoke import DictClient, compute_app_pids, primary_contexts_active\n"
+        "from tpu_operator_torch.validator import feature_discovery as fd\n"
+        f"client = DictClient(json.load(open({node_file!r})))\n"
+        "t0 = time.perf_counter()\n"
+        f"fd.sync_node_labels(client, 'smoke-node', status_dir={status_dir!r})\n"
+        "ms = (time.perf_counter() - t0) * 1e3\n"
+        "print(json.dumps({'pid': os.getpid(), 'apps': compute_app_pids(),\n"
+        "                  'active': primary_contexts_active(), 'pass_ms': ms,\n"
+        "                  'meta': client.get('v1', 'Node', 'smoke-node')['metadata']}))\n")
+    fresh = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                           timeout=120, cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(fresh.returncode == 0, f"feature discovery in a fresh process: {fresh.stderr[-2000:]}")
+    sub = json.loads(fresh.stdout.strip().splitlines()[-1])
+    check(str(sub["pid"]) not in sub["apps"], f"the FD process holds a context: {sub['apps']}")
+    check(sub["active"] == [False] * torch.cuda.device_count(),
+          f"the FD process holds a primary context: {sub['active']}")
+    check(primary_contexts_active()[0], "the context check does not see this process's context")
+    own_pid_listed = str(os.getpid()) in compute_app_pids()
+    sub_meta = sub["meta"]
+    check(sub_meta["labels"] == labels and sub_meta["annotations"] == ann,
+          "the fresh process's pass differs from the in-process one")
+    numbers["fd_fresh_process_pass_ms"] = sub["pass_ms"]
+    print(json.dumps({"feature_discovery_fresh_process": {
+        "pid": sub["pid"], "compute_apps": sub["apps"], "primary_contexts": sub["active"],
+        "this_process_listed_by_nvidia_smi": own_pid_listed, "pass_ms": sub["pass_ms"]}}))
+
+    # 3. revalidation: on the idle card, then on a card held all but 256 MiB
+    drain.write_drain_ack(status, "smoke-plan", step=3, checkpoint="/smoke")
+    planted = status.read("workload")
+    t0 = time.perf_counter()
+    verdict = vmain.revalidate_local(status, 512, timeout=120)
+    cycle_s = time.perf_counter() - t0
+    fresh_barrier = status.read("workload")
+    check(verdict is True, f"revalidation on the idle card returned {verdict}")
+    check(fresh_barrier["timestamp"] > planted["timestamp"] and
+          fresh_barrier["platform"] == "gpu", f"barrier not rewritten: {fresh_barrier}")
+    check(fresh_barrier.get("drain_ack") == planted["drain_ack"],
+          f"the drain ack was lost: {fresh_barrier.get('drain_ack')}")
+    numbers["revalidation"] = {
+        "cycle_s": cycle_s, "compile_s": fresh_barrier["compile_s"],
+        "sweep_s": fresh_barrier["elapsed_s"] - fresh_barrier["compile_s"],
+        "process_start_s": cycle_s - fresh_barrier["elapsed_s"]}
+    before = open(status.path("workload"), "rb").read()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    hold = torch.empty(free - 256 * 2**20, dtype=torch.uint8, device=dev)
+    held_free = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    busy = vmain.revalidate_local(status, 512, timeout=120)
+    busy_s = time.perf_counter() - t0
+    del hold
+    torch.cuda.empty_cache()
+    check(busy is None, f"revalidation on a full card returned {busy}")
+    check(open(status.path("workload"), "rb").read() == before,
+          "revalidation on a full card touched the barrier")
+    numbers["revalidation_full_card"] = {"free_mib_while_held": held_free / 2**20,
+                                         "skip_s": busy_s}
+    print(json.dumps({"revalidation": numbers["revalidation"],
+                      "revalidation_full_card": numbers["revalidation_full_card"]}))
+
+    # 4. -c sleep --revalidate-interval=2 until the barrier is rewritten twice
+    stamps = [status.read("workload")["timestamp"]]
+    sleeper = CliProcess(["-c", "sleep", "--revalidate-interval=2",
+                          f"--status-dir={status_dir}"])
+    try:
+        deadline = time.monotonic() + 120
+        while len(stamps) < 3:
+            check(sleeper.proc.poll() is None,
+                  f"sleep exited {sleeper.proc.returncode}: {''.join(sleeper.stderr)[-2000:]}")
+            check(time.monotonic() < deadline, "sleep did not revalidate twice in 120 s")
+            barrier = status.read("workload")
+            if barrier and barrier["timestamp"] != stamps[-1]:
+                check(barrier.get("platform") == "gpu" and barrier.get("passed") is True,
+                      f"sleep's revalidation wrote {barrier}")
+                stamps.append(barrier["timestamp"])
+            time.sleep(0.05)
+    finally:
+        sleeper.stop()
+    numbers["sleep_rewrite_gaps_s"] = [b - a for a, b in zip(stamps[1:], stamps[2:])]
+    print(json.dumps({"sleep": {"rewrites": len(stamps) - 1,
+                                "gap_s": numbers["sleep_rewrite_gaps_s"]}}))
+
+    # 5. five re-probes in this process, then the loop in a fresh process
+    reserved, compile_s = [], []
+    for _ in range(5):
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = run_serving(status, batch_sizes=[1, 4, 8], steps_per_batch=32, device=dev)
+        check(rc == 0, f"re-probe failed: {status.read('serving').get('failures')}")
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved())
+        compile_s.append(status.read("serving")["compile_s"])
+    check(reserved[1:] == [reserved[0]] * 4, f"memory_reserved across re-probes {reserved}")
+    prober = CliProcess(["-c", "serving", "--serving-interval=1",
+                         f"--status-dir={status_dir}"])
+    try:
+        probes = prober.json_lines(3, timeout=120)
+    finally:
+        prober.stop()
+    check(all(p["passed"] for p in probes), f"loop probes {[p['failures'] for p in probes]}")
+    numbers["serving_in_process"] = {"memory_reserved": reserved, "compile_s": compile_s}
+    numbers["serving_loop_compile_s"] = [p["compile_s"] for p in probes]
+    print(json.dumps({"serving_reprobes": numbers["serving_in_process"],
+                      "serving_loop_fresh_process": {
+                          "compile_s": numbers["serving_loop_compile_s"],
+                          "elapsed_s": [p["elapsed_s"] for p in probes],
+                          "decode_p99_ms": [p["decode_p99_ms"] for p in probes]}}))
+
+    # 6. the metrics exporter, in process and over HTTP
+    perf = status.read("perf")
+    exporter = NodeMetrics(status)
+    exporter.refresh()
+    text = exporter.scrape().decode()
+    samples = scrape_samples(text)
+    check(samples.get('tpu_operator_node_chip_healthy{chip="0"}') == 1.0,
+          f"chip_healthy: {[k for k in samples if 'chip_healthy' in k]}")
+    check(samples["tpu_operator_node_mxu_tflops"] == perf["mxu_tflops"] and
+          samples["tpu_operator_node_hbm_gbps"] == perf["hbm_gbps"], "perf gauges")
+    if torch.cuda.device_count() == 1:
+        check("ici_allreduce" not in text, "an all-reduce series on one GPU")
+    port = free_port()
+    server = CliProcess(["-c", "metrics", f"--port={port}", f"--status-dir={status_dir}"])
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=5) as r:
+                    served = r.read().decode()
+                break
+            except OSError:
+                check(server.proc.poll() is None and time.monotonic() < deadline,
+                      f"metrics never served: {''.join(server.stderr)[-2000:]}")
+                time.sleep(0.1)
+    finally:
+        server.stop()
+    refresh = "tpu_operator_node_metrics_last_refresh_ts_seconds"
+    check({k: v for k, v in scrape_samples(served).items() if k != refresh} ==
+          {k: v for k, v in samples.items() if k != refresh},
+          "the exporter over HTTP serves other samples than in process")
+    check([ln for ln in served.splitlines() if ln.startswith("#")] ==
+          [ln for ln in text.splitlines() if ln.startswith("#")], "the families differ")
+    print(json.dumps({"metrics": {k: v for k, v in samples.items() if k != refresh}}))
+    print(json.dumps({"steady_state": numbers}))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs an NVIDIA GPU")
@@ -259,12 +618,26 @@ def main() -> int:
     except ImportError as e:
         fail(f"tpu_operator_torch not importable ({e}): run from the repository root")
 
+    # the operator's join trace context, as the operand template stamps it:
+    # every component below (and every subprocess) logs its spans into the
+    # status dir, which feature discovery mirrors in phase 9
+    trace_id = uuid.uuid4().hex
+    os.environ["GPU_TRACE_PARENT"] = f"{trace_id}-{uuid.uuid4().hex[:16]}"
+
     phase("environment")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0].strip()
+    # the device node of each GPU this process sees, as a pod holding those
+    # GPUs has them: the machine may show other GPUs' nodes as well, which
+    # the exporter and info would count
+    query = subprocess.run(["nvidia-smi", "-q"], capture_output=True, text=True, timeout=60)
+    minors = re.findall(r"Minor Number\s*:\s*(\d+)", query.stdout)
+    check(len(minors) == torch.cuda.device_count(), f"minor numbers {minors}")
+    os.environ["GPU_DEV_GLOBS"] = ",".join(f"/dev/nvidia{m}" for m in minors)
+    print(f"GPU device nodes: {os.environ['GPU_DEV_GLOBS']}")
     kind = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} device {kind}")
@@ -407,10 +780,15 @@ def main() -> int:
     print("entry ok, dryrun_multichip(1) ok")
 
     phase("serving: the decode step as a CUDA graph")
-    serving_phase(dev, gen, card)
+    serving_report = serving_phase(dev, gen, card, status_dir)
 
     phase("prewarm: K1 into a fresh build cache, then loaded without nvcc")
-    prewarm_phase(card)
+    prewarm_phase(card, status_dir)
+
+    phase("steady state and node identity")
+    k1.launches = 0
+    steady_state_phase(dev, card, status_dir, trace_id, serving_report)
+    check(k1.launches == 0, f"the steady-state path launched K1 {k1.launches} times")
 
     print(json.dumps({"kernels": [{
         "name": "stream_copy",

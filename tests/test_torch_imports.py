@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no module of tpu_operator_torch (nor
-chip_smoke.py) imports jax or anything of tpu_operator, and importing the
-package builds and loads no kernel."""
+chip_smoke.py) imports jax or anything of tpu_operator, nor
+prometheus_client or yaml (the card's machine has neither), and importing
+the package builds and loads no kernel."""
 
 import ast
 import os
@@ -14,7 +15,8 @@ import tpu_operator_torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(REPO, "tpu_operator_torch")
-FORBIDDEN = ("jax", "jaxlib", "tpu_operator", "__graft_entry__", "triton")
+FORBIDDEN = ("jax", "jaxlib", "tpu_operator", "__graft_entry__", "triton",
+             "prometheus_client", "yaml")
 
 
 def _port_modules():
@@ -54,7 +56,9 @@ def test_port_module_list_is_complete():
                      "validator.workload", "validator.perf", "validator.main",
                      "kernels._build", "kernels.stream_copy", "cmd.validator",
                      "client", "serving", "serving.frontier", "serving.probe",
-                     "validator.serving"):
+                     "validator.serving", "tracing", "joinprofile", "joinprofile.records",
+                     "health", "health.drain", "validator.feature_discovery",
+                     "validator.info", "validator.metrics"):
         assert f"tpu_operator_torch.{expected}" in names
 
 

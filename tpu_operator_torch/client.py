@@ -1,17 +1,23 @@
 """The validator's apiserver client: the few calls its components make
-(counterpart of the parts of tpu_operator/client/rest.py they use).
+(counterpart of the parts of tpu_operator/client/rest.py they use), and
+:func:`preconditioned_patch` (tpu_operator/client/preconditions.py).
 
-``get``, ``create`` and ``delete`` of ``v1`` Nodes and Pods over HTTP(S),
-with the pod's service-account token. Error statuses raise :class:`ApiError`
-carrying the HTTP code; 404 raises :class:`NotFoundError` (``code`` 404).
-Callers that must tolerate absence test ``code == 404``, so any client whose
+``get``, ``create``, ``patch`` (JSON merge patch) and ``delete`` of ``v1``
+Nodes and Pods over HTTP(S), with the pod's service-account token. Error
+statuses raise :class:`ApiError` carrying the HTTP code; 404 raises
+:class:`NotFoundError` and 409 :class:`ConflictError`. Callers test
+``code`` (:func:`is_not_found`, :func:`is_conflict`), so any client whose
 errors carry the same ``code`` (the operator's own) serves them as well.
 """
 
 from __future__ import annotations
 
+import logging
 import os
-from typing import Optional
+import time
+from typing import Callable, Optional
+
+log = logging.getLogger(__name__)
 
 SA_DIR = "/var/run/secrets/kubernetes.io/serviceaccount"
 
@@ -34,8 +40,16 @@ class NotFoundError(ApiError):
     code = 404
 
 
+class ConflictError(ApiError):
+    code = 409
+
+
 def is_not_found(error: BaseException) -> bool:
     return getattr(error, "code", None) == 404
+
+
+def is_conflict(error: BaseException) -> bool:
+    return getattr(error, "code", None) == 409
 
 
 class ApiClient:
@@ -91,6 +105,8 @@ class ApiClient:
                 message = resp.text
             if resp.status_code == 404:
                 raise NotFoundError(message)
+            if resp.status_code == 409:
+                raise ConflictError(message)
             raise ApiError(message, resp.status_code)
         return resp
 
@@ -102,5 +118,56 @@ class ApiClient:
         return self._request("POST", self._url(obj["apiVersion"], obj["kind"], namespace),
                              json=obj).json()
 
+    def patch(self, api_version: str, kind: str, name: str, patch: dict,
+              namespace=None) -> dict:
+        """JSON merge patch; a ``metadata.resourceVersion`` in it makes the
+        apiserver refuse the write with 409 if the object changed since."""
+        return self._request(
+            "PATCH", self._url(api_version, kind, namespace, name), json=patch,
+            headers={"Content-Type": "application/merge-patch+json"}).json()
+
     def delete(self, api_version: str, kind: str, name: str, namespace=None) -> None:
         self._request("DELETE", self._url(api_version, kind, namespace, name))
+
+
+#: re-read-and-reapply budget: conflicts mean a live competing writer, and
+#: an unbounded loop against one would spin forever
+DEFAULT_ATTEMPTS = 6
+
+
+def preconditioned_patch(client, api_version: str, kind: str, name: str,
+                         build: Callable[[dict], Optional[dict]],
+                         namespace: Optional[str] = None,
+                         attempts: int = DEFAULT_ATTEMPTS,
+                         sleep: Callable[[float], None] = time.sleep) -> dict:
+    """Read ``name``, let ``build(fresh_obj)`` compute a JSON merge patch
+    from it (None: nothing to do), and apply it preconditioned on the
+    resourceVersion read. On 409, re-read and rebuild: ``build`` sees the
+    competing writer's state, so the lost write is re-derived, never
+    replayed, and must be a pure function of the object it is handed.
+
+    Returns the patched object (the fresh read when ``build`` declined). A
+    404 propagates: the object's lifecycle is the caller's policy."""
+    last_exc: Optional[BaseException] = None
+    for attempt in range(attempts):
+        if attempt:
+            # a cache-backed read lags the competing write by one event
+            sleep(min(0.25, 0.02 * (2 ** attempt)))
+        obj = client.get(api_version, kind, name, namespace)
+        patch = build(obj)
+        if patch is None:
+            return obj
+        rv = obj.get("metadata", {}).get("resourceVersion")
+        if rv is not None:
+            patch.setdefault("metadata", {})["resourceVersion"] = rv
+        try:
+            return client.patch(api_version, kind, name, patch, namespace)
+        except Exception as e:
+            if not is_conflict(e):
+                raise
+            last_exc = e
+            log.debug("preconditioned patch of %s/%s conflicted at rv %s "
+                      "(attempt %d/%d); re-reading", kind, name, rv, attempt + 1,
+                      attempts)
+    raise last_exc if last_exc is not None else ConflictError(
+        f"preconditioned patch of {kind}/{name} never applied")

@@ -53,3 +53,44 @@ SERVING_FRONTIER_ANNOTATION = "tpu.ai/serving-frontier"
 #: operator -> node-agent re-probe request (template hash that invalidated
 #: the node's frontier)
 SERVING_REPROBE_ANNOTATION = "tpu.ai/serving-reprobe"
+#: operator label carrying the node's operand template hash; a frontier
+#: measured under it satisfies a pending re-probe request
+TEMPLATE_HASH_LABEL = "tpu.ai/template-hash"
+
+# -- node identity (feature discovery) -------------------------------------------
+#: GKE's accelerator name for the node's GPUs ("nvidia-h100-80gb")
+TPU_CHIP_TYPE_LABEL = "tpu.ai/tpu.chip-type"
+TPU_CHIP_COUNT_LABEL = "tpu.ai/tpu.chip-count"
+#: device memory per GPU, whole GiB ("80Gi")
+TPU_MEMORY_LABEL = "tpu.ai/tpu.memory"
+#: the driver version an installer recorded in the driver barrier
+TPU_LIBTPU_VERSION_LABEL = "tpu.ai/libtpu.version"
+#: GKE's own accelerator label on GPU nodes, passed through as the chip type
+GKE_ACCELERATOR_LABEL = "cloud.google.com/gke-accelerator"
+
+# -- barrier verdicts and join spans mirrored to the node -----------------------
+#: the node's workload-barrier verdict, published by feature discovery for
+#: the operator's health sweep: "passed" | "failed" | "failed:<gpu,gpu>" |
+#: "corrupt"
+WORKLOAD_HEALTH_ANNOTATION = "tpu.ai/workload-health"
+#: compact span records mirrored up from the node's host-path span log
+#: (``trace-spans.json``), so the operator's join profiler can stitch the
+#: node side into the join trace
+TRACE_SPANS_ANNOTATION = "tpu.ai/trace-spans"
+#: env carrying the operator's join trace context into operand pods
+TRACE_PARENT_ENV = "GPU_TRACE_PARENT"
+
+# -- coordinated drain (planned re-tiles) -----------------------------------------
+#: a published re-tile plan (JSON: layout fingerprint, drain deadline,
+#: reason, blocked GPUs)
+RETILE_PLAN_ANNOTATION = "tpu.ai/planned-retile"
+#: the node's drain ack, mirrored by feature discovery from the workload
+#: barrier's ``drain_ack`` stamp (its node-local source of truth)
+DRAIN_ACK_ANNOTATION = "tpu.ai/drain-ack"
+#: host-path file under the status dir that an agent checkpoints into
+#: before it acks a drain
+DRAIN_CHECKPOINT_FILE = "drain-checkpoint.json"
+
+# -- steady state ---------------------------------------------------------------
+#: sleep mode's revalidation period in seconds (0 = off)
+REVALIDATE_INTERVAL_ENV = "GPU_REVALIDATE_INTERVAL"

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -36,6 +36,12 @@ from .frontier import Frontier, FrontierPoint
 #: floor on timed steps per measured point: below this a nearest-rank p99
 #: is dominated by scheduler noise and consumers cannot judge confidence
 MIN_FRONTIER_SAMPLES = 16
+
+#: the stream each device's step is warmed up and captured on, made once per
+#: process: cuBLAS keeps a workspace for every (handle, stream) it has run
+#: on, so a fresh stream per capture would leave one more workspace behind
+#: on every re-probe of a long-lived ``--serving-interval`` loop
+_CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
 
 #: tokens per cache page; the probe keeps one live row per page (the
 #: accumulator), the page granularity is what a real paged KV cache
@@ -166,20 +172,27 @@ class DecodeEngine:
         return (self.tokens, self.pages, self.page_table, self.active, self.admit, self.w)
 
     def capture(self) -> None:
-        """Capture the step into one CUDA graph. Three warm-up steps run on a
-        side stream first, as ``torch.cuda.graph`` wants (cuBLAS creates its handle and
-        workspace there, outside the capture); its writes to the cache are
-        then cleared, so the first replay starts from zeroed pages. Raises
-        if any op of the step cannot be captured."""
+        """Capture the step into one CUDA graph. Three warm-up steps run
+        first on the capture stream, as ``torch.cuda.graph`` wants (cuBLAS
+        creates its handle and workspace there, outside the capture); their
+        writes to the cache are then cleared, so the first replay starts from
+        zeroed pages. Raises if any op of the step cannot be captured.
+
+        The stream is the device's one capture stream (``_CAPTURE_STREAMS``).
+        ``torch.cuda.graph`` empties the allocator's cache on entry, which
+        returns the private pools of earlier graphs already destroyed, so
+        repeated probes in one process hold the same memory."""
+        stream = _CAPTURE_STREAMS.get(self.device)
+        if stream is None:
+            stream = _CAPTURE_STREAMS[self.device] = torch.cuda.Stream(self.device)
         current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
             for _ in range(3):
                 engine_step(*self.args())
-        current.wait_stream(side)
+        current.wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, stream=stream):
             self.out, _ = engine_step(*self.args())
         self.graph = graph
         self.pages.zero_()

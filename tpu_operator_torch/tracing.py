@@ -1,0 +1,265 @@
+"""Join-trace spans for the validator's components (the part of
+tpu_operator/tracing.py that the node agents use).
+
+OTel-style spans with no external dependency. The operator stamps a
+traceparent into every operand pod (``$GPU_TRACE_PARENT``); the component's
+entry point opens a root span continuing that trace (:func:`remote_trace`)
+and its work opens child spans (:func:`span`), or attaches an interval it
+measured itself (:func:`record_span`). The root's sink writes the subtree
+to the node's span log (``joinprofile/records.py``), from which feature
+discovery mirrors it to the node for the operator's join profiler.
+
+Propagation rides :mod:`contextvars`: outside an active trace every call is
+a free no-op, and the loss is counted (:func:`dropped_spans_total`).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import logging
+import threading
+import time
+import uuid
+from typing import Dict, Iterator, List, Optional
+
+from .consts import TRACE_PARENT_ENV  # noqa: F401  (re-exported for span users)
+
+_current_span: contextvars.ContextVar[Optional["Span"]] = contextvars.ContextVar(
+    "tpu_operator_torch_current_span", default=None)
+
+#: active remote-trace sink: ``(root, sink)`` set by :func:`remote_trace` so
+#: long-running loops can checkpoint-publish via :func:`flush_spans`
+_remote_sink: contextvars.ContextVar[Optional[tuple]] = contextvars.ContextVar(
+    "tpu_operator_torch_remote_sink", default=None)
+
+#: spans discarded because no trace was active on the calling thread
+_dropped_lock = threading.Lock()
+_dropped_spans = 0
+
+
+def _count_dropped() -> None:
+    global _dropped_spans
+    with _dropped_lock:
+        _dropped_spans += 1
+
+
+def dropped_spans_total() -> int:
+    with _dropped_lock:
+        return _dropped_spans
+
+
+def _new_id(nbytes: int) -> str:
+    return uuid.uuid4().hex[: nbytes * 2]
+
+
+# Simplified traceparent: ``<trace_id:32 hex>-<span_id:16 hex>`` (the W3C
+# format minus version and flags, which nothing here reads).
+
+def format_traceparent(trace_id: str, span_id: str) -> str:
+    return f"{trace_id}-{span_id}"
+
+
+def parse_traceparent(value: Optional[str]):
+    """``(trace_id, span_id)``, or None for anything malformed: bad context
+    from an older or foreign manifest degrades to untraced, never crashes
+    an operand entry point."""
+    if not value or not isinstance(value, str):
+        return None
+    parts = value.strip().split("-")
+    if len(parts) != 2:
+        return None
+    trace_id, span_id = parts
+    if len(trace_id) != 32 or len(span_id) != 16:
+        return None
+    try:
+        int(trace_id, 16), int(span_id, 16)
+    except ValueError:
+        return None
+    return trace_id, span_id
+
+
+class Span:
+    """One timed operation in a tree under a root span; children in start
+    order. A trace lives on the thread that opened it."""
+
+    __slots__ = ("trace_id", "span_id", "parent_id", "name", "kind",
+                 "attributes", "status", "error", "start_unix", "_t0",
+                 "duration_s", "children")
+
+    def __init__(self, name: str, kind: str = "internal",
+                 trace_id: Optional[str] = None,
+                 parent: Optional["Span"] = None,
+                 attributes: Optional[dict] = None):
+        self.name = name
+        self.kind = kind
+        self.trace_id = trace_id or (parent.trace_id if parent else _new_id(16))
+        self.span_id = _new_id(8)
+        self.parent_id = parent.span_id if parent else None
+        self.attributes: Dict[str, object] = dict(attributes or {})
+        self.status = "unset"
+        self.error: Optional[str] = None
+        self.start_unix = time.time()
+        self._t0 = time.perf_counter()
+        self.duration_s: Optional[float] = None
+        self.children: List[Span] = []
+
+    def set_attribute(self, key: str, value) -> None:
+        self.attributes[key] = value
+
+    def set_attributes(self, **attrs) -> None:
+        self.attributes.update(attrs)
+
+    def finish(self, error: Optional[BaseException] = None) -> None:
+        if self.duration_s is not None:
+            return  # idempotent: a double finish keeps the first timing
+        self.duration_s = time.perf_counter() - self._t0
+        if error is not None:
+            self.status = "error"
+            self.error = f"{type(error).__name__}: {error}"
+        elif self.status == "unset":
+            self.status = "ok"
+
+    def mark_error(self, message: str) -> None:
+        self.status = "error"
+        self.error = message
+
+    @property
+    def has_error(self) -> bool:
+        return self.status == "error" or any(c.has_error for c in self.children)
+
+    def walk(self) -> Iterator["Span"]:
+        yield self
+        for child in self.children:
+            yield from child.walk()
+
+    def to_dict(self) -> dict:
+        return {
+            "name": self.name,
+            "kind": self.kind,
+            "trace_id": self.trace_id,
+            "span_id": self.span_id,
+            "parent_id": self.parent_id,
+            "start_unix": self.start_unix,
+            "duration_s": self.duration_s,
+            "status": self.status,
+            "error": self.error,
+            "attributes": self.attributes,
+            "children": [c.to_dict() for c in self.children],
+        }
+
+
+class _NoopSpan:
+    """Returned outside a trace: every recording call is a cheap no-op, so
+    component code never needs a guard."""
+
+    __slots__ = ()
+    trace_id = None
+    span_id = None
+    status = "unset"
+    attributes: dict = {}
+
+    def set_attribute(self, key, value):
+        pass
+
+    def set_attributes(self, **attrs):
+        pass
+
+    def mark_error(self, message):
+        pass
+
+    def finish(self, error=None):
+        pass
+
+
+NOOP_SPAN = _NoopSpan()
+
+
+@contextlib.contextmanager
+def span(name: str, kind: str = "internal", **attributes):
+    """A child span of the active span; a counted no-op outside a trace."""
+    parent = _current_span.get()
+    if parent is None:
+        _count_dropped()
+        yield NOOP_SPAN
+        return
+    child = Span(name, kind=kind, parent=parent, attributes=attributes)
+    parent.children.append(child)
+    token = _current_span.set(child)
+    try:
+        yield child
+    except BaseException as e:
+        child.finish(error=e)
+        raise
+    else:
+        child.finish()
+    finally:
+        _current_span.reset(token)
+
+
+def record_span(name: str, start_unix: float, duration_s: float,
+                kind: str = "internal", **attributes):
+    """Attach an interval measured elsewhere (a report's ``compile_s``) as
+    a finished child of the active span; a counted no-op outside a trace."""
+    parent = _current_span.get()
+    if parent is None:
+        _count_dropped()
+        return NOOP_SPAN
+    child = Span(name, kind=kind, parent=parent, attributes=attributes)
+    child.start_unix = float(start_unix)
+    child.duration_s = float(duration_s)
+    child.status = "ok"
+    parent.children.append(child)
+    return child
+
+
+@contextlib.contextmanager
+def remote_trace(name: str, traceparent: Optional[str] = None,
+                 sink=None, **attributes):
+    """A ROOT span continuing a trace that another process (the operator)
+    started, from a ``<trace_id>-<span_id>`` traceparent; a free no-op
+    without parseable context.
+
+    ``sink(root)`` is called with the open root at entry and again at exit
+    (and by :func:`flush_spans` from inside loops), so components that never
+    exit still publish their spans. A failing sink is logged and ignored:
+    span publication never fails a validation."""
+    parsed = parse_traceparent(traceparent)
+    if parsed is None:
+        yield NOOP_SPAN
+        return
+    trace_id, parent_span_id = parsed
+    root = Span(name, kind="remote", trace_id=trace_id, attributes=attributes)
+    root.parent_id = parent_span_id
+    token = _current_span.set(root)
+    sink_token = _remote_sink.set((root, sink))
+    _flush(root, sink)
+    try:
+        yield root
+    except BaseException as e:
+        root.finish(error=e)
+        raise
+    else:
+        root.finish()
+    finally:
+        _current_span.reset(token)
+        _remote_sink.reset(sink_token)
+        _flush(root, sink)
+
+
+def _flush(root, sink) -> None:
+    if sink is None:
+        return
+    try:
+        sink(root)
+    except Exception:  # best-effort: a read-only mount must not break operands
+        logging.getLogger(__name__).debug("span sink failed", exc_info=True)
+
+
+def flush_spans() -> None:
+    """Publish the active remote trace through its sink now: the loop
+    components (revalidation, serving re-probe, feature discovery) call
+    this each pass, since a DaemonSet's main container never exits."""
+    active = _remote_sink.get()
+    if active is not None:
+        _flush(*active)

@@ -1,7 +1,9 @@
-"""Object helpers the validator needs (copies of tpu_operator/utils/objects.py)."""
+"""Object helpers the validator needs (copies of tpu_operator/utils/objects.py
+and of ``object_hash`` in tpu_operator/utils/hash.py)."""
 
 from __future__ import annotations
 
+import json
 import re
 from typing import Any, Mapping, Optional
 
@@ -33,3 +35,22 @@ def parse_quantity(value: Any) -> float:
     if not m or m.group(2) not in _SUFFIXES:
         raise ValueError(f"unparseable quantity: {value!r}")
     return float(m.group(1)) * _SUFFIXES[m.group(2)]
+
+
+_FNV_OFFSET_32 = 0x811C9DC5
+_FNV_PRIME_32 = 0x01000193
+
+
+def fnv32a(data: bytes) -> int:
+    h = _FNV_OFFSET_32
+    for b in data:
+        h ^= b
+        h = (h * _FNV_PRIME_32) & 0xFFFFFFFF
+    return h
+
+
+def object_hash(obj: Any) -> str:
+    """FNV-32a of the canonical (key-sorted) JSON of ``obj``, in hex: the
+    operator's hash, so both sides compute the same drain-plan identity."""
+    payload = json.dumps(obj, sort_keys=True, separators=(",", ":"), default=str)
+    return format(fnv32a(payload.encode("utf-8")), "x")
