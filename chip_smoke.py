@@ -39,6 +39,16 @@ Phases, each of which exits non-zero on failure:
    ``memory_reserved`` flat, then ``-c serving --serving-interval=1`` in a
    fresh process for three probes; the metrics exporter, in process and
    over HTTP. This path launches no hand-written kernel
+10. device plumbing, on a copy of that status dir: NVML against
+   ``nvidia-smi -q`` in a fresh process that must import no torch and hold
+   no primary context; the device plugin's inventory (one unit per GPU,
+   its node the GPU's own minor) and its health gate on a failed barrier;
+   Allocate, then ``workload-local`` in a child whose environment is the
+   plan's alone (it must see exactly the allocated UUID); the CDI spec;
+   the plugin served over gRPC in a fresh process (where grpc imports);
+   the telemetry exporter in a fresh process scraped against
+   ``nvidia-smi`` while a child holds 8 GiB and runs GEMMs, and after. No
+   hand-written kernel
 
 ``workload`` spawns a pod through an apiserver, which this machine lacks:
 the CPU tests (``tests/test_torch_join_chain.py``) cover it.
@@ -49,7 +59,6 @@ Needs a CUDA device and the rest of the repository beside this file.
 
 import contextlib
 import copy
-import ctypes
 import glob
 import io
 import json
@@ -120,7 +129,6 @@ def step_wall_ms(step, load, n: int) -> list:
 
 def serving_phase(dev, gen, card, status_dir) -> dict:
     from tpu_operator_torch.device import set_numerics
-    from tpu_operator_torch.kernels import stream_copy as k1
     from tpu_operator_torch.serving import probe
     from tpu_operator_torch.validator import main as vmain
     from tpu_operator_torch.validator.status import StatusFiles
@@ -199,9 +207,7 @@ def serving_phase(dev, gen, card, status_dir) -> dict:
     print(json.dumps({"serving_step": steps, "batch": batch, "dim": dim, "card": card}))
     del engine
 
-    k1.launches = 0
     rc = vmain.run(["-c", "serving", f"--status-dir={status_dir}"])
-    check(k1.launches == 0, f"the serving path launched K1 {k1.launches} times")
     report = StatusFiles(status_dir).read("serving")
     check(rc == 0, f"serving exited {rc}: {report and report.get('failures')}")
     check(report.get("passed") is True and report.get("platform") == "gpu",
@@ -307,23 +313,9 @@ class DictClient:
 def primary_contexts_active() -> list:
     """Whether this process holds each GPU's primary context, from the
     driver API itself (``cuDevicePrimaryCtxGetState``)."""
-    cuda = ctypes.CDLL("libcuda.so.1")
-    cuda.cuInit.argtypes = [ctypes.c_uint]
-    cuda.cuDeviceGetCount.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    cuda.cuDeviceGet.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-    cuda.cuDevicePrimaryCtxGetState.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_uint),
-                                                ctypes.POINTER(ctypes.c_int)]
-    check(cuda.cuInit(0) == 0, "cuInit failed")
-    count = ctypes.c_int()
-    check(cuda.cuDeviceGetCount(ctypes.byref(count)) == 0, "cuDeviceGetCount failed")
-    active = []
-    for i in range(count.value):
-        dev, flags, state = ctypes.c_int(), ctypes.c_uint(), ctypes.c_int()
-        check(cuda.cuDeviceGet(ctypes.byref(dev), i) == 0, "cuDeviceGet failed")
-        check(cuda.cuDevicePrimaryCtxGetState(dev, ctypes.byref(flags), ctypes.byref(state))
-              == 0, "cuDevicePrimaryCtxGetState failed")
-        active.append(bool(state.value))
-    return active
+    from tpu_operator_torch.cuda_driver import primary_contexts_active as active
+
+    return active()
 
 
 def compute_app_pids() -> list:
@@ -350,14 +342,18 @@ def free_port() -> int:
 
 
 class CliProcess:
-    """A validator component run in its own process group (its revalidation
-    sweeps are children of it), stdout read line by line on a thread, and
-    the whole group killed by :meth:`stop`."""
+    """A validator component (or a ``python -c`` script, when ``script`` is
+    given) run in its own process group (its revalidation sweeps are
+    children of it), stdout read line by line on a thread, and the whole
+    group killed by :meth:`stop`."""
 
-    def __init__(self, argv: list):
+    def __init__(self, argv: list, script: str = None):
+        command = ([sys.executable, "-c", script] if script is not None else
+                   [sys.executable, "-m", "tpu_operator_torch.cmd.validator", *argv])
+        self.started = time.perf_counter()
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "tpu_operator_torch.cmd.validator", *argv],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, start_new_session=True)
+            command, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            start_new_session=True, cwd=os.path.dirname(os.path.abspath(__file__)))
         self.lines: "queue.Queue[str]" = queue.Queue()
         self.stderr: list = []
         threading.Thread(target=self._pump, args=(self.proc.stdout, self.lines.put),
@@ -604,6 +600,341 @@ def steady_state_phase(dev, card, status_dir, trace_id, serving_report) -> None:
     print(json.dumps({"steady_state": numbers}))
 
 
+def smi_gpus() -> list:
+    """(UUID, minor number, PCI bus id or None for N/A) per GPU, in
+    nvidia-smi's (NVML's index) order, from ``nvidia-smi -q``."""
+    out = subprocess.run(["nvidia-smi", "-q"], capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi -q failed: {out.stderr}")
+    uuids = re.findall(r"GPU UUID\s*:\s*(\S+)", out.stdout)
+    minors = [int(m) for m in re.findall(r"Minor Number\s*:\s*(\d+)", out.stdout)]
+    buses = [None if b == "N/A" else b for b in re.findall(r"\n\s*Bus Id\s*:\s*(\S+)", out.stdout)]
+    check(len(uuids) == len(minors) == len(buses), f"nvidia-smi -q: {uuids} {minors} {buses}")
+    return list(zip(uuids, minors, buses))
+
+
+def smi_sample() -> dict:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used,utilization.gpu,power.draw,"
+                          "temperature.gpu", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi --query-gpu failed: {out.stderr}")
+    used, util, power, temp = (float(v) for v in out.stdout.splitlines()[0].split(","))
+    return {"memory_used_bytes": used * 2 ** 20, "utilization_gpu": util, "power_w": power,
+            "temperature_c": temp}
+
+
+def check_beside(value, before, after, key, rel=0.0, tol=0.0) -> None:
+    """``value`` lies in the band nvidia-smi's two samples ``before`` and
+    ``after`` span, widened by ``rel`` of it and by ``tol``."""
+    lo, hi = sorted((before[key], after[key]))
+    check(lo * (1 - rel) - tol <= value <= hi * (1 + rel) + tol,
+          f"{key}: the exporter's {value} against nvidia-smi's {before[key]} and "
+          f"{after[key]} around it")
+
+
+def scrape(port: int) -> dict:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=5) as r:
+        return scrape_samples(r.read().decode())
+
+
+#: a torch-free process's own check, once ``trigger`` exists: has it
+#: imported torch or jax, and does it hold a primary context
+_SELF_CHECK = (
+    "import json, os, sys, threading, time\n"
+    "def _self_check(trigger):\n"
+    "    while not os.path.exists(trigger):\n"
+    "        time.sleep(0.05)\n"
+    "    from tpu_operator_torch.cuda_driver import primary_contexts_active\n"
+    "    print(json.dumps({'torch': 'torch' in sys.modules, 'jax': 'jax' in sys.modules,\n"
+    "                      'contexts': primary_contexts_active()}), flush=True)\n")
+
+
+def plumbing_phase(card, status_dir) -> dict:
+    """Phase 10: NVML, the device plugin, CDI and telemetry on the card."""
+    import shutil
+    import stat
+
+    from tpu_operator_torch import consts, nvml
+    from tpu_operator_torch.deviceplugin.plugin import GPUDevicePlugin, plan_container
+    from tpu_operator_torch.validator import cdi, telemetry
+    from tpu_operator_torch.validator.status import StatusFiles
+
+    numbers = {"card": card}
+    work = tempfile.mkdtemp(prefix="chip-smoke-plumbing-")
+    status_copy = os.path.join(work, "status")
+    shutil.copytree(status_dir, status_copy)
+    handoff = os.path.join(work, "handoff")
+    n_cuda = torch.cuda.device_count()
+
+    # 1. NVML against nvidia-smi -q, in a fresh process without torch
+    trigger = os.path.join(work, "nvml-check")
+    open(trigger, "w").close()
+    script = _SELF_CHECK + (
+        "import dataclasses\n"
+        "t0 = time.perf_counter()\n"
+        "from tpu_operator_torch import nvml\n"
+        "with nvml.session() as s:\n"
+        "    gpus = [s.gpu(i) for i in range(s.count())]\n"
+        "nvml_ms = (time.perf_counter() - t0) * 1e3\n"
+        "from tpu_operator_torch import cuda_driver\n"
+        "cuda_order = cuda_driver.uuids_by_ordinal()\n"
+        "from tpu_operator_torch.validator import telemetry\n"
+        "from tpu_operator_torch.deviceplugin.plugin import GPUDevicePlugin\n"
+        f"m = telemetry.TelemetryMetrics(handoff_dir={handoff!r})\n"
+        "t1 = time.perf_counter()\n"
+        "m.refresh()\n"
+        "refresh_ms = (time.perf_counter() - t1) * 1e3\n"
+        f"p = GPUDevicePlugin(status_dir={status_copy!r}, handoff_dir={handoff!r})\n"
+        "t2 = time.perf_counter()\n"
+        "p.refresh_units()\n"
+        "plugin_ms = (time.perf_counter() - t2) * 1e3\n"
+        "print(json.dumps({'gpus': [dataclasses.asdict(g) for g in gpus], 'nvml_ms': nvml_ms,\n"
+        "                  'cuda_order': cuda_order,\n"
+        "                  'telemetry_refresh_ms': refresh_ms, 'plugin_refresh_ms': plugin_ms,\n"
+        "                  'units': [u.id for u in p._snapshot()]}), flush=True)\n"
+        f"_self_check({trigger!r})\n")
+    t0 = time.perf_counter()
+    fresh = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                           timeout=120, cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall_s = time.perf_counter() - t0
+    check(fresh.returncode == 0, f"the NVML process failed: {fresh.stderr[-2000:]}")
+    result, self_check = [json.loads(ln) for ln in fresh.stdout.splitlines() if ln.startswith("{")]
+    got = [(g["uuid"], g["minor"], g["pci_bus_id"]) for g in result["gpus"]]
+    check(got == smi_gpus(), f"NVML {got} != nvidia-smi -q {smi_gpus()}")
+    check(len(got) == n_cuda, f"NVML lists {len(got)} GPUs, CUDA sees {n_cuda}")
+    torch_uuids = ["GPU-" + str(torch.cuda.get_device_properties(i).uuid) for i in range(n_cuda)]
+    check(sorted(result["cuda_order"]) == sorted(torch_uuids) == sorted(u for u, _, _ in got),
+          f"the CUDA driver's ordinals {result['cuda_order']}, torch's {torch_uuids}")
+    check(self_check == {"torch": False, "jax": False, "contexts": [False] * n_cuda},
+          f"the NVML process: {self_check}")
+    numbers["nvml_process"] = {"wall_s": wall_s, **{k: result[k] for k in (
+        "nvml_ms", "telemetry_refresh_ms", "plugin_refresh_ms")}}
+    print(json.dumps({"nvml": {"gpus": result["gpus"], "cuda_order": result["cuda_order"],
+                               **numbers["nvml_process"],
+                               "self_check": self_check}}))
+
+    # 2. inventory and health: one unit per GPU, its node the GPU's own minor
+    smi = smi_gpus()
+    plugin = GPUDevicePlugin(plugin_dir=os.path.join(work, "kubelet"), status_dir=status_copy,
+                             handoff_dir=handoff)
+    plugin.refresh_units()
+    units = plugin._snapshot()
+    check([u.id for u in units] == [f"gpu-{i}" for i in range(n_cuda)], f"units {units}")
+    gpus = nvml.gpus()
+    status = StatusFiles(status_copy)
+    for i, unit in enumerate(units):
+        node = plugin.allocation_plan([unit.id]).devices[0][1]
+        check(node == f"/dev/nvidia{smi[i][1]}", f"{unit.id}'s node {node}, minor {smi[i][1]}")
+        check(stat.S_ISCHR(os.stat(node).st_mode), f"{node} is not a character device")
+    check(all(u.health == "Healthy" for u in units), f"health {units}")
+    kept = open(status.path("workload"), "rb").read()
+    status.write("workload", {"passed": False, "n_devices": n_cuda,
+                              "local_chips": list(range(n_cuda)), "failed_local_chips": [0],
+                              "details": {"compute": {"passed": False, "failed_chips": [0]}}})
+    check(plugin.refresh_units(), "a failed barrier changed nothing")
+    health = [u.health for u in plugin._snapshot()]
+    check(health == ["Unhealthy"] + ["Healthy"] * (n_cuda - 1), f"after the failure: {health}")
+    with open(status.path("workload"), "wb") as f:
+        f.write(kept)
+    check(plugin.refresh_units(), "the restored barrier changed nothing")
+    check(all(u.health == "Healthy" for u in plugin._snapshot()), "not restored")
+    print(json.dumps({"inventory": [(u.id, plugin.allocation_plan([u.id]).devices[0][1])
+                                    for u in units],
+                      "gate": "gpu-0 Unhealthy on failed_local_chips [0], restored"}))
+
+    # 3. Allocate, then what a pod would run, with only the plan's env
+    t0 = time.perf_counter()
+    plan = plugin.allocation_plan(["gpu-0"])
+    numbers["allocate_plan_ms"] = (time.perf_counter() - t0) * 1e3
+    for _, host, _ in plan.devices:
+        check(stat.S_ISCHR(os.stat(host).st_mode), f"{host} is not a character device")
+    for _, host, read_only in plan.mounts:
+        check(os.path.exists(host) and read_only, f"mount {host}")
+    uuid = plan.envs["CUDA_VISIBLE_DEVICES"]
+    check(uuid == gpus[0].uuid == plan.envs["NVIDIA_VISIBLE_DEVICES"], f"plan envs {plan.envs}")
+    pod_status = os.path.join(work, "pod-status")
+    pod = subprocess.run([sys.executable, "-c", (
+        "import json, sys, torch\n"
+        "props = torch.cuda.get_device_properties(0)\n"
+        "print(json.dumps({'count': torch.cuda.device_count(), 'uuid': 'GPU-' + str(props.uuid)}),\n"
+        "      flush=True)\n"
+        "from tpu_operator_torch.validator.main import main\n"
+        f"sys.exit(main(['-c', 'workload-local', '--status-dir={pod_status}']))\n")],
+        env=dict(plan.envs, PATH=os.environ["PATH"],
+                 PYTHONPATH=os.path.dirname(os.path.abspath(__file__)),
+                 **{k: os.environ[k] for k in ("TMPDIR", "HOME") if k in os.environ}),
+        capture_output=True, text=True, timeout=300)
+    check(pod.returncode == 0, f"workload-local with the plan's env: {pod.stderr[-2000:]}")
+    seen = json.loads([ln for ln in pod.stdout.splitlines() if ln.startswith("{")][0])
+    check(seen == {"count": 1, "uuid": uuid}, f"the pod saw {seen}, allocated {uuid}")
+    barrier = StatusFiles(pod_status).read("workload")
+    check(barrier["passed"] and barrier["n_devices"] == 1, f"pod barrier {barrier}")
+    numbers["pod_sweep_elapsed_s"] = barrier["elapsed_s"]
+    print(json.dumps({"allocate": {"devices": plan.devices, "mounts": plan.mounts,
+                                   "env_names": sorted(plan.envs),
+                                   "plan_ms": numbers["allocate_plan_ms"]},
+                      "pod": {"saw_one_gpu_with_the_allocated_uuid": True,
+                              "elapsed_s": barrier["elapsed_s"]}}))
+
+    # 4. CDI
+    path = cdi.write_spec(cdi.generate_spec(), os.path.join(work, "cdi"))
+    spec = json.load(open(path))
+    nodes = [n["path"] for d in spec["devices"] for n in d["containerEdits"]["deviceNodes"]]
+    nodes += [n["path"] for n in spec["containerEdits"].get("deviceNodes", [])]
+    check(all(stat.S_ISCHR(os.stat(n).st_mode) for n in nodes), f"CDI nodes {nodes}")
+    check(all(os.path.exists(m["hostPath"]) for m in spec["containerEdits"]["mounts"]),
+          "CDI mounts")
+    names = [f"{spec['kind']}={d['name']}" for d in spec["devices"][:-1]]
+    check(names == plan_container(units, gpus, consts.DEFAULT_DRIVER_LIB_DIR,
+                                  use_cdi=True).cdi_devices,
+          f"CDI names {names}")
+    print(json.dumps({"cdi": {"path": path, "devices": [d["name"] for d in spec["devices"]],
+                              "nodes": sorted(set(nodes))}}))
+
+    # 5. the wire layer, where grpc and protobuf import
+    try:
+        import grpc
+        from tpu_operator_torch.deviceplugin import grpc_api
+        from tpu_operator_torch.deviceplugin.proto import deviceplugin_pb2 as pb
+    except ImportError as e:
+        print(f"grpc or protobuf missing on this machine ({e}): the device plugin's wire "
+              "layer is covered only by the CPU tests")
+        rc = subprocess.run([sys.executable, "-m", "tpu_operator_torch.cmd.validator", "-c",
+                             "device-plugin", f"--status-dir={status_copy}"],
+                            capture_output=True, text=True, timeout=120)
+        check(rc.returncode != 0 and "grpc" in rc.stderr, f"device-plugin without grpc: {rc}")
+    else:
+        trigger = os.path.join(work, "plugin-check")
+        server = CliProcess([], script=_SELF_CHECK + (
+            "from tpu_operator_torch.deviceplugin.plugin import GPUDevicePlugin\n"
+            f"p = GPUDevicePlugin(plugin_dir={os.path.join(work, 'served')!r}, "
+            f"status_dir={status_copy!r}, handoff_dir={handoff!r})\n"
+            "t0 = time.perf_counter()\n"
+            "socket_path = p.start()\n"
+            "print(json.dumps({'socket': socket_path,\n"
+            "                  'start_ms': (time.perf_counter() - t0) * 1e3}), flush=True)\n"
+            f"_self_check({trigger!r})\n"
+            "p.stop()\n"))
+        try:
+            ready = server.json_lines(1, timeout=120)[0]
+            numbers["plugin_process_to_inventory_s"] = time.perf_counter() - server.started
+            numbers["plugin_start_ms"] = ready["start_ms"]
+            with grpc.insecure_channel(f"unix://{ready['socket']}") as channel:
+                stub = grpc_api.DevicePluginStub(channel)
+                first = next(stub.ListAndWatch(pb.Empty(), timeout=30))
+                check([(d.ID, d.health) for d in first.devices] ==
+                      [(u.id, "Healthy") for u in units], f"ListAndWatch {first}")
+                t0 = time.perf_counter()
+                resp = stub.Allocate(pb.AllocateRequest(container_requests=[
+                    pb.ContainerAllocateRequest(devicesIDs=["gpu-0"])]), timeout=30)
+                numbers["allocate_rpc_ms"] = (time.perf_counter() - t0) * 1e3
+            c = resp.container_responses[0]
+            check(dict(c.envs) == plan.envs and
+                  [(d.container_path, d.host_path, d.permissions) for d in c.devices] ==
+                  plan.devices and
+                  [(m.container_path, m.host_path, m.read_only) for m in c.mounts] ==
+                  plan.mounts, f"Allocate over the wire {c} != plan {plan}")
+            open(trigger, "w").close()
+            plugin_check = server.json_lines(1, timeout=60)[0]
+        finally:
+            server.stop()
+        check(plugin_check == {"torch": False, "jax": False, "contexts": [False] * n_cuda},
+              f"the plugin process: {plugin_check}")
+        from google import protobuf
+        print(json.dumps({"grpc": grpc.__version__, "protobuf": protobuf.__version__, "wire": {
+            "list_and_watch": [(d.ID, d.health) for d in first.devices],
+            "allocate_rpc_ms": numbers["allocate_rpc_ms"], "start_ms": ready["start_ms"],
+            "process_to_inventory_s": numbers["plugin_process_to_inventory_s"],
+            "self_check": plugin_check}}))
+
+    # 6. telemetry under load: a child holds 8 GiB and runs GEMMs. The
+    # exporter refreshes every 0.1 s and each scrape is bracketed by two
+    # nvidia-smi samples: under a 700 W load the die's reading moves by a
+    # degree or two within a second, so the exporter's value is held to
+    # the band the two samples span, widened by the tolerance
+    refresh_s = 0.1
+    port = free_port()
+    trigger = os.path.join(work, "exporter-check")
+    exporter = CliProcess([], script=_SELF_CHECK + (
+        f"threading.Thread(target=_self_check, args=({trigger!r},), daemon=True).start()\n"
+        "from tpu_operator_torch.validator.main import main\n"
+        f"sys.exit(main(['-c', 'telemetry', '--port={port}', '--sleep-interval={refresh_s}',\n"
+        f"               '--handoff-dir={handoff}', '--status-dir={status_copy}']))\n"))
+    stop_file = os.path.join(work, "stop-load")
+    load = CliProcess([], script=(
+        "import os, sys, time, torch\n"
+        "hold = torch.empty(8 * 2 ** 30, dtype=torch.uint8, device='cuda')\n"
+        "a = torch.randn(8192, 8192, device='cuda', dtype=torch.bfloat16)\n"
+        "b = a @ a\n"
+        "torch.cuda.synchronize()\n"
+        "print('{\"loaded\": true}', flush=True)\n"
+        "t0 = time.time()\n"
+        f"while not os.path.exists({stop_file!r}) and time.time() - t0 < 60:\n"
+        "    for _ in range(20):\n"
+        "        b = a @ a\n"
+        "    torch.cuda.synchronize()\n"))
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                scrape(port)
+                break
+            except OSError:
+                check(exporter.proc.poll() is None and time.monotonic() < deadline,
+                      f"telemetry never served: {''.join(exporter.stderr)[-2000:]}")
+                time.sleep(0.1)
+        load.json_lines(1, timeout=120)
+        time.sleep(3.0)
+        pairs = []
+        for _ in range(3):
+            before, got, after = smi_sample(), scrape(port), smi_sample()
+            pairs.append((got, [before, after]))
+            used = got['tpu_hbm_used_bytes{chip="0"}']
+            check(used >= 8 * 2 ** 30, f"hbm used {used} under an 8 GiB hold")
+            check_beside(used, before, after, "memory_used_bytes", rel=0.05)
+            check(got['tpu_duty_cycle_percent{chip="0"}'] >= 50, f"duty cycle {got}")
+            check_beside(got['tpu_power_watts{sensor="nvml/gpu0"}'], before, after, "power_w",
+                         rel=0.15)
+            check_beside(got['tpu_temperature_celsius{sensor="nvml/gpu0"}'], before, after,
+                         "temperature_c", tol=2)
+            time.sleep(0.5)
+        loaded_used = pairs[-1][0]['tpu_hbm_used_bytes{chip="0"}']
+        metrics = telemetry.TelemetryMetrics(handoff_dir=handoff)
+        refresh_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            metrics.refresh()
+            refresh_ms.append((time.perf_counter() - t0) * 1e3)
+        open(stop_file, "w").close()
+        load.proc.wait(timeout=120)
+        gone = time.perf_counter()
+        while True:
+            left = scrape(port)['tpu_hbm_used_bytes{chip="0"}']
+            if loaded_used - left >= 7 * 2 ** 30:
+                break
+            check(time.perf_counter() - gone < 2 * refresh_s + 0.5,
+                  f"used bytes {left} two refreshes after the hold went ({loaded_used} held)")
+            time.sleep(0.1)
+        fall_s = time.perf_counter() - gone
+        open(trigger, "w").close()
+        exporter_check = exporter.json_lines(1, timeout=60)[0]
+    finally:
+        load.stop()
+        exporter.stop()
+    check(exporter_check == {"torch": False, "jax": False, "contexts": [False] * n_cuda},
+          f"the exporter process: {exporter_check}")
+    numbers["telemetry_refresh_ms_under_load"] = refresh_ms
+    numbers["hbm_used_fall_s"] = fall_s
+    print(json.dumps({"telemetry_under_load": [
+        {"exporter": {k: v for k, v in got.items() if k.startswith(
+            ("tpu_hbm", "tpu_duty", "tpu_membw", "tpu_power", "tpu_temp"))},
+         "nvidia_smi_before_after": smi} for got, smi in pairs],
+        "refresh_ms": refresh_ms, "after_hold": {"used_bytes": left, "fall_s": fall_s},
+        "self_check": exporter_check, "card": card}))
+    shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps({"device_plumbing": numbers}))
+    return numbers
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs an NVIDIA GPU")
@@ -780,7 +1111,10 @@ def main() -> int:
     print("entry ok, dryrun_multichip(1) ok")
 
     phase("serving: the decode step as a CUDA graph")
+    k1.launches = 0
     serving_report = serving_phase(dev, gen, card, status_dir)
+    serving_launches = k1.launches
+    check(serving_launches == 0, f"the serving path launched K1 {serving_launches} times")
 
     phase("prewarm: K1 into a fresh build cache, then loaded without nvcc")
     prewarm_phase(card, status_dir)
@@ -788,7 +1122,15 @@ def main() -> int:
     phase("steady state and node identity")
     k1.launches = 0
     steady_state_phase(dev, card, status_dir, trace_id, serving_report)
-    check(k1.launches == 0, f"the steady-state path launched K1 {k1.launches} times")
+    steady_state_launches = k1.launches
+    check(steady_state_launches == 0,
+          f"the steady-state path launched K1 {steady_state_launches} times")
+
+    phase("device plumbing: NVML, the device plugin, CDI, telemetry")
+    k1.launches = 0
+    plumbing_phase(card, status_dir)
+    plumbing_launches = k1.launches
+    check(plumbing_launches == 0, f"the device plumbing launched K1 {plumbing_launches} times")
 
     print(json.dumps({"kernels": [{
         "name": "stream_copy",
@@ -802,6 +1144,11 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "library_ms": timing["library"],
+        # the paths without K1 launch it no time: serving (7), the steady
+        # state (9) and the device plumbing (10) are checked at 0 above
+        "launches_by_phase": {"perf": k1_main_launches, "serving": serving_launches,
+                              "steady_state": steady_state_launches,
+                              "device_plumbing": plumbing_launches},
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: no module of tpu_operator_torch (nor
 chip_smoke.py) imports jax or anything of tpu_operator, nor
-prometheus_client or yaml (the card's machine has neither), and importing
-the package builds and loads no kernel."""
+prometheus_client or yaml (the port writes the text format and reads its
+YAML itself), and importing the package builds and loads no kernel. grpc
+and google.protobuf are imported only by the device plugin's wire layer:
+the package, the plugin's plan layer included, imports without them."""
 
 import ast
 import os
@@ -58,7 +60,12 @@ def test_port_module_list_is_complete():
                      "client", "serving", "serving.frontier", "serving.probe",
                      "validator.serving", "tracing", "joinprofile", "joinprofile.records",
                      "health", "health.drain", "validator.feature_discovery",
-                     "validator.info", "validator.metrics"):
+                     "validator.info", "validator.metrics", "nvml", "cuda_driver", "configmap",
+                     "partitioner", "partitioner.partitioner", "deviceplugin",
+                     "deviceplugin.plugin", "deviceplugin.grpc_api",
+                     "deviceplugin.proto", "deviceplugin.proto.deviceplugin_pb2",
+                     "validator.cdi", "validator.telemetry", "testing",
+                     "testing.fake_nvml"):
         assert f"tpu_operator_torch.{expected}" in names
 
 
@@ -75,3 +82,77 @@ def test_no_forbidden_import_in_source(path):
         for root in roots:
             assert root not in FORBIDDEN, f"{path}:{node.lineno} imports {root}"
 
+
+
+#: the only modules that may import grpc or google.protobuf at module level;
+#: plugin.py only inside functions (its wire layer), and chip_smoke.py only
+#: inside the function that talks to that layer as a kubelet does
+WIRE_MODULES = {os.path.join(PACKAGE, "deviceplugin", "grpc_api.py"),
+                os.path.join(PACKAGE, "deviceplugin", "proto", "deviceplugin_pb2.py")}
+WIRE_ROOTS = ("grpc", "google")
+
+
+@pytest.mark.parametrize("path", _python_files(), ids=lambda p: os.path.relpath(p, REPO))
+def test_grpc_and_protobuf_only_in_the_wire_layer(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    in_function = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            in_function.update(id(n) for n in ast.walk(node))
+    callers = (os.path.join(PACKAGE, "deviceplugin", "plugin.py"),
+               os.path.join(REPO, "chip_smoke.py"))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots = [alias.name.split(".")[0] for alias in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            module = node.module or ""
+            roots = [module.split(".")[0]] if node.level == 0 else [
+                "grpc" if module in ("grpc_api", "proto") or module.startswith("proto.")
+                else ""]
+        else:
+            continue
+        if not set(roots) & set(WIRE_ROOTS) or path in WIRE_MODULES:
+            continue
+        assert path in callers and id(node) in in_function, \
+            f"{path}:{node.lineno} imports the wire layer's packages"
+
+
+#: a finder that refuses grpc and google.protobuf, as on a machine without them
+_BLOCK = (
+    "import sys\n"
+    "class Block:\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.split('.')[0] == 'grpc' or name.startswith('google.protobuf'):\n"
+    "            raise ImportError(f'No module named {name!r}')\n"
+    "sys.meta_path.insert(0, Block())\n")
+
+
+def test_the_package_imports_without_grpc_and_the_wire_layer_names_it(tmp_path):
+    script = _BLOCK + (
+        "import importlib\n"
+        "for name in ('tpu_operator_torch.deviceplugin', 'tpu_operator_torch.deviceplugin.plugin',\n"
+        "             'tpu_operator_torch.validator.cdi', 'tpu_operator_torch.validator.telemetry',\n"
+        "             'tpu_operator_torch.validator.main'):\n"
+        "    importlib.import_module(name)\n"
+        "from tpu_operator_torch.testing import fake_nvml as f\n"
+        "from tpu_operator_torch.deviceplugin.plugin import GPUDevicePlugin\n"
+        "fake = f.FakeNvml(f.random_gpus(2, 0))\n"
+        f"p = GPUDevicePlugin(plugin_dir={str(tmp_path)!r}, status_dir={str(tmp_path)!r}, "
+        "nvml_lib=fake)\n"
+        "p.refresh_units()\n"
+        "assert p.allocation_plan(['gpu-1']).envs['CUDA_VISIBLE_DEVICES']\n"
+        "try:\n"
+        "    p.start()\n"
+        "except ImportError as e:\n"
+        "    print('ImportError:', e)\n"
+        "f.install(fake)\n"
+        "from tpu_operator_torch.validator.main import main\n"
+        f"rc = main(['-c', 'device-plugin', '--status-dir={tmp_path}'])\n"
+        "print('rc', rc, 'grpc' in sys.modules)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    result = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                            capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stderr[-2000:]
+    assert "ImportError: the device plugin's wire layer needs the grpc package" in result.stdout
+    assert result.stdout.strip().splitlines()[-1] == "rc 1 False"
+    assert "grpc" in result.stderr  # the CLI's error names it

@@ -285,7 +285,8 @@ def _mapped(obj):
 def test_pod_spec_equals_reference(fake_client, monkeypatch, cache):
     """The spawned pod is the reference's once the accelerator names are
     mapped: status and build-cache host paths, one GPU request per
-    allocatable GPU, the validator's command."""
+    allocatable GPU, the validator's command; and it pins CUDA's device
+    order to PCI."""
     from tpu_operator import consts as ref_consts
 
     pods = {}
@@ -303,9 +304,19 @@ def test_pod_spec_equals_reference(fake_client, monkeypatch, cache):
             monkeypatch.setenv(env, cache if key == "port" else "/var/cache/tpu-xla")
         module.spawn_workload_pod(client, NS, "n1", "img:1", timeout=0.05, poll=0.02,
                                   status_dir="/run/tpu/validations")
-    assert pods["port"] == _mapped(pods["ref"])
+    # the one addition: the pod's sweep numbers GPUs in PCI order, as the
+    # device plugin's units are (the reference has no device order to pin)
+    order = {"name": consts.CUDA_DEVICE_ORDER_ENV, "value": "PCI_BUS_ID"}
+    for pod in (pods["port"], workload.WORKLOAD_POD_TEMPLATE):
+        env = pod["spec"]["containers"][0]["env"]
+        assert env[1] == order
+    without_order = copy.deepcopy(pods["port"])
+    without_order["spec"]["containers"][0]["env"].remove(order)
+    assert without_order == _mapped(pods["ref"])
     assert pods["port"]["spec"]["containers"][0]["command"] == ["gpu-validator"]
-    assert workload.WORKLOAD_POD_TEMPLATE == _mapped(ref_workload.WORKLOAD_POD_TEMPLATE)
+    template = copy.deepcopy(workload.WORKLOAD_POD_TEMPLATE)
+    template["spec"]["containers"][0]["env"].remove(order)
+    assert template == _mapped(ref_workload.WORKLOAD_POD_TEMPLATE)
 
 
 # -- -c workload --------------------------------------------------------------

@@ -6,7 +6,6 @@ card with ``python -m pytest tests/test_torch_node_identity_gpu.py -m gpu
 --noconftest`` (``--noconftest`` because tests/conftest.py imports jax,
 which that machine lacks; this file imports only the port)."""
 
-import ctypes
 import json
 import os
 import subprocess
@@ -15,6 +14,7 @@ import sys
 import pytest
 import torch
 
+from tpu_operator_torch.cuda_driver import primary_contexts_active
 from tpu_operator_torch.device import resolve_device
 from tpu_operator_torch.validator import feature_discovery, info, main as vmain
 from tpu_operator_torch.validator.serving import run_serving
@@ -28,28 +28,6 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: these are the card's own behaviours")
     return resolve_device("cuda")
-
-
-def primary_contexts_active():
-    """Whether this process holds each GPU's primary context (the driver
-    API's own answer, whatever PyTorch has initialised)."""
-    cuda = ctypes.CDLL("libcuda.so.1")
-    cuda.cuInit.argtypes = [ctypes.c_uint]
-    cuda.cuDeviceGetCount.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    cuda.cuDeviceGet.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-    cuda.cuDevicePrimaryCtxGetState.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_uint),
-                                                ctypes.POINTER(ctypes.c_int)]
-    assert cuda.cuInit(0) == 0
-    count = ctypes.c_int()
-    assert cuda.cuDeviceGetCount(ctypes.byref(count)) == 0
-    active = []
-    for i in range(count.value):
-        dev, flags, state = ctypes.c_int(), ctypes.c_uint(), ctypes.c_int()
-        assert cuda.cuDeviceGet(ctypes.byref(dev), i) == 0
-        assert cuda.cuDevicePrimaryCtxGetState(dev, ctypes.byref(flags),
-                                               ctypes.byref(state)) == 0
-        active.append(bool(state.value))
-    return active
 
 
 @pytest.mark.gpu

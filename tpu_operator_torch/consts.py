@@ -94,3 +94,46 @@ DRAIN_CHECKPOINT_FILE = "drain-checkpoint.json"
 # -- steady state ---------------------------------------------------------------
 #: sleep mode's revalidation period in seconds (0 = off)
 REVALIDATE_INTERVAL_ENV = "GPU_REVALIDATE_INTERVAL"
+
+# -- one GPU order everywhere -------------------------------------------------------
+#: CUDA's default device order (FASTEST_FIRST) is bound neither to minor
+#: numbers nor to PCI order; every sweep process the port starts runs with
+#: PCI order unless its caller chose, so that CUDA ordinal i, the device
+#: plugin's unit i (NVML's GPUs in PCI order) and a barrier's local chip i
+#: name one GPU
+CUDA_DEVICE_ORDER_ENV = "CUDA_DEVICE_ORDER"
+CUDA_DEVICE_ORDER = "PCI_BUS_ID"
+
+# -- device plumbing (device plugin, CDI, telemetry) ------------------------------
+#: the host's device directory
+DEV_DIR = "/dev"
+#: one GPU's own device node, by its minor number (NVML's, nvidia-smi -q's)
+GPU_DEV_NODE = "nvidia{minor}"
+#: control nodes every CUDA process opens, not per-GPU: handed to every
+#: container that gets a GPU, those present on the host
+GPU_CONTROL_NODES = ("nvidiactl", "nvidia-uvm", "nvidia-uvm-tools")
+#: the driver's user-space files a GPU container needs, mounted read-only
+#: one by one (the directory holding them holds the host's libc too), with
+#: the file libcuda.so.1 resolves to
+DRIVER_LIB_FILES = ("libcuda.so.1", "libnvidia-ml.so.1")
+#: CDI kind of the node's GPUs
+CDI_KIND = GPU_RESOURCE_NAME
+#: the kubelet's registration socket, in its device-plugin dir
+KUBELET_SOCKET = "/var/lib/kubelet/device-plugins/kubelet.sock"
+#: the device plugin's socket in that dir
+PLUGIN_SOCKET_NAME = "gpu.sock"
+#: host-path dir the partitioner publishes applied partitions in (the same
+#: path as the TPU operator's, like the status dir)
+DEFAULT_HANDOFF_DIR = "/var/lib/tpu-partitions"
+HANDOFF_DIR_ENV = "GPU_HANDOFF_DIR"
+#: device plugin: Allocate names CDI devices instead of device specs ("1")
+USE_CDI_ENV = "GPU_USE_CDI"
+#: device plugin: "mounts" hands device paths over as read-only bind
+#: mounts (for fake device files, which runtimes refuse as devices)
+PLUGIN_DEVICE_INJECTION_ENV = "GPU_PLUGIN_DEVICE_INJECTION"
+#: device plugin tunables file (healthIntervalS, absenceGraceS)
+PLUGIN_CONFIG_ENV = "GPU_PLUGIN_CONFIG"
+#: telemetry custom-metrics config file
+TELEMETRY_CONFIG_ENV = "GPU_TELEMETRY_CONFIG"
+#: telemetry: a runtime metrics endpoint to scrape (unset: none)
+RUNTIME_METRICS_URL_ENV = "GPU_RUNTIME_METRICS_URL"

@@ -5,7 +5,8 @@ process. :func:`run_ranks` runs ``target`` as ``n`` ranks of one process
 group: in this process as a world of one when ``n == 1`` (NCCL is still
 initialised, through a 1-rank group), else in ``n`` spawned workers that
 meet through a ``file://`` store. Rank ``r`` gets ``cuda:r`` on the card,
-or the host CPU (gloo) when ``device_type == "cpu"``.
+or the host CPU (gloo) when ``device_type == "cpu"``; every worker runs
+with ``CUDA_DEVICE_ORDER=PCI_BUS_ID`` unless its parent chose an order.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 import torch.distributed as dist
 
 from .device import set_numerics
+from .utils import pin_device_order
 
 #: default budget for the workers of one run_ranks call, rendezvous included
 DEFAULT_TIMEOUT_S = 300.0
@@ -60,6 +62,7 @@ def init_group(device_type: str, rank: int, world_size: int,
 
 
 def _rank_main(target, rank, n, device_type, init_method, timeout_s, args, results):
+    pin_device_order(os.environ)  # before this worker's first CUDA call
     try:
         device = rank_device(device_type, rank)
         t0 = time.perf_counter()

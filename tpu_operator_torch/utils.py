@@ -1,11 +1,15 @@
 """Object helpers the validator needs (copies of tpu_operator/utils/objects.py
-and of ``object_hash`` in tpu_operator/utils/hash.py)."""
+and of ``object_hash`` in tpu_operator/utils/hash.py), and the CUDA
+device-order pin every sweep process gets (torch-free, for the processes
+that must not import torch)."""
 
 from __future__ import annotations
 
 import json
 import re
-from typing import Any, Mapping, Optional
+from typing import Any, Mapping, MutableMapping, Optional
+
+from . import consts
 
 
 def deep_get(obj: Optional[Mapping], *path: str, default: Any = None) -> Any:
@@ -54,3 +58,14 @@ def object_hash(obj: Any) -> str:
     operator's hash, so both sides compute the same drain-plan identity."""
     payload = json.dumps(obj, sort_keys=True, separators=(",", ":"), default=str)
     return format(fnv32a(payload.encode("utf-8")), "x")
+
+
+def pin_device_order(env: MutableMapping[str, str]) -> MutableMapping[str, str]:
+    """Set ``CUDA_DEVICE_ORDER=PCI_BUS_ID`` in ``env`` unless the caller
+    chose an order, and return it. CUDA reads it once, at its first call in
+    a process, so a sweep process gets it before it touches CUDA: then
+    ordinal ``i`` is the ``i``-th GPU in PCI order, the device plugin's unit
+    ``i`` (whose device node is that GPU's minor), and a barrier's failing
+    local GPU ``i`` gates the GPU that failed."""
+    env.setdefault(consts.CUDA_DEVICE_ORDER_ENV, consts.CUDA_DEVICE_ORDER)
+    return env

@@ -111,3 +111,29 @@ def validate(install_dir: str, status: Optional[StatusFiles] = None,
     status.write("driver", record)
     log.info("driver validation ok: %s, %d device nodes", so, len(devices))
     return True
+
+
+# -- what a container needs to use a GPU (device plugin and CDI) ------------------
+
+def gpu_node(minor: int, dev_dir: Optional[str] = None) -> str:
+    """The GPU's own device node: ``/dev/nvidia<minor>``."""
+    return os.path.join(dev_dir or consts.DEV_DIR, consts.GPU_DEV_NODE.format(minor=minor))
+
+
+def control_nodes(dev_dir: Optional[str] = None) -> List[str]:
+    """The control nodes every CUDA process opens, those present."""
+    paths = [os.path.join(dev_dir or consts.DEV_DIR, n) for n in consts.GPU_CONTROL_NODES]
+    return [p for p in paths if os.path.exists(p)]
+
+
+def driver_lib_files(install_dir: str) -> List[str]:
+    """The driver library files a GPU container mounts, those present:
+    ``libcuda.so.1``, ``libnvidia-ml.so.1`` and the file ``libcuda.so.1``
+    resolves to. Files, never their directory, which holds the host's libc
+    as well."""
+    files = [p for p in (os.path.join(install_dir, n) for n in consts.DRIVER_LIB_FILES)
+             if os.path.exists(p)]
+    real = os.path.realpath(driver_lib_path(install_dir))
+    if os.path.exists(real) and real not in files:
+        files.append(real)
+    return files

@@ -31,10 +31,19 @@ sleep               validator DS main container: re-runs the local sweep
 metrics             node-status exporter (status files -> Prometheus text)
 feature-discovery   GPU type/count/memory node labeler loop; mirrors the
                     barrier verdicts, drain ack and span log to the node
+device-plugin       kubelet device plugin for ``nvidia.com/gpu``: one unit
+                    per GPU from NVML (PCI order), health gated on the
+                    workload barrier, Allocate by UUID and own device node
+cdi                 write the CDI spec of the node's GPUs
+telemetry           out-of-band GPU exporter (NVML, an optional runtime
+                    endpoint, sysfs, operator records -> Prometheus text)
 ==================  =========================================================
 
 Everything that touches a device runs on ``cuda`` unless ``--device=cpu``
-is given. Every component runs under a root span ``operand.<component>``
+is given; ``device-plugin``, ``cdi`` and ``telemetry`` touch none (NVML
+answers them without a CUDA context) and exit non-zero without NVML.
+Every process starts with ``CUDA_DEVICE_ORDER=PCI_BUS_ID`` unless its
+caller chose an order. Every component runs under a root span ``operand.<component>``
 continuing the operator's join trace from ``$GPU_TRACE_PARENT``, written to
 the span log in the status dir.
 """
@@ -51,7 +60,7 @@ import threading
 import time
 
 from .. import consts, tracing
-from ..device import resolve_device
+from ..utils import pin_device_order
 from .status import StatusFiles
 
 log = logging.getLogger("gpu-validator")
@@ -67,11 +76,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-c", "--component", required=True,
                    choices=["driver", "plugin", "workload", "workload-local",
                             "workload-multihost", "prewarm", "perf", "serving",
-                            "wait", "info", "sleep", "metrics", "feature-discovery"])
+                            "wait", "info", "sleep", "metrics", "feature-discovery",
+                            "device-plugin", "cdi", "telemetry"])
     p.add_argument("--device", default="cuda",
                    help="torch device to validate on (cuda; cpu for tests)")
     p.add_argument("--json", action="store_true", help="info: machine-readable output")
-    p.add_argument("--install-dir", default=consts.DEFAULT_DRIVER_LIB_DIR)
+    p.add_argument("--install-dir", default=consts.DEFAULT_DRIVER_LIB_DIR,
+                   help="the driver library's directory")
+    p.add_argument("--cdi-dir", default="/etc/cdi")
     p.add_argument("--status-dir", default=os.environ.get("STATUS_DIR", consts.VALIDATION_STATUS_DIR))
     p.add_argument("--resource", default=consts.GPU_RESOURCE_NAME)
     p.add_argument("--for", dest="wait_for", default="driver", help="barrier to wait on")
@@ -82,7 +94,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="plugin: build the CUDA sources into the build cache "
                         "in a background thread while polling for the "
                         "resource, so the build rides a wait window")
-    p.add_argument("--port", type=int, default=8000, help="metrics: listen port")
+    p.add_argument("--port", type=int, default=8000, help="metrics, telemetry: listen port")
     p.add_argument("--sleep-interval", type=float, default=60.0)
     p.add_argument("--revalidate-interval", type=float,
                    default=float(os.environ.get(consts.REVALIDATE_INTERVAL_ENV, "300")),
@@ -90,6 +102,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "refresh the workload barrier (0 = off). A busy GPU "
                         "skips the cycle without touching the barrier.")
     p.add_argument("--matrix-dim", type=int, default=512)
+    p.add_argument("--metrics-config", default=os.environ.get(consts.TELEMETRY_CONFIG_ENV),
+                   help="telemetry custom-metrics config file (from the "
+                        "spec.telemetry.config ConfigMap)")
     p.add_argument("--perf-matrix-dim", type=int, default=4096)
     p.add_argument("--perf-hbm-mib", type=int, default=512)
     p.add_argument("--perf-ici-mib", type=int, default=64)
@@ -125,6 +140,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="multihost rendezvous budget in seconds (0 = torch "
                         "default); a worker that never joins fails "
                         "validation closed within this budget")
+    p.add_argument("--handoff-dir",
+                   default=os.environ.get(consts.HANDOFF_DIR_ENV, consts.DEFAULT_HANDOFF_DIR),
+                   help="host dir through which the partitioner hands applied "
+                        "partitions to the device plugin and telemetry")
     p.add_argument("--no-require-devices", action="store_true",
                    help="skip /dev checks (CI or pre-provisioned nodes)")
     p.add_argument("--log-level", default="info")
@@ -161,8 +180,8 @@ def revalidate_local(status, matrix_dim: int, timeout: float = 600.0,
         "from tpu_operator_torch.validator.workload import ici_health_check\n"
         f"print(json.dumps(ici_health_check(matrix_dim={int(matrix_dim)}, "
         f"device={str(device)!r}).to_dict()))\n")
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        p for p in (_PACKAGE_ROOT, os.environ.get("PYTHONPATH")) if p))
+    env = pin_device_order(dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (_PACKAGE_ROOT, os.environ.get("PYTHONPATH")) if p)))
     try:
         result = subprocess.run([sys.executable, "-c", script], capture_output=True,
                                 text=True, timeout=timeout, env=env)
@@ -227,6 +246,8 @@ def run(argv=None, client=None) -> int:
     from ..joinprofile.records import SpanLog
 
     args = build_parser().parse_args(argv)
+    # before this process's first CUDA call: its ordinals are PCI order
+    pin_device_order(os.environ)
     logging.basicConfig(level=getattr(logging, args.log_level.upper()),
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     # the operator stamps the join trace's context into every operand pod;
@@ -494,6 +515,8 @@ def _dispatch(args, status, client) -> int:
             # start only; re-running the LOCAL sweep keeps the barrier (and
             # the device plugin's health gate reading it) current for a GPU
             # that degrades afterwards. Fails closed here without a card.
+            from ..device import resolve_device
+
             resolve_device(args.device)
             log.info("validations complete; revalidating every %ss",
                      args.revalidate_interval)
@@ -528,7 +551,67 @@ def _dispatch(args, status, client) -> int:
         return feature_discovery.run(client, sleep_interval=args.sleep_interval,
                                      device=args.device, status_dir=args.status_dir)
 
+    if component in ("device-plugin", "cdi", "telemetry"):
+        from ..nvml import NvmlError
+
+        try:
+            return _device_plumbing(args)
+        except (NvmlError, ImportError) as e:
+            # no NVML, or no grpc for the plugin's wire layer: never an empty
+            # inventory, spec or exporter
+            log.error("%s: %s", component, e)
+            return 1
+
     raise AssertionError(f"unhandled component {component}")
+
+
+def _plugin_tunables() -> dict:
+    """The device plugin's tunables from ``$GPU_PLUGIN_CONFIG`` (the
+    spec.devicePlugin.config ConfigMap): ``healthIntervalS``,
+    ``absenceGraceS``. Text that does not parse, or values that are not
+    numbers, give the defaults with an error: a ConfigMap typo must never
+    crash-loop the plugin off the kubelet."""
+    from ..configmap import SubsetError, parse
+
+    path = os.environ.get(consts.PLUGIN_CONFIG_ENV)
+    if not path or not os.path.exists(path):
+        return {}
+    tunables = {}
+    try:
+        with open(path) as f:
+            raw = parse(f.read()) or {}
+        for src, dst in (("healthIntervalS", "health_interval"),
+                         ("absenceGraceS", "absence_grace_s")):
+            if src in raw:
+                tunables[dst] = float(raw[src])
+    except (SubsetError, TypeError, ValueError) as e:
+        log.error("device-plugin config %s invalid (%s); using defaults", path, e)
+        return {}
+    return tunables
+
+
+def _device_plumbing(args) -> int:
+    if args.component == "cdi":
+        from . import cdi
+
+        return cdi.run(install_dir=args.install_dir, cdi_dir=args.cdi_dir)
+
+    if args.component == "telemetry":
+        from . import telemetry
+
+        return telemetry.serve(args.port, refresh_interval=min(args.sleep_interval, 60.0),
+                               config_path=args.metrics_config,
+                               handoff_dir=args.handoff_dir)
+
+    from ..deviceplugin.plugin import GPUDevicePlugin
+
+    plugin = GPUDevicePlugin(resource_name=args.resource, install_dir=args.install_dir,
+                             status_dir=args.status_dir, handoff_dir=args.handoff_dir,
+                             **_plugin_tunables())
+    try:
+        return plugin.run_forever()
+    finally:
+        plugin.stop()
 
 
 def main(argv=None) -> int:

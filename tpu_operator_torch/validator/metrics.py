@@ -14,7 +14,7 @@ import os
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 from .driver import discover_devices
 from .status import StatusFiles, failed_local_chips, partial_sweep
@@ -62,7 +62,7 @@ class Gauge:
         if not self.labelnames:
             self._values[()] = 0.0
 
-    def set(self, value: float, **labels: str) -> None:
+    def set(self, value: float, /, **labels: str) -> None:
         key = tuple(str(labels[n]) for n in self.labelnames)
         with self._lock:
             self._values[key] = float(value)
@@ -84,6 +84,40 @@ class Gauge:
             lines.append(f"{self.name}{{{labels}}} {_format_value(value)}" if labels
                          else f"{self.name} {_format_value(value)}")
         return "\n".join(lines) + "\n"
+
+
+class Counter:
+    """One counter family, written as ``prometheus_client`` writes it: the
+    ``_total`` samples, then a ``_created`` gauge family holding when each
+    label tuple was first counted."""
+
+    def __init__(self, name: str, documentation: str, labelnames: Tuple[str, ...] = ()):
+        self.name = name if name.endswith("_total") else name + "_total"
+        self.documentation = documentation
+        self.labelnames = tuple(labelnames)
+        self._values: Dict[Tuple[str, ...], Tuple[float, float]] = {}
+        self._lock = threading.Lock()
+
+    def inc(self, amount: float = 1.0, /, **labels: str) -> None:
+        key = tuple(str(labels[n]) for n in self.labelnames)
+        with self._lock:
+            value, created = self._values.get(key, (0.0, time.time()))
+            self._values[key] = (value + amount, created)
+
+    def expose(self) -> str:
+        with self._lock:
+            samples = list(self._values.items())
+        created = self.name[: -len("_total")] + "_created"
+        lines = [f"# HELP {self.name} {_escape_help(self.documentation)}",
+                 f"# TYPE {self.name} counter"]
+        tail = [f"# HELP {created} {_escape_help(self.documentation)}",
+                f"# TYPE {created} gauge"] if samples else []
+        for key, (value, since) in samples:
+            labels = ",".join(f'{n}="{_escape_label(v)}"' for n, v in zip(self.labelnames, key))
+            braces = f"{{{labels}}}" if labels else ""
+            lines.append(f"{self.name}{braces} {_format_value(value)}")
+            tail.append(f"{created}{braces} {_format_value(since)}")
+        return "\n".join(lines + tail) + "\n"
 
 
 class NodeMetrics:
@@ -175,16 +209,9 @@ class NodeMetrics:
         return "".join(f.expose() for f in self.families()).encode("utf-8")
 
 
-def serve(port: int, metrics: Optional[NodeMetrics] = None,
-          refresh_interval: float = REFRESH_INTERVAL,
-          ready_event: Optional[threading.Event] = None,
-          stop_event: Optional[threading.Event] = None,
-          status_dir: Optional[str] = None) -> int:
-    """Serve ``/metrics`` on ``port`` (0: any free port), refreshing every
-    ``refresh_interval`` s until ``stop_event`` is set (forever without)."""
-    metrics = metrics or NodeMetrics(status=StatusFiles(status_dir) if status_dir else None)
-    metrics.refresh()
-    stop = stop_event or threading.Event()
+def http_server(port: int, scrape: Callable[[], bytes]) -> ThreadingHTTPServer:
+    """A server answering ``GET /metrics`` on ``port`` (0: any free port)
+    with ``scrape()``, bound but not yet serving."""
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):
@@ -195,14 +222,27 @@ def serve(port: int, metrics: Optional[NodeMetrics] = None,
                 self.send_response(404)
                 self.end_headers()
                 return
-            payload = metrics.scrape()
+            payload = scrape()
             self.send_response(200)
             self.send_header("Content-Type", "text/plain; version=0.0.4")
             self.send_header("Content-Length", str(len(payload)))
             self.end_headers()
             self.wfile.write(payload)
 
-    server = ThreadingHTTPServer(("0.0.0.0", port), Handler)
+    return ThreadingHTTPServer(("0.0.0.0", port), Handler)
+
+
+def serve(port: int, metrics: Optional[NodeMetrics] = None,
+          refresh_interval: float = REFRESH_INTERVAL,
+          ready_event: Optional[threading.Event] = None,
+          stop_event: Optional[threading.Event] = None,
+          status_dir: Optional[str] = None) -> int:
+    """Serve ``/metrics`` on ``port`` (0: any free port), refreshing every
+    ``refresh_interval`` s until ``stop_event`` is set (forever without)."""
+    metrics = metrics or NodeMetrics(status=StatusFiles(status_dir) if status_dir else None)
+    metrics.refresh()
+    stop = stop_event or threading.Event()
+    server = http_server(port, metrics.scrape)
     threading.Thread(target=server.serve_forever, daemon=True).start()
     if ready_event:
         ready_event.set()

@@ -260,8 +260,10 @@ WORKLOAD_POD_TEMPLATE = {
             "resources": {"limits": {consts.GPU_RESOURCE_NAME: "FILLED_BY_VALIDATOR"}},
             # the status hostPath rides along so the in-pod sweep writes the
             # DETAILED barrier (per-GPU failed_chips) straight to the host —
-            # the spawner only has a pass/fail pod phase
-            "env": [{"name": "STATUS_DIR", "value": "FILLED_BY_VALIDATOR"}],
+            # the spawner only has a pass/fail pod phase; its ordinals are
+            # in PCI order, as the device plugin's units are
+            "env": [{"name": "STATUS_DIR", "value": "FILLED_BY_VALIDATOR"},
+                    {"name": consts.CUDA_DEVICE_ORDER_ENV, "value": consts.CUDA_DEVICE_ORDER}],
             "volumeMounts": [{"name": "validation-status",
                               "mountPath": "FILLED_BY_VALIDATOR"}],
         }],
