@@ -49,6 +49,24 @@ Phases, each of which exits non-zero on failure:
    the telemetry exporter in a fresh process scraped against
    ``nvidia-smi`` while a child holds 8 GiB and runs GEMMs, and after. No
    hand-written kernel
+11. the validator's last components, on another copy of that status dir,
+   each daemon in a fresh process that must import no torch and hold no
+   primary context: the native ``gpu-probe`` and ``gpu-exporter`` (built
+   with ``g++`` in phase 2, beside ``nvcc``); ``driver-daemon`` installing
+   the machine's own ``libcuda.so.1`` and ``libnvidia-ml.so.1`` from a
+   bundle assembled from the host's driver paths, its barrier's version
+   against ``nvidia-smi``, two heartbeats and the CDI spec; ``driver-probe``
+   (the native binary's ``--json``, exit 0 on that install and 1 on an
+   empty one, 50 timed execs beside the Python component's process);
+   ``slice-partitioner`` passes (``single-gpu`` applied; the plugin's
+   ``gpu-part-0``, Allocate and ``workload-local`` in a child with the
+   plan's env alone; a barrier failing GPU 0 deferred for the drain ack
+   with the handoff intact, forced at the plan's deadline, then restored
+   by a passing barrier), with NVML's answer for the GPU paired with itself
+   recorded; ``gpu-exporter --oneshot`` and ``-c metrics`` (which execs it)
+   against the Python exporter; the migrate agent's loop taking a snapshot
+   and then restoring it on the same node, its manifest re-mapped over
+   NVML's links. No hand-written kernel
 
 ``workload`` spawns a pod through an apiserver, which this machine lacks:
 the CPU tests (``tests/test_torch_join_chain.py``) cover it.
@@ -308,6 +326,65 @@ class DictClient:
         self._merge(node, patch)
         node["metadata"]["resourceVersion"] = str(int(node["metadata"]["resourceVersion"]) + 1)
         return copy.deepcopy(node)
+
+
+class FileClient:
+    """An apiserver for processes that must not import torch (so not this
+    module): one Node in a JSON file, JSON merge patch with the
+    resourceVersion precondition, no Pods, and Events kept in the file.
+    Its source is handed to such processes (``inspect.getsource``)."""
+
+    class Conflict(Exception):
+        code = 409
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def _load(self) -> dict:
+        with open(self.path) as f:
+            return json.load(f)
+
+    def _save(self, state: dict) -> None:
+        tmp = self.path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(state, f)
+        os.replace(tmp, self.path)
+
+    @staticmethod
+    def _merge(target: dict, patch: dict) -> None:
+        for key, value in patch.items():
+            if value is None:
+                target.pop(key, None)
+            elif isinstance(value, dict):
+                FileClient._merge(target.setdefault(key, {}), value)
+            else:
+                target[key] = value
+
+    def get(self, api_version, kind, name, namespace=None) -> dict:
+        return self._load()["node"]
+
+    def list(self, api_version, kind, namespace=None, field_selector=None) -> list:
+        return self._load()["events"] if kind == "Event" else []
+
+    def create(self, obj: dict) -> dict:
+        state = self._load()
+        if any(e["metadata"]["name"] == obj["metadata"]["name"] for e in state["events"]):
+            raise FileClient.Conflict(obj["metadata"]["name"])
+        state["events"].append(obj)
+        self._save(state)
+        return obj
+
+    def patch(self, api_version, kind, name, patch, namespace=None) -> dict:
+        state = self._load()
+        node = state["node"]
+        patch = json.loads(json.dumps(patch))
+        sent = patch.get("metadata", {}).pop("resourceVersion", None)
+        if sent is not None and sent != node["metadata"]["resourceVersion"]:
+            raise FileClient.Conflict(f"resourceVersion {sent} is stale")
+        self._merge(node, patch)
+        node["metadata"]["resourceVersion"] = str(int(node["metadata"]["resourceVersion"]) + 1)
+        self._save(state)
+        return node
 
 
 def primary_contexts_active() -> list:
@@ -648,6 +725,32 @@ _SELF_CHECK = (
     "                      'contexts': primary_contexts_active()}), flush=True)\n")
 
 
+def pod_sweep(plan, pod_status: str) -> dict:
+    """What a pod handed ``plan`` runs: ``workload-local`` in a child whose
+    environment is the plan's alone, which must see exactly the one GPU
+    the plan names. Returns the child's barrier."""
+    from tpu_operator_torch.validator.status import StatusFiles
+
+    pod = subprocess.run([sys.executable, "-c", (
+        "import json, sys, torch\n"
+        "props = torch.cuda.get_device_properties(0)\n"
+        "print(json.dumps({'count': torch.cuda.device_count(), 'uuid': 'GPU-' + str(props.uuid)}),\n"
+        "      flush=True)\n"
+        "from tpu_operator_torch.validator.main import main\n"
+        f"sys.exit(main(['-c', 'workload-local', '--status-dir={pod_status}']))\n")],
+        env=dict(plan.envs, PATH=os.environ["PATH"],
+                 PYTHONPATH=os.path.dirname(os.path.abspath(__file__)),
+                 **{k: os.environ[k] for k in ("TMPDIR", "HOME") if k in os.environ}),
+        capture_output=True, text=True, timeout=300)
+    check(pod.returncode == 0, f"workload-local with the plan's env: {pod.stderr[-2000:]}")
+    seen = json.loads([ln for ln in pod.stdout.splitlines() if ln.startswith("{")][0])
+    uuid = plan.envs["CUDA_VISIBLE_DEVICES"]
+    check(seen == {"count": 1, "uuid": uuid}, f"the pod saw {seen}, allocated {uuid}")
+    barrier = StatusFiles(pod_status).read("workload")
+    check(barrier["passed"] and barrier["n_devices"] == 1, f"pod barrier {barrier}")
+    return barrier
+
+
 def plumbing_phase(card, status_dir) -> dict:
     """Phase 10: NVML, the device plugin, CDI and telemetry on the card."""
     import shutil
@@ -751,23 +854,7 @@ def plumbing_phase(card, status_dir) -> dict:
         check(os.path.exists(host) and read_only, f"mount {host}")
     uuid = plan.envs["CUDA_VISIBLE_DEVICES"]
     check(uuid == gpus[0].uuid == plan.envs["NVIDIA_VISIBLE_DEVICES"], f"plan envs {plan.envs}")
-    pod_status = os.path.join(work, "pod-status")
-    pod = subprocess.run([sys.executable, "-c", (
-        "import json, sys, torch\n"
-        "props = torch.cuda.get_device_properties(0)\n"
-        "print(json.dumps({'count': torch.cuda.device_count(), 'uuid': 'GPU-' + str(props.uuid)}),\n"
-        "      flush=True)\n"
-        "from tpu_operator_torch.validator.main import main\n"
-        f"sys.exit(main(['-c', 'workload-local', '--status-dir={pod_status}']))\n")],
-        env=dict(plan.envs, PATH=os.environ["PATH"],
-                 PYTHONPATH=os.path.dirname(os.path.abspath(__file__)),
-                 **{k: os.environ[k] for k in ("TMPDIR", "HOME") if k in os.environ}),
-        capture_output=True, text=True, timeout=300)
-    check(pod.returncode == 0, f"workload-local with the plan's env: {pod.stderr[-2000:]}")
-    seen = json.loads([ln for ln in pod.stdout.splitlines() if ln.startswith("{")][0])
-    check(seen == {"count": 1, "uuid": uuid}, f"the pod saw {seen}, allocated {uuid}")
-    barrier = StatusFiles(pod_status).read("workload")
-    check(barrier["passed"] and barrier["n_devices"] == 1, f"pod barrier {barrier}")
+    barrier = pod_sweep(plan, os.path.join(work, "pod-status"))
     numbers["pod_sweep_elapsed_s"] = barrier["elapsed_s"]
     print(json.dumps({"allocate": {"devices": plan.devices, "mounts": plan.mounts,
                                    "env_names": sorted(plan.envs),
@@ -935,6 +1022,398 @@ def plumbing_phase(card, status_dir) -> dict:
     return numbers
 
 
+def _go(work: str, name: str, payload: dict) -> None:
+    """Hand a runner process its next step: an atomic write of
+    ``<work>/<name>``, which it polls for."""
+    tmp = os.path.join(work, name + ".tmp")
+    with open(tmp, "w") as f:
+        json.dump(payload, f)
+    os.replace(tmp, os.path.join(work, name))
+
+
+def _wait_for(predicate, timeout: float, what: str):
+    deadline = time.monotonic() + timeout
+    while True:
+        value = predicate()
+        if value:
+            return value
+        check(time.monotonic() < deadline, f"{what} within {timeout}s")
+        time.sleep(0.02)
+
+
+def last_components_phase(card, status_dir, native_build_s) -> dict:
+    """Phase 11: the native binaries, driver-daemon, driver-probe,
+    slice-partitioner, metrics through the native exporter, and the
+    migrate agent."""
+    import ctypes
+    import filecmp
+    import inspect
+    import shutil
+    import stat
+
+    from tpu_operator_torch import consts, nvml
+    from tpu_operator_torch.deviceplugin.plugin import GPUDevicePlugin
+    from tpu_operator_torch.health import drain
+    from tpu_operator_torch.partitioner import partitioner
+    from tpu_operator_torch.validator import driver, native
+    from tpu_operator_torch.validator.feature_discovery import chip_type_from_kind
+    from tpu_operator_torch.validator.metrics import NodeMetrics
+    from tpu_operator_torch.validator.status import StatusFiles
+
+    numbers = {"card": card}
+    n_cuda = torch.cuda.device_count()
+    no_context = {"torch": False, "jax": False, "contexts": [False] * n_cuda}
+    work = tempfile.mkdtemp(prefix="chip-smoke-last-")
+    node_name = "smoke-node"
+    # the status dir is named for the node: the migrate agent's transfer
+    # dir then holds this node's checkpoint at <work>/<node>/
+    status_copy = os.path.join(work, node_name)
+    shutil.copytree(status_dir, status_copy)
+    status = StatusFiles(status_copy)
+    handoff = os.path.join(work, "handoff")
+    node_file = os.path.join(work, "apiserver.json")
+    with open(node_file, "w") as f:
+        json.dump({"node": {"apiVersion": "v1", "kind": "Node", "metadata": {
+            "name": node_name, "resourceVersion": "1", "annotations": {},
+            "labels": {consts.TPU_SLICE_CONFIG_LABEL: "single-gpu",
+                       consts.TPU_CHIP_TYPE_LABEL: chip_type_from_kind(
+                           torch.cuda.get_device_name(0))}}}, "events": []}, f)
+    apiserver = FileClient(node_file)
+    client_src = "import json, os\n" + inspect.getsource(FileClient)
+    with nvml.session() as s:
+        gpus = s.gpus()
+    own_nodes = [driver.gpu_node(g.minor) for g in gpus]
+
+    # 1. the native binaries, built with g++ in phase 2 beside nvcc
+    binaries = {name: str(native.binary_path(name)) for name in native.BINARIES}
+    for name, path in binaries.items():
+        check(os.access(path, os.X_OK), f"{name} was not built: {path}")
+        deps = subprocess.run(["ldd", path], capture_output=True, text=True, timeout=60).stdout
+        check(not re.search(r"libcuda|libnvidia|torch|python", deps), f"{name} links {deps}")
+    numbers["native_build_s"] = native_build_s
+    print(json.dumps({"native_build": {"seconds": native_build_s, "binaries": binaries}}))
+
+    # 2. driver-daemon: the machine's own driver libraries, bundled as an
+    # operand image would bundle them, installed into a fresh dir
+    host_dir = os.path.dirname(driver.find_host_driver() or fail("no host libcuda.so.1"))
+    bundle = os.path.join(work, "bundle")
+    os.makedirs(bundle)
+    for name in consts.DRIVER_LIB_FILES:
+        real = os.path.realpath(os.path.join(host_dir, name))
+        check(os.path.isfile(real), f"the host's {name}: {real}")
+        os.symlink(real, os.path.join(bundle, name))
+    install_dir = os.path.join(work, "driver-install")
+    cdi_dir = os.path.join(work, "cdi")
+    smi_version = subprocess.run(["nvidia-smi", "--query-gpu=driver_version",
+                                  "--format=csv,noheader"], capture_output=True, text=True,
+                                 timeout=60).stdout.split()[0]
+    trigger = os.path.join(work, "daemon-check")
+    daemon = CliProcess([], script=_SELF_CHECK + (
+        f"os.environ.update({{{consts.DRIVER_SRC_ENV!r}: {bundle!r}, "
+        f"{consts.CDI_ENABLED_ENV!r}: '1', {consts.CDI_DIR_ENV!r}: {cdi_dir!r}}})\n"
+        f"os.environ.pop({consts.DRIVER_VERSION_ENV!r}, None)\n"
+        "from tpu_operator_torch.validator import driver\n"
+        "from tpu_operator_torch.validator.status import StatusFiles\n"
+        "start = time.time()\n"
+        "t0 = time.perf_counter()\n"
+        f"rc = driver.daemon({install_dir!r}, status=StatusFiles({status_copy!r}), "
+        "heartbeat_interval=0.2, max_beats=2)\n"
+        "print(json.dumps({'rc': rc, 'start': start, 'daemon_s': time.perf_counter() - t0}),\n"
+        "      flush=True)\n"
+        f"_self_check({trigger!r})\n"))
+    try:
+        ran = daemon.json_lines(1, timeout=120)[0]
+        open(trigger, "w").close()
+        daemon_check = daemon.json_lines(1, timeout=60)[0]
+    finally:
+        daemon.stop()
+    check(ran["rc"] == 0, f"driver-daemon exited {ran['rc']}: {''.join(daemon.stderr)[-2000:]}")
+    barrier = status.read("driver")
+    check(barrier["libtpu"] == os.path.join(install_dir, consts.DRIVER_LIB), f"{barrier}")
+    check(barrier["libtpu_version"] == smi_version,
+          f"the barrier's driver version {barrier['libtpu_version']}, nvidia-smi's {smi_version}")
+    check(barrier["devices"] == own_nodes, f"the barrier's devices {barrier['devices']}")
+    check(status.read("driver-heartbeat")["beat"] == 1, "two heartbeats")
+    copied = 0
+    for name in consts.DRIVER_LIB_FILES:
+        dst = os.path.join(install_dir, name)
+        check(os.path.isfile(dst) and not os.path.islink(dst), f"{dst} is not a file")
+        check(filecmp.cmp(dst, os.path.join(bundle, name), shallow=False), f"{dst} differs")
+        copied += os.path.getsize(dst)
+    check(sorted(os.listdir(install_dir)) == sorted(consts.DRIVER_LIB_FILES),
+          f"left in the install dir: {os.listdir(install_dir)}")
+    check(len(os.listdir(cdi_dir)) == 1, f"the daemon's CDI spec: {os.listdir(cdi_dir)}")
+    check(daemon_check == no_context, f"the driver-daemon process: {daemon_check}")
+    numbers["driver_daemon"] = {"install_s": barrier["timestamp"] - ran["start"],
+                                "bytes_copied": copied, "daemon_s": ran["daemon_s"]}
+    print(json.dumps({"driver_daemon": {**numbers["driver_daemon"], "version": smi_version,
+                                        "self_check": daemon_check}}))
+
+    # 3. driver-probe: the native binary, then the component's process
+    probe = binaries["gpu-probe"]
+    out = subprocess.run([probe, f"--install-dir={install_dir}", "--json"],
+                         capture_output=True, text=True, timeout=30)
+    answer = json.loads(out.stdout)
+    check(out.returncode == 0 and answer == {
+        "ok": True, "libtpu": {"path": os.path.join(install_dir, consts.DRIVER_LIB), "ok": True},
+        "devices": own_nodes}, f"gpu-probe --json: {out.returncode} {out.stdout}")
+    empty = os.path.join(work, "empty")
+    os.makedirs(empty)
+    check(subprocess.run([probe, f"--install-dir={empty}"], capture_output=True,
+                         timeout=30).returncode == 1, "gpu-probe on an empty dir")
+    native_ms = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        rc = subprocess.run([probe, f"--install-dir={install_dir}"], timeout=30).returncode
+        native_ms.append((time.perf_counter() - t0) * 1e3)
+        check(rc == 0, f"gpu-probe exited {rc}")
+    cli = [sys.executable, "-m", "tpu_operator_torch.cmd.validator", "-c", "driver-probe",
+           f"--status-dir={status_copy}"]
+    python_ms = []
+    for target, want in ((install_dir, 0),) * 5 + ((empty, 1),):
+        t0 = time.perf_counter()
+        rc = subprocess.run(cli + [f"--install-dir={target}"], capture_output=True,
+                            timeout=120, cwd=os.path.dirname(os.path.abspath(__file__))).returncode
+        if want == 0:
+            python_ms.append((time.perf_counter() - t0) * 1e3)
+        check(rc == want, f"-c driver-probe on {target} exited {rc}, not {want}")
+    # the same execs from a process without torch and a CUDA context, as a
+    # kubelet's probe is not forked from one
+    probe_check = subprocess.run([sys.executable, "-c", _SELF_CHECK + (
+        "import statistics, subprocess\n"
+        "ms = []\n"
+        "for _ in range(50):\n"
+        "    t0 = time.perf_counter()\n"
+        f"    rc = subprocess.run([{probe!r}, '--install-dir={install_dir}']).returncode\n"
+        "    ms.append((time.perf_counter() - t0) * 1e3)\n"
+        "    assert rc == 0, rc\n"
+        "print(json.dumps({'native_ms': ms}), flush=True)\n"
+        "from tpu_operator_torch.validator.main import main\n"
+        f"rc = main(['-c', 'driver-probe', '--install-dir={install_dir}', "
+        f"'--status-dir={status_copy}'])\n"
+        f"open({trigger + '-probe'!r}, 'w').close()\n"
+        f"_self_check({trigger + '-probe'!r})\n")], capture_output=True, text=True,
+        timeout=120, cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(probe_check.returncode == 0, f"the probe process: {probe_check.stderr[-2000:]}")
+    light, probe_self = [json.loads(ln) for ln in probe_check.stdout.splitlines()
+                         if ln.startswith("{")]
+    check(probe_self == no_context, f"the driver-probe process: {probe_self}")
+    numbers["driver_probe"] = {
+        "native_median_ms": statistics.median(native_ms),
+        "native_ms_min_max": [min(native_ms), max(native_ms)],
+        "native_from_torch_free_median_ms": statistics.median(light["native_ms"]),
+        "native_from_torch_free_min_max": [min(light["native_ms"]), max(light["native_ms"])],
+        "python_process_median_ms": statistics.median(python_ms)}
+    print(json.dumps({"driver_probe": {**numbers["driver_probe"], "json": answer,
+                                       "self_check": probe_self}}))
+
+    # 4. slice-partitioner passes in one fresh process, each on a go file
+    lib = nvml.library()
+    with nvml.session() as s:
+        h0 = s.handle(0)
+        level, p2p = ctypes.c_int(-1), ctypes.c_int(-1)
+        ancestor_rc = lib.nvmlDeviceGetTopologyCommonAncestor(h0, h0, ctypes.byref(level))
+        p2p_rc = lib.nvmlDeviceGetP2PStatus(h0, h0, nvml.P2P_CAPS_INDEX_NVLINK,
+                                            ctypes.byref(p2p))
+        links = s.links(s.gpus())
+    numbers["nvml_gpu_with_itself"] = {
+        "topology_common_ancestor": {"return": ancestor_rc, "level": level.value},
+        "p2p_nvlink": {"return": p2p_rc, "status": p2p.value}}
+    mig = subprocess.run(["nvidia-smi", "--query-gpu=mig.mode.current", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.split()
+    print(json.dumps({"nvml_links": links, **numbers["nvml_gpu_with_itself"], "mig_mode": mig}))
+    trigger = os.path.join(work, "partitioner-check")
+    runner = CliProcess([], script=_SELF_CHECK + client_src + (
+        "from tpu_operator_torch.partitioner import partitioner\n"
+        f"client = FileClient({node_file!r})\n"
+        "step = 0\n"
+        "while True:\n"
+        f"    go = os.path.join({work!r}, f'partition-{{step}}')\n"
+        "    while not os.path.exists(go):\n"
+        "        time.sleep(0.01)\n"
+        "    args = json.load(open(go))\n"
+        "    if args.get('stop'):\n"
+        "        break\n"
+        "    t0 = time.perf_counter()\n"
+        f"    state = partitioner.sync_once(client, {node_name!r}, None, {handoff!r},\n"
+        f"                                  status_dir={status_copy!r},\n"
+        "                                  drain_deadline_s=args['drain_deadline_s'])\n"
+        "    print(json.dumps({'state': state, 'ms': (time.perf_counter() - t0) * 1e3}),\n"
+        "          flush=True)\n"
+        "    step += 1\n"
+        f"_self_check({trigger!r})\n"))
+    plugin = GPUDevicePlugin(plugin_dir=os.path.join(work, "kubelet"), status_dir=status_copy,
+                             handoff_dir=handoff)
+    passes = []
+
+    def partition_pass(drain_deadline_s: int, want: str) -> dict:
+        _go(work, f"partition-{len(passes)}", {"drain_deadline_s": drain_deadline_s})
+        result = runner.json_lines(1, timeout=60)[0]
+        passes.append(result)
+        label = apiserver.get("v1", "Node", node_name)["metadata"]["labels"].get(
+            consts.TPU_SLICE_STATE_LABEL)
+        check(result["state"] == want == label,
+              f"partition pass {len(passes)}: {result['state']}, label {label}, not {want}")
+        plugin.refresh_units()
+        return partitioner.read_handoff(handoff)
+
+    singles = [{"topology": "single", "chips": [i]} for i in range(n_cuda)]
+    kept = open(status.path("workload"), "rb").read()
+    try:
+        applied = partition_pass(0, "success")
+        check(applied["groups"] == singles and "blocked" not in applied, f"handoff {applied}")
+        units = plugin._snapshot()
+        check([(u.id, u.health) for u in units] ==
+              [(f"gpu-part-{i}", "Healthy") for i in range(n_cuda)], f"units {units}")
+        plan = plugin.allocation_plan(["gpu-part-0"])
+        check(plan.devices[0][1] == own_nodes[0] and
+              stat.S_ISCHR(os.stat(plan.devices[0][1]).st_mode), f"devices {plan.devices}")
+        check(plan.envs["CUDA_VISIBLE_DEVICES"] == gpus[0].uuid, f"envs {plan.envs}")
+        pod = pod_sweep(plan, os.path.join(work, "pod-status"))
+        # a barrier failing GPU 0, with the coordinated drain on: deferred
+        # for the workload's ack, the handoff intact
+        status.write("workload", {"passed": False, "n_devices": n_cuda,
+                                  "local_chips": list(range(n_cuda)), "failed_local_chips": [0],
+                                  "details": {"compute": {"passed": False, "failed_chips": [0]}}})
+        before = open(os.path.join(handoff, partitioner.HANDOFF_FILE), "rb").read()
+        partition_pass(60, "pending")
+        check(open(os.path.join(handoff, partitioner.HANDOFF_FILE), "rb").read() == before,
+              "the deferred pass touched the handoff")
+        gated = [(u.id, u.health) for u in plugin._snapshot()]
+        check(gated[0] == ("gpu-part-0", "Unhealthy"), f"units while deferred {gated}")
+        # the published plan's deadline passed: the re-tile is forced; with
+        # count "all" the reference's semantics scale the layout down to
+        # the healthy GPUs, here none, and the plugin falls back to one
+        # gated unit per GPU
+        apiserver.patch("v1", "Node", node_name, {"metadata": {"annotations": {
+            consts.RETILE_PLAN_ANNOTATION: drain.RetilePlan(
+                fingerprint=drain.plan_fingerprint("single-gpu", [0]),
+                deadline=time.time() - 1, reason="retile", blocked=[0]).to_json()}}})
+        retiled = partition_pass(60, "retiled")
+        check(retiled["blocked"] == [0] and retiled["groups"] == singles[1:],
+              f"re-tiled handoff {retiled}")
+        forced = [(u.id, u.health) for u in plugin._snapshot()]
+        check(forced == ([(f"gpu-part-{i}", "Healthy") for i in range(n_cuda - 1)]
+                         if n_cuda > 1 else [("gpu-0", "Unhealthy")]),
+              f"units after the re-tile {forced}")
+        # recovery: the barrier passes again
+        with open(status.path("workload"), "wb") as f:
+            f.write(kept)
+        restored = partition_pass(60, "success")
+        check(restored["groups"] == singles and "blocked" not in restored,
+              f"restored handoff {restored}")
+        check([(u.id, u.health) for u in plugin._snapshot()] ==
+              [(f"gpu-part-{i}", "Healthy") for i in range(n_cuda)], "units not restored")
+        _go(work, f"partition-{len(passes)}", {"stop": True})
+        open(trigger, "w").close()
+        partitioner_check = runner.json_lines(1, timeout=60)[0]
+    finally:
+        runner.stop()
+    check(partitioner_check == no_context, f"the partitioner process: {partitioner_check}")
+    numbers["partitioner"] = {"pass_ms": [p["ms"] for p in passes],
+                              "states": [p["state"] for p in passes],
+                              "pod_sweep_elapsed_s": pod["elapsed_s"]}
+    print(json.dumps({"slice_partitioner": {**numbers["partitioner"], "applied": applied,
+                                            "retiled": retiled, "units_forced": forced,
+                                            "self_check": partitioner_check}}))
+
+    # 5. metrics: gpu-exporter beside the Python exporter, then -c metrics,
+    # which execs it
+    refresh = "tpu_operator_node_metrics_last_refresh_ts_seconds "
+
+    def lines(text: str) -> list:
+        return [ln for ln in text.splitlines() if not ln.startswith(refresh)]
+
+    exporter = binaries["gpu-exporter"]
+    oneshot = subprocess.run([exporter, "--oneshot", f"--status-dir={status_copy}"],
+                             capture_output=True, text=True, timeout=30)
+    python = NodeMetrics(status)
+    python.refresh()
+    check(oneshot.returncode == 0 and lines(oneshot.stdout) == lines(python.scrape().decode()),
+          f"gpu-exporter --oneshot differs:\n{oneshot.stdout}\n--\n{python.scrape().decode()}")
+    port = free_port()
+    served_by = CliProcess(["-c", "metrics", f"--port={port}", f"--status-dir={status_copy}"])
+    try:
+        text = _wait_for(lambda: _try_scrape(port), 60, "-c metrics serving")
+        exe = os.path.realpath(f"/proc/{served_by.proc.pid}/exe")
+        maps = open(f"/proc/{served_by.proc.pid}/maps").read()
+    finally:
+        served_by.stop()
+    python.refresh()
+    check(lines(text) == lines(python.scrape().decode()), "-c metrics serves other text")
+    check(exe == os.path.realpath(exporter), f"-c metrics runs {exe}, not {exporter}")
+    check(not re.search(r"libcuda|libnvidia|libtorch|libpython", maps),
+          "the exporter process maps a CUDA, torch or Python library")
+    numbers["metrics_families"] = sum(ln.startswith("# TYPE") for ln in text.splitlines())
+    print(json.dumps({"metrics": {"native_equals_python": True, "exec": exe,
+                                  "families": numbers["metrics_families"]}}))
+
+    # 6. the migrate agent's loop: a snapshot, then a restore on this node
+    with open(os.path.join(status_copy, consts.MIGRATE_PROCESS_STATE_FILE), "w") as f:
+        json.dump({"step": 123, "rng_state": [1, 2, 3], "partition": "single-gpu",
+                   "blocked": [], "groups": singles}, f)
+    trigger = os.path.join(work, "migrate-check")
+    agent_proc = CliProcess([], script=_SELF_CHECK + client_src + (
+        f"os.environ['GPU_MIGRATE_TRANSFER_DIR'] = {work!r}\n"
+        f"threading.Thread(target=_self_check, args=({trigger!r},), daemon=True).start()\n"
+        "from tpu_operator_torch.migrate import agent\n"
+        "from tpu_operator_torch.validator.status import StatusFiles\n"
+        f"agent.run(FileClient({node_file!r}), {node_name!r}, StatusFiles({status_copy!r}),\n"
+        "          sleep_interval=0.05)\n"))
+
+    def annotation(key):
+        raw = apiserver.get("v1", "Node", node_name)["metadata"]["annotations"].get(key)
+        return json.loads(raw) if raw else None
+
+    try:
+        t0 = time.perf_counter()
+        apiserver.patch("v1", "Node", node_name, {"metadata": {"annotations": {
+            consts.MIGRATE_SNAPSHOT_REQUEST_ANNOTATION: json.dumps({"plan": "smoke-snapshot"})}}})
+        snap = _wait_for(lambda: annotation(consts.MIGRATE_SNAPSHOT_RESULT_ANNOTATION), 120,
+                         "the snapshot result")
+        snapshot_s = time.perf_counter() - t0
+        taken = drain.load_checkpoint(drain.checkpoint_path(status_copy))
+        t0 = time.perf_counter()
+        apiserver.patch("v1", "Node", node_name, {"metadata": {"annotations": {
+            consts.MIGRATION_INBOUND_ANNOTATION: json.dumps(
+                {"plan": "smoke-restore", "src": node_name, "step": 123})}}})
+        restore = _wait_for(lambda: annotation(consts.MIGRATION_RESTORE_ANNOTATION), 60,
+                            "the restore result")
+        restore_s = time.perf_counter() - t0
+        open(trigger, "w").close()
+        agent_check = agent_proc.json_lines(1, timeout=60)[0]
+    finally:
+        agent_proc.stop()
+    check(snap["ok"] and snap["step"] == 123 and snap["plan"] == "smoke-snapshot", f"{snap}")
+    check(taken["step"] == 123 and taken["transparent"] is True and taken["version"] == 2,
+          f"the snapshot's checkpoint {taken}")
+    check(restore == {"plan": "smoke-restore", "ok": True, "step": 123, "src": node_name},
+          f"the restore's result {restore}")
+    landed = drain.load_checkpoint(drain.checkpoint_path(status_copy))
+    check(landed["step"] == 123 and landed["migrated_from"] == node_name and
+          [sh["chips"] for sh in landed["manifest"]["shards"]] == [[i] for i in range(n_cuda)] and
+          landed["manifest"]["layout"] == drain.plan_fingerprint("single-gpu", []),
+          f"the restored checkpoint {landed}")
+    stamps = status.read("workload")
+    check(stamps["migrate_snapshot"]["step"] == stamps["migrate_restore"]["step"] == 123,
+          f"the barrier's migration stamps {stamps}")
+    check(agent_check == no_context, f"the migrate-agent process: {agent_check}")
+    numbers["migrate"] = {"snapshot_s": snapshot_s, "restore_s": restore_s}
+    print(json.dumps({"migrate_agent": {**numbers["migrate"], "manifest": landed["manifest"],
+                                        "self_check": agent_check, "card": card}}))
+    shutil.rmtree(work, ignore_errors=True)
+    print(json.dumps({"last_components": numbers}))
+    return numbers
+
+
+def _try_scrape(port: int):
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=2) as r:
+            return r.read().decode()
+    except OSError:
+        return None
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke needs an NVIDIA GPU")
@@ -942,6 +1421,7 @@ def main() -> int:
         from tpu_operator_torch.kernels import _build
         from tpu_operator_torch.kernels import stream_copy as k1
         from tpu_operator_torch.validator import main as vmain
+        from tpu_operator_torch.validator import native
         from tpu_operator_torch.validator.perf import (HBM_STREAMING_BAND, lookup_peaks,
                                                        scale_add, stream_rows)
         from tpu_operator_torch.validator.status import StatusFiles
@@ -978,9 +1458,23 @@ def main() -> int:
     print(f"peaks: {chip} HBM {hbm_peak_gbps} GB/s (data sheet)")
 
     phase("build")
+    # the native probe and exporter (g++) build beside the CUDA sources (nvcc)
+    native_built = {}
+
+    def build_native() -> None:
+        try:
+            native_built["s"] = native.build()
+        except RuntimeError as e:
+            native_built["error"] = e
+
+    native_thread = threading.Thread(target=build_native)
     t0 = time.perf_counter()
+    native_thread.start()
     built = _build.build_all()
-    print(json.dumps({"build_s": round(time.perf_counter() - t0, 3), "per_source_s": built}))
+    native_thread.join(timeout=300)
+    check("s" in native_built, f"the native binaries did not build: {native_built.get('error')}")
+    print(json.dumps({"build_s": round(time.perf_counter() - t0, 3), "per_source_s": built,
+                      "native_s": native_built["s"]}))
     for name, log in _build.build_logs.items():
         print(f"-- ptxas {name}:\n{log.strip()}")
     print(f"K1: bulk copies of {k1.CHUNK_BYTES} B, two per CTA, dynamic shared memory "
@@ -1132,6 +1626,12 @@ def main() -> int:
     plumbing_launches = k1.launches
     check(plumbing_launches == 0, f"the device plumbing launched K1 {plumbing_launches} times")
 
+    phase("the validator's last components: driver, probe, partitioner, exporter, migrate")
+    k1.launches = 0
+    last_components_phase(card, status_dir, native_built["s"])
+    last_launches = k1.launches
+    check(last_launches == 0, f"the last components launched K1 {last_launches} times")
+
     print(json.dumps({"kernels": [{
         "name": "stream_copy",
         "route": "cuda",
@@ -1145,10 +1645,12 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": timing["library"],
         # the paths without K1 launch it no time: serving (7), the steady
-        # state (9) and the device plumbing (10) are checked at 0 above
+        # state (9), the device plumbing (10) and the last components (11)
+        # are checked at 0 above
         "launches_by_phase": {"perf": k1_main_launches, "serving": serving_launches,
                               "steady_state": steady_state_launches,
-                              "device_plumbing": plumbing_launches},
+                              "device_plumbing": plumbing_launches,
+                              "last_components": last_launches},
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -611,3 +611,73 @@ def test_handoff_reader_matches_reference(tmp_path):
     assert read_handoff(str(tmp_path)) == ref_read(str(tmp_path))
     (tmp_path / "partition.json").write_text("{torn")
     assert read_handoff(str(tmp_path)) is None is ref_read(str(tmp_path))
+
+
+# -- preferred allocations over NVML's link topology ------------------------------
+
+def _eight(tmp_path, links=True):
+    from tpu_operator_torch.testing.fake_nvml import pcie_links, two_sockets
+
+    gpus = random_gpus(8, SEED)
+    fake = FakeNvml(gpus, links=pcie_links(gpus, two_sockets) if links else {})
+    plugin = port_plugin.GPUDevicePlugin(plugin_dir=str(tmp_path / "kubelet"),
+                                         status_dir=str(tmp_path / "st"),
+                                         handoff_dir=str(tmp_path / "handoff"), nvml_lib=fake)
+    plugin.refresh_units()
+    return plugin, fake
+
+
+def test_preferred_keeps_to_one_socket_on_a_pcie_board(tmp_path):
+    """8 GPUs, 0-3 under one CPU socket and 4-7 under the other: a request
+    for 4 takes one socket, not the 2-row grid guess's 0, 1, 4, 5; a pair
+    that must hold GPU 5 stays on its socket, on its PCIe switch."""
+    plugin, _ = _eight(tmp_path)
+    ids = [f"gpu-{i}" for i in range(8)]
+    assert plugin.preferred(ids, [], 4) == ["gpu-0", "gpu-1", "gpu-2", "gpu-3"]
+    assert port_plugin.prefer_compact(ids, [], 4, {d: [i] for i, d in enumerate(ids)}) == \
+        ["gpu-0", "gpu-1", "gpu-4", "gpu-5"]
+    assert plugin.preferred(ids, ["gpu-5"], 2) == ["gpu-5", "gpu-4"]
+    assert plugin.preferred(ids, ["gpu-5"], 3) == ["gpu-5", "gpu-4", "gpu-6"]
+    assert plugin.preferred([d for d in ids if d != "gpu-1"], ["gpu-0"], 2) == ["gpu-0", "gpu-2"]
+
+
+def test_preferred_is_lexical_where_every_pair_is_alike(tmp_path):
+    plugin, fake = _eight(tmp_path, links=False)  # an NVSwitch board
+    ids = [f"gpu-{i}" for i in range(8)]
+    assert plugin.preferred(ids, [], 4) == ["gpu-0", "gpu-1", "gpu-2", "gpu-3"]
+    assert plugin.preferred(ids, ["gpu-5"], 2) == ["gpu-5", "gpu-0"]
+    # NVML cannot tell the links: the inventory stands, the pick is lexical
+    fake.fail["nvmlDeviceGetP2PStatus"] = nvml.NOT_SUPPORTED
+    fake.gpus = fake.gpus[:-1]
+    assert plugin.refresh_units()
+    assert plugin.preferred(ids[:7], ["gpu-6"], 2) == ["gpu-6", "gpu-0"]
+
+
+def test_preferred_ranks_partitioned_units_by_their_gpus(tmp_path):
+    from tpu_operator_torch.partitioner.partitioner import write_handoff as port_write
+
+    plugin, _ = _eight(tmp_path)
+    port_write([{"topology": "pcie-switch", "chips": [0, 1]},
+                {"topology": "pcie-switch", "chips": [4, 5]},
+                {"topology": "pcie-switch", "chips": [2, 3]},
+                {"topology": "pcie-switch", "chips": [6, 7]}], "pairs", plugin.handoff_dir)
+    plugin.refresh_units()
+    parts = [f"gpu-part-{i}" for i in range(4)]
+    assert plugin.preferred(parts, [], 2) == ["gpu-part-0", "gpu-part-2"]
+    assert plugin.preferred(parts, ["gpu-part-3"], 2) == ["gpu-part-3", "gpu-part-1"]
+
+
+def test_preferred_survives_a_handoff_naming_gpus_nvml_does_not_list(tmp_path):
+    """A stale handoff (groups over 8 GPUs on a node NVML now shows with
+    4) must not break GetPreferredAllocation: the pick falls back to
+    lexical."""
+    from tpu_operator_torch.partitioner.partitioner import write_handoff as port_write
+
+    plugin, fake = _eight(tmp_path)
+    port_write([{"topology": "pcie-switch", "chips": [6, 7]},
+                {"topology": "pcie-switch", "chips": [0, 1]},
+                {"topology": "pcie-switch", "chips": [2, 3]}], "pairs", plugin.handoff_dir)
+    fake.gpus = fake.gpus[:4]
+    plugin.refresh_units()
+    parts = [f"gpu-part-{i}" for i in range(3)]
+    assert plugin.preferred(parts, [], 2) == ["gpu-part-0", "gpu-part-1"]

@@ -65,7 +65,8 @@ def test_port_module_list_is_complete():
                      "deviceplugin.plugin", "deviceplugin.grpc_api",
                      "deviceplugin.proto", "deviceplugin.proto.deviceplugin_pb2",
                      "validator.cdi", "validator.telemetry", "testing",
-                     "testing.fake_nvml"):
+                     "testing.fake_nvml", "partitioner.topology", "validator.native",
+                     "events", "migrate", "migrate.agent", "migrate.checkpoint"):
         assert f"tpu_operator_torch.{expected}" in names
 
 
@@ -156,3 +157,105 @@ def test_the_package_imports_without_grpc_and_the_wire_layer_names_it(tmp_path):
     assert "ImportError: the device plugin's wire layer needs the grpc package" in result.stdout
     assert result.stdout.strip().splitlines()[-1] == "rc 1 False"
     assert "grpc" in result.stderr  # the CLI's error names it
+
+
+#: the node daemons, which open no CUDA context and never import torch
+DAEMON_MODULES = ("tpu_operator_torch.partitioner.partitioner",
+                  "tpu_operator_torch.partitioner.topology",
+                  "tpu_operator_torch.validator.driver", "tpu_operator_torch.validator.native",
+                  "tpu_operator_torch.validator.metrics", "tpu_operator_torch.migrate.agent",
+                  "tpu_operator_torch.migrate.checkpoint", "tpu_operator_torch.events",
+                  "tpu_operator_torch.validator.main")
+
+
+def test_the_node_daemons_import_no_torch(tmp_path):
+    """The partitioner, the driver daemon and probe, the exporter and the
+    migrate agent, imported and each run once through the CLI against fake
+    NVML, in a fresh interpreter: no torch, no jax, nothing of the
+    reference."""
+    status = tmp_path / "st"
+    script = (
+        "import importlib, sys, time\n"
+        f"for name in {DAEMON_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "from tpu_operator_torch.testing import fake_nvml as f\n"
+        "f.install(f.FakeNvml(f.random_gpus(2, 0)))\n"
+        "from tpu_operator_torch.validator import driver, main\n"
+        f"assert main.main(['-c', 'driver-probe', '--install-dir={tmp_path}', "
+        f"'--status-dir={status}']) == 1\n"
+        "class Stop(Exception):\n"
+        "    pass\n"
+        "def stop(_):\n"
+        "    raise Stop\n"
+        "time.sleep = stop\n"
+        "class Client:\n"
+        "    def get(self, *a, **k):\n"
+        "        return {'metadata': {'name': 'n1', 'labels': {}}}\n"
+        "import os\n"
+        "os.environ['NODE_NAME'] = 'n1'\n"
+        "for argv in (['-c', 'slice-partitioner'], ['-c', 'migrate-agent'],\n"
+        f"             ['-c', 'driver-daemon', '--install-dir={tmp_path}']):\n"
+        "    try:\n"
+        f"        main.run(argv + ['--status-dir={status}', '--handoff-dir={tmp_path}'], "
+        "client=Client())\n"
+        "    except Stop:\n"
+        "        pass\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN + ('torch',)!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "GPU_DRIVER_SRC")}
+    result = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                            capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stdout + result.stderr[-3000:]
+    assert result.stdout.strip() == "[]"
+
+
+def _module_file(name):
+    path = os.path.join(REPO, *name.split("."))
+    return path + ".py" if os.path.exists(path + ".py") else os.path.join(path, "__init__.py")
+
+
+def _module_level_imports(name):
+    """The modules ``name`` imports outside its functions, package-relative
+    imports resolved to absolute names."""
+    path = _module_file(name)
+    package = name if path.endswith("__init__.py") else name.rpartition(".")[0]
+    tree = ast.parse(open(path).read(), filename=path)
+    in_function = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            in_function.update(id(n) for n in ast.walk(node) if n is not node)
+    found = []
+    for node in ast.walk(tree):
+        if id(node) in in_function:
+            continue
+        if isinstance(node, ast.Import):
+            found += [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                parts = package.split(".")
+                base = ".".join(parts[:len(parts) - node.level + 1] + ([base] if base else []))
+            found.append(base)
+            found += [f"{base}.{alias.name}" for alias in node.names
+                      if os.path.exists(_module_file(f"{base}.{alias.name}"))]
+    return found
+
+
+@pytest.mark.parametrize("daemon", DAEMON_MODULES)
+def test_no_daemon_module_imports_torch_at_module_level(daemon):
+    """The AST side of the rule: walking the package modules each daemon
+    imports at module level, none imports torch at module level."""
+    seen, todo = set(), [daemon]
+    while todo:
+        name = todo.pop()
+        if name in seen:
+            continue
+        seen.add(name)
+        for imported in _module_level_imports(name):
+            assert imported.split(".")[0] != "torch", f"{name} imports {imported}"
+            if imported.split(".")[0] == "tpu_operator_torch":
+                todo.append(imported)
+    if daemon.endswith("partitioner.partitioner"):  # the walk follows the package
+        assert {"tpu_operator_torch.nvml", "tpu_operator_torch.health.drain"} <= seen

@@ -14,6 +14,7 @@ import copy
 import inspect
 import json
 import threading
+import time
 
 import pytest
 
@@ -203,16 +204,21 @@ def test_reference_not_found_counts_as_not_found(fake_client):
 
 # -- spawn_workload_pod -------------------------------------------------------
 
-def _finish_pods(lister, updater, phase, delay=0.2):
-    """Mark every pod in NS with ``phase`` after ``delay`` (a kubelet)."""
+def _finish_pods(lister, updater, phase, delay=0.2, wait=10.0):
+    """A kubelet: once a pod exists in NS (polled from ``delay`` on, for
+    at most ``wait`` s), mark every pod there with ``phase``."""
     def run():
-        for pod in lister():
+        deadline = time.monotonic() + wait
+        time.sleep(delay)
+        while not (pods := lister()) and time.monotonic() < deadline:
+            time.sleep(0.02)
+        for pod in pods:
             pod["status"] = {"phase": phase}
             updater(pod)
 
-    timer = threading.Timer(delay, run)
-    timer.start()
-    return timer
+    kubelet = threading.Thread(target=run, daemon=True)
+    kubelet.start()
+    return kubelet
 
 
 @pytest.mark.parametrize("phase, expected", [("Succeeded", True), ("Failed", False),

@@ -196,3 +196,13 @@ def test_workload_local_defaults_to_cuda(status_dir):
     with pytest.raises(RuntimeError, match="CUDA"):
         vmain.run(["-c", "workload-local", f"--status-dir={status_dir}"])
     assert not (status_dir / "workload-ready").exists()
+
+
+def test_the_cli_offers_every_component_the_reference_offers():
+    from tpu_operator.validator import main as ref_main
+
+    def components(parser):
+        (action,) = [a for a in parser._actions if a.dest == "component"]
+        return sorted(action.choices)
+
+    assert components(vmain.build_parser()) == components(ref_main.build_parser())

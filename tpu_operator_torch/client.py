@@ -2,8 +2,9 @@
 (counterpart of the parts of tpu_operator/client/rest.py they use), and
 :func:`preconditioned_patch` (tpu_operator/client/preconditions.py).
 
-``get``, ``create``, ``patch`` (JSON merge patch) and ``delete`` of ``v1``
-Nodes and Pods over HTTP(S), with the pod's service-account token. Error
+``get``, ``list`` (with a field selector), ``create``, ``patch`` (JSON
+merge patch) and ``delete`` of ``v1`` Nodes, Pods and Events over
+HTTP(S), with the pod's service-account token. Error
 statuses raise :class:`ApiError` carrying the HTTP code; 404 raises
 :class:`NotFoundError` and 409 :class:`ConflictError`. Callers test
 ``code`` (:func:`is_not_found`, :func:`is_conflict`), so any client whose
@@ -22,7 +23,8 @@ log = logging.getLogger(__name__)
 SA_DIR = "/var/run/secrets/kubernetes.io/serviceaccount"
 
 #: (apiVersion, kind) -> (plural, namespaced)
-_RESOURCES = {("v1", "Node"): ("nodes", False), ("v1", "Pod"): ("pods", True)}
+_RESOURCES = {("v1", "Node"): ("nodes", False), ("v1", "Pod"): ("pods", True),
+              ("v1", "Event"): ("events", True)}
 
 
 class ApiError(Exception):
@@ -82,14 +84,14 @@ class ApiClient:
         return cls(f"https://{host}:{port}", token, ca if os.path.exists(ca) else True)
 
     def _url(self, api_version: str, kind: str, namespace: Optional[str] = None,
-             name: Optional[str] = None) -> str:
+             name: Optional[str] = None, all_namespaces: bool = False) -> str:
         try:
             plural, namespaced = _RESOURCES[(api_version, kind)]
         except KeyError:
-            raise ValueError(f"the validator's client serves v1 Nodes and Pods, "
-                             f"not {api_version} {kind}") from None
+            raise ValueError(f"the validator's client serves v1 Nodes and Pods (and "
+                             f"Events), not {api_version} {kind}") from None
         parts = [self.base_url, "api", api_version]
-        if namespaced:
+        if namespaced and not (all_namespaces and namespace is None):
             parts += ["namespaces", namespace or "default"]
         parts.append(plural)
         if name:
@@ -112,6 +114,16 @@ class ApiClient:
 
     def get(self, api_version: str, kind: str, name: str, namespace=None) -> dict:
         return self._request("GET", self._url(api_version, kind, namespace, name)).json()
+
+    def list(self, api_version: str, kind: str, namespace=None,
+             field_selector: Optional[dict] = None) -> list:
+        """The objects of a kind, in ``namespace`` (every namespace when
+        None), those whose fields equal ``field_selector``'s."""
+        params = {}
+        if field_selector:
+            params["fieldSelector"] = ",".join(f"{k}={v}" for k, v in field_selector.items())
+        url = self._url(api_version, kind, namespace, all_namespaces=True)
+        return self._request("GET", url, params=params).json().get("items", [])
 
     def create(self, obj: dict) -> dict:
         namespace = obj.get("metadata", {}).get("namespace")

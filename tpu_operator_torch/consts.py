@@ -79,6 +79,8 @@ WORKLOAD_HEALTH_ANNOTATION = "tpu.ai/workload-health"
 TRACE_SPANS_ANNOTATION = "tpu.ai/trace-spans"
 #: env carrying the operator's join trace context into operand pods
 TRACE_PARENT_ENV = "GPU_TRACE_PARENT"
+#: an Event's annotation naming the trace it was recorded in
+TRACE_ID_ANNOTATION = "tpu.ai/trace-id"
 
 # -- coordinated drain (planned re-tiles) -----------------------------------------
 #: a published re-tile plan (JSON: layout fingerprint, drain deadline,
@@ -137,3 +139,41 @@ PLUGIN_CONFIG_ENV = "GPU_PLUGIN_CONFIG"
 TELEMETRY_CONFIG_ENV = "GPU_TELEMETRY_CONFIG"
 #: telemetry: a runtime metrics endpoint to scrape (unset: none)
 RUNTIME_METRICS_URL_ENV = "GPU_RUNTIME_METRICS_URL"
+
+# -- slice partitioner ------------------------------------------------------------
+#: the partition a node should carry (set by the admin or the ClusterPolicy)
+TPU_SLICE_CONFIG_LABEL = "tpu.ai/slice.config"
+#: the partitioner's progress on it: pending -> success | retiled | failed
+TPU_SLICE_STATE_LABEL = "tpu.ai/slice.config.state"
+#: the partition table file (the slice-partitioner ConfigMap's mount);
+#: unset: the port's default table
+PARTITION_CONFIG_ENV = "GPU_PARTITION_CONFIG"
+#: seconds a health-gated re-tile waits for the workload's drain ack (0: none)
+DRAIN_DEADLINE_ENV = "GPU_DRAIN_DEADLINE_S"
+
+# -- driver installer and native binaries ------------------------------------------
+#: a directory of the user-space driver libraries the operand image bundles
+DRIVER_SRC_ENV = "GPU_DRIVER_SRC"
+#: the driver version to record when ``--driver-version`` is not given
+DRIVER_VERSION_ENV = "GPU_DRIVER_VERSION"
+#: the driver daemon writes the CDI spec after its install ("1")
+CDI_ENABLED_ENV = "GPU_CDI_ENABLED"
+CDI_DIR_ENV = "GPU_CDI_DIR"
+#: explicit paths of the native probe and exporter
+PROBE_BIN_ENV = "GPU_PROBE_BIN"
+EXPORTER_BIN_ENV = "GPU_EXPORTER_BIN"
+#: "0" keeps ``-c metrics`` on the Python exporter
+NATIVE_EXPORTER_ENV = "GPU_NATIVE_EXPORTER"
+
+# -- migrate agent -------------------------------------------------------------------
+#: operator -> source node: take a transparent snapshot for this plan
+MIGRATE_SNAPSHOT_REQUEST_ANNOTATION = "tpu.ai/migrate-snapshot-request"
+#: source node -> operator: the snapshot's outcome
+MIGRATE_SNAPSHOT_RESULT_ANNOTATION = "tpu.ai/migrate-snapshot-result"
+#: operator -> destination node: restore this inbound migration
+MIGRATION_INBOUND_ANNOTATION = "tpu.ai/migration-inbound"
+#: destination node -> operator: the restore's outcome
+MIGRATION_RESTORE_ANNOTATION = "tpu.ai/migration-restore"
+#: the process-state mirror file the training harness keeps under the
+#: status dir: the stand-in for process memory a snapshot dumps
+MIGRATE_PROCESS_STATE_FILE = "process-state.json"

@@ -17,6 +17,11 @@ of tpu_operator/deviceplugin/plugin.py).
   UUIDs (indexes renumber inside a container). The reference hands every
   container every device node and narrows with ``TPU_VISIBLE_CHIPS``; a
   GPU's isolation is its device node, so only the allocated ones go.
+- **Preferred allocation**: the candidate set whose GPUs are nearest over
+  NVML's link topology (``partitioner.topology.link_cost``: NVLink, then
+  one PCIe switch, host bridge, NUMA node, across sockets), ties broken
+  lexically. The reference ranks on its host's ICI grid, which a GPU node
+  does not have; its ranking stays here as :func:`prefer_compact`.
 - **Health**: the reference's gate on the node's workload barrier,
   unchanged: bootstrap-safe, per-GPU when the barrier attributes the
   failure, carried forward over a partial-coverage pass, with an absence
@@ -45,6 +50,7 @@ from typing import Dict, List, Optional, Tuple
 
 from .. import consts, nvml
 from ..partitioner.partitioner import DEFAULT_HANDOFF_DIR, read_handoff
+from ..partitioner.topology import Links, link_cost
 from ..validator.cdi import qualified_name
 from ..validator.driver import control_nodes, driver_lib_files, gpu_node
 from ..validator.status import StatusFiles, failed_local_chips, partial_sweep
@@ -113,7 +119,9 @@ def _dispersion(device_ids, chips_of, total: int,
 
 def prefer_compact(available, must_include, size: int, chips_of,
                    grid: Optional[tuple] = None) -> list:
-    """Pick `size` device IDs preferring compact chip subsets.
+    """Pick `size` device IDs preferring compact chip subsets on a host
+    grid: the reference's ranking, kept as its copy (the plugin ranks with
+    :func:`prefer_near`, a GPU node having no grid).
 
     The kubelet's default allocator is topology-blind; brute-force over
     the (tiny: <=8 devices/host) candidate set; falls back to lexical fill
@@ -132,6 +140,31 @@ def prefer_compact(available, must_include, size: int, chips_of,
                key=lambda combo: (_dispersion(must + list(combo), chips_of,
                                               total_chips, grid), combo))
     return must + list(best)
+
+
+def prefer_near(available, must_include, size: int, chips_of,
+                links: Optional[Links]) -> list:
+    """Pick ``size`` device IDs whose GPUs are nearest over the node's
+    links: the lowest :func:`link_cost` of all their GPUs, ties broken
+    lexically. With every pair alike (an NVSwitch board), or no link
+    matrix, that is the lexical pick."""
+    must = list(must_include)
+    rest = [d for d in available if d not in must]
+    need = size - len(must)
+    if need <= 0:
+        return must[:size]
+    if need >= len(rest) or len(rest) > 16:  # safety bound; nodes have at most 8 units
+        return must + rest[:need]
+
+    if links is not None and any(not 0 <= c < len(links)
+                                 for chips in chips_of.values() for c in chips):
+        links = None  # a handoff naming GPUs NVML does not list: rank lexically
+
+    def cost(combo) -> int:
+        return link_cost([c for d in must + list(combo) for c in chips_of.get(d, [])], links)
+
+    return must + list(min(itertools.combinations(rest, need),
+                           key=lambda combo: (cost(combo), combo)))
 
 
 @dataclasses.dataclass
@@ -219,8 +252,9 @@ class GPUDevicePlugin:
         self._units: Dict[str, Unit] = {}
         #: the node's GPUs in PCI bus-id order, as of the last refresh
         self._gpus: List[nvml.Gpu] = []
-        #: real host grid from the partitioner handoff (None = guess)
-        self._grid: Optional[tuple] = None
+        #: the GPUs' pairwise link classes as of the last refresh (None:
+        #: NVML could not tell, and preferred allocations are lexical)
+        self._links: Optional[Links] = None
         self._watchers: List["queue.Queue[List[Unit]]"] = []
         self._lock = threading.Lock()
         self._server = None
@@ -266,8 +300,14 @@ class GPUDevicePlugin:
         Raises :class:`~tpu_operator_torch.nvml.NvmlError` without NVML."""
         verdict, barrier = self._validation_health()
         handoff = read_handoff(self.handoff_dir)
-        grid = tuple(handoff["grid"]) if handoff and handoff.get("grid") else None
-        gpus = nvml.gpus(self.nvml_lib)
+        with nvml.session(self.nvml_lib) as s:
+            gpus = s.gpus()
+            try:
+                links = s.links(gpus)
+            except nvml.NvmlError as e:
+                log.warning("NVML gives no link topology (%s): preferred allocations "
+                            "are lexical", e)
+                links = None
         fresh = {u.id: u for u in discover_units(self.handoff_dir, handoff=handoff, gpus=gpus)}
         n_chips = len({c for u in fresh.values() for c in u.chips})
         failed = failed_local_chips(barrier, n_chips) \
@@ -290,7 +330,7 @@ class GPUDevicePlugin:
             else:
                 u.health = UNHEALTHY if failed & set(u.chips) else HEALTHY
         with self._lock:
-            self._grid = grid
+            self._links = links
             if gpus == self._gpus and \
                {k: (v.chips, v.health) for k, v in fresh.items()} == \
                {k: (v.chips, v.health) for k, v in self._units.items()}:
@@ -310,8 +350,8 @@ class GPUDevicePlugin:
     def preferred(self, available, must_include, size: int) -> list:
         with self._lock:
             chips_of = {u.id: u.chips for u in self._units.values()}
-            grid = self._grid
-        return prefer_compact(sorted(available), list(must_include), size, chips_of, grid)
+            links = self._links
+        return prefer_near(sorted(available), list(must_include), size, chips_of, links)
 
     def allocation_plan(self, device_ids) -> ContainerPlan:
         """Raises KeyError for an id the inventory does not hold."""

@@ -2,10 +2,13 @@
 
 The GPU's counterpart of the TPU operator's ``/dev`` enumeration and of
 libtpu's per-chip runtime counters: which GPUs the node has (index, UUID,
-device-node minor number, PCI bus id) and one sample of each (memory,
-utilisation, power, temperature). NVML answers without a CUDA context, so
-the resident daemons (the device plugin, the telemetry exporter, the CDI
-writer) never pin device memory nor block an exclusive-mode workload.
+device-node minor number, PCI bus id), one sample of each (memory,
+utilisation, power, temperature), how near each pair is (NVLink, or the
+closest common PCIe ancestor: :meth:`Session.links`, the counterpart of a
+TPU host's ICI grid) and the driver's version. NVML answers without a
+CUDA context, so the resident daemons (the device plugin, the telemetry
+exporter, the CDI writer, the partitioner) never pin device memory nor
+block an exclusive-mode workload.
 
 The library is loaded at the first call, never at import. Every NVML
 error raises :class:`NvmlError` with NVML's return code; a missing library
@@ -37,6 +40,32 @@ TEMPERATURE_GPU = 0
 NOT_SUPPORTED = 3
 #: NVML_DEVICE_UUID_V2_BUFFER_SIZE
 UUID_BUFFER = 96
+#: NVML_SYSTEM_DRIVER_VERSION_BUFFER_SIZE
+DRIVER_VERSION_BUFFER = 80
+
+#: nvmlGpuTopologyLevel_t: the closest common ancestor of two GPUs
+TOPOLOGY_INTERNAL = 0      # one board (a multi-GPU card)
+TOPOLOGY_SINGLE = 10       # one PCIe switch
+TOPOLOGY_MULTIPLE = 20     # several PCIe switches, no host bridge crossed
+TOPOLOGY_HOSTBRIDGE = 30   # one PCIe host bridge
+TOPOLOGY_NODE = 40         # one NUMA node (CPU socket), several host bridges
+TOPOLOGY_SYSTEM = 50       # across NUMA nodes (the sockets' interconnect)
+#: nvmlGpuP2PCapsIndex_t NVML_P2P_CAPS_INDEX_NVLINK
+P2P_CAPS_INDEX_NVLINK = 2
+#: nvmlGpuP2PStatus_t NVML_P2P_STATUS_OK
+P2P_STATUS_OK = 0
+
+#: link classes between two GPUs, tightest first: the measure of nearness
+#: the partitioner tiles with and the device plugin ranks allocations by
+LINK_NVLINK = "nvlink"
+LINK_PCIE_SWITCH = "pcie-switch"
+LINK_HOST_BRIDGE = "host-bridge"
+LINK_NUMA = "numa"
+LINK_SYSTEM = "system"
+LINK_CLASSES = (LINK_NVLINK, LINK_PCIE_SWITCH, LINK_HOST_BRIDGE, LINK_NUMA, LINK_SYSTEM)
+_ANCESTOR_CLASS = {TOPOLOGY_INTERNAL: LINK_NVLINK, TOPOLOGY_SINGLE: LINK_PCIE_SWITCH,
+                   TOPOLOGY_MULTIPLE: LINK_PCIE_SWITCH, TOPOLOGY_HOSTBRIDGE: LINK_HOST_BRIDGE,
+                   TOPOLOGY_NODE: LINK_NUMA, TOPOLOGY_SYSTEM: LINK_SYSTEM}
 
 #: nvmlReturn_t values, for error messages
 ERRORS = {
@@ -105,6 +134,9 @@ _SIGNATURES = {
     "nvmlDeviceGetUtilizationRates": [ctypes.c_void_p, _P(Utilization)],
     "nvmlDeviceGetPowerUsage": [ctypes.c_void_p, _P(ctypes.c_uint)],
     "nvmlDeviceGetTemperature": [ctypes.c_void_p, ctypes.c_int, _P(ctypes.c_uint)],
+    "nvmlDeviceGetTopologyCommonAncestor": [ctypes.c_void_p, ctypes.c_void_p, _P(ctypes.c_int)],
+    "nvmlDeviceGetP2PStatus": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, _P(ctypes.c_int)],
+    "nvmlSystemGetDriverVersion": [ctypes.c_char_p, ctypes.c_uint],
 }
 
 _loaded = {}
@@ -202,6 +234,42 @@ class Session:
         return Sample(uuid=gpu.uuid, memory_used_bytes=mem.used, memory_total_bytes=mem.total,
                       gpu_utilization_percent=util.gpu, memory_utilization_percent=util.memory,
                       power_mw=power.value, temperature_c=temp.value)
+
+    def driver_version(self) -> str:
+        """The kernel driver's version, as ``nvidia-smi`` prints it."""
+        buf = ctypes.create_string_buffer(DRIVER_VERSION_BUFFER)
+        self._call("nvmlSystemGetDriverVersion", buf, DRIVER_VERSION_BUFFER)
+        return buf.value.decode()
+
+    def link(self, a: Gpu, b: Gpu) -> str:
+        """The class of the link between two GPUs (:data:`LINK_CLASSES`):
+        ``nvlink`` where peer access over NVLink is OK or the two share a
+        board, else what their closest common PCIe ancestor says. Raises
+        :class:`NvmlError` where NVML cannot answer: nearness is never
+        guessed."""
+        ha, hb = self.handle(a.index), self.handle(b.index)
+        status = ctypes.c_int()
+        self._call("nvmlDeviceGetP2PStatus", ha, hb, P2P_CAPS_INDEX_NVLINK,
+                   ctypes.byref(status))
+        if status.value == P2P_STATUS_OK:
+            return LINK_NVLINK
+        level = ctypes.c_int()
+        self._call("nvmlDeviceGetTopologyCommonAncestor", ha, hb, ctypes.byref(level))
+        if level.value not in _ANCESTOR_CLASS:
+            raise NvmlError("nvmlDeviceGetTopologyCommonAncestor", 999,
+                            f"unknown topology level {level.value}")
+        return _ANCESTOR_CLASS[level.value]
+
+    def links(self, gpus: List[Gpu]) -> List[List[Optional[str]]]:
+        """The pairwise link classes of ``gpus``, in their order (that of
+        :meth:`gpus`: PCI bus-id order, or CUDA's ordinals): ``m[i][j]`` is
+        the link between ``gpus[i]`` and ``gpus[j]``, None on the
+        diagonal."""
+        m: List[List[Optional[str]]] = [[None] * len(gpus) for _ in gpus]
+        for i, a in enumerate(gpus):
+            for j in range(i + 1, len(gpus)):
+                m[i][j] = m[j][i] = self.link(a, gpus[j])
+        return m
 
     def gpus(self) -> List[Gpu]:
         """Every GPU, in CUDA's ordinal order under

@@ -5,6 +5,9 @@ with the calls :mod:`tpu_operator_torch.cuda_driver` binds.
 
 Its GPUs are listed in NVML index order, which need not be PCI order; a
 test changes them (or sets ``fail[<function>] = <code>``) between calls.
+The links between GPUs are keyed by their UUIDs, so the listed order does
+not move them: by default every pair is NVLink (an NVSwitch board), and
+:func:`pcie_links` builds a board without NVLink.
 :func:`install` makes it the process's NVML, as a subprocess script does
 before it runs a component's CLI.
 """
@@ -12,7 +15,8 @@ before it runs a component's CLI.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+import itertools
+from typing import Callable, Dict, FrozenSet, List, Optional, Tuple
 
 import numpy as np
 
@@ -34,10 +38,21 @@ class FakeGpu:
     temperature_c: int = 30
 
 
+#: (common ancestor level, peer access over NVLink) of one pair of GPUs
+Link = Tuple[int, bool]
+#: the NVSwitch board's pair: every GPU reaches every other over NVLink
+NVSWITCH: Link = (nvml.TOPOLOGY_SYSTEM, True)
+
+
 class FakeNvml:
-    def __init__(self, gpus: List[FakeGpu], fail: Dict[str, int] = None):
+    def __init__(self, gpus: List[FakeGpu], fail: Dict[str, int] = None,
+                 links: Dict[FrozenSet[str], Link] = None,
+                 driver_version: str = "570.133.20"):
         self.gpus = list(gpus)
         self.fail = dict(fail or {})
+        #: {frozenset of two UUIDs: Link}; a pair not listed is NVSWITCH
+        self.links = dict(links or {})
+        self.driver_version = driver_version
         #: nvmlInit_v2 calls not yet matched by nvmlShutdown
         self.open_sessions = 0
 
@@ -105,6 +120,23 @@ class FakeNvml:
         temp._obj.value = self._gpu(handle).temperature_c
         return self._code("nvmlDeviceGetTemperature")
 
+    def _link(self, a, b) -> Link:
+        return self.links.get(frozenset((self._gpu(a).uuid, self._gpu(b).uuid)), NVSWITCH)
+
+    def nvmlDeviceGetP2PStatus(self, a, b, index, status):
+        if index != nvml.P2P_CAPS_INDEX_NVLINK:
+            return 2  # the fake answers the NVLink capability only
+        status._obj.value = nvml.P2P_STATUS_OK if self._link(a, b)[1] else 5
+        return self._code("nvmlDeviceGetP2PStatus")
+
+    def nvmlDeviceGetTopologyCommonAncestor(self, a, b, level):
+        level._obj.value = self._link(a, b)[0]
+        return self._code("nvmlDeviceGetTopologyCommonAncestor")
+
+    def nvmlSystemGetDriverVersion(self, buf, size):
+        buf.value = self.driver_version.encode()
+        return self._code("nvmlSystemGetDriverVersion")
+
 
 class FakeCuda:
     """The CUDA driver of a node whose ordinals name ``uuids`` in order:
@@ -159,6 +191,23 @@ def random_gpus(n: int, seed: int) -> List[FakeGpu]:
     if n > 1 and order == sorted(order):
         order = order[1:] + order[:1]
     return [gpus[i] for i in order]
+
+
+def pcie_links(gpus: List[FakeGpu], level: Callable[[int, int], int]
+               ) -> Dict[FrozenSet[str], Link]:
+    """The links of a board without NVLink: ``level(i, j)`` is the common
+    PCIe ancestor of the ``i``-th and ``j``-th GPU in PCI bus-id order."""
+    ordered = sorted(gpus, key=lambda g: g.pci_bus_id.lower())
+    return {frozenset((ordered[i].uuid, ordered[j].uuid)): (level(i, j), False)
+            for i, j in itertools.combinations(range(len(ordered)), 2)}
+
+
+def two_sockets(i: int, j: int) -> int:
+    """An 8-GPU PCIe board: GPUs in pairs under four PCIe switches, two
+    switches under each CPU socket (GPUs 0-3 and 4-7 in PCI order)."""
+    if i // 2 == j // 2:
+        return nvml.TOPOLOGY_SINGLE
+    return nvml.TOPOLOGY_NODE if i // 4 == j // 4 else nvml.TOPOLOGY_SYSTEM
 
 
 def install(fake: FakeNvml) -> None:

@@ -197,6 +197,12 @@ def span(name: str, kind: str = "internal", **attributes):
         _current_span.reset(token)
 
 
+def current_trace_id() -> Optional[str]:
+    """The active trace's id, or None outside a trace."""
+    sp = _current_span.get()
+    return sp.trace_id if sp is not None else None
+
+
 def record_span(name: str, start_unix: float, duration_s: float,
                 kind: str = "internal", **attributes):
     """Attach an interval measured elsewhere (a report's ``compile_s``) as

@@ -22,6 +22,19 @@ def deep_get(obj: Optional[Mapping], *path: str, default: Any = None) -> Any:
     return cur
 
 
+def pod_requests_resource(pod: Mapping, resource: str) -> bool:
+    """True when any container of the pod, init containers included,
+    requests or limits ``resource``."""
+    spec = pod.get("spec") or {}
+    for field in ("initContainers", "containers"):
+        for container in spec.get(field, []) or []:
+            resources = container.get("resources") or {}
+            if any(resource in (resources.get(section) or {})
+                   for section in ("limits", "requests")):
+                return True
+    return False
+
+
 _QUANTITY_RE = re.compile(r"^([0-9.]+)([a-zA-Z]*)$")
 _SUFFIXES = {
     "": 1,

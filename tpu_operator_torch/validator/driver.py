@@ -2,8 +2,15 @@
 
 "Driver ready" on a GPU node means: the CUDA driver library
 (``libcuda.so.1``) is at the install path and the GPU device nodes
-(``/dev/nvidia[0-9]*``) are visible. Both are cheap file checks. The
-driver daemon and the native probe come in a later slice.
+(``/dev/nvidia[0-9]*``) are visible. Both are cheap file checks, which the
+native ``gpu-probe`` makes in about a millisecond for the installer's
+startup probe (:func:`probe`).
+
+The installer (:func:`install`, :func:`daemon`) places the user-space
+driver libraries the operand image bundles (``$GPU_DRIVER_SRC``) on the
+host path, atomically, and records the driver version in the barrier.
+Nothing is downloaded and no kernel module is built: the node's kernel
+driver is the platform's.
 """
 
 from __future__ import annotations
@@ -11,6 +18,9 @@ from __future__ import annotations
 import glob
 import logging
 import os
+import shutil
+import subprocess
+import time
 from typing import List, Optional
 
 from .. import consts
@@ -111,6 +121,112 @@ def validate(install_dir: str, status: Optional[StatusFiles] = None,
     status.write("driver", record)
     log.info("driver validation ok: %s, %d device nodes", so, len(devices))
     return True
+
+
+def find_probe_binary() -> Optional[str]:
+    """The native ``gpu-probe`` (``tpu_operator_torch/native``): about a
+    millisecond per exec against a second of interpreter start, which
+    matters for a kubelet exec probe firing every few seconds."""
+    from .native import find_native_binary
+
+    return find_native_binary("gpu-probe", consts.PROBE_BIN_ENV)
+
+
+def probe(install_dir: str, require_devices: bool = True) -> bool:
+    """The installer's startup probe: cheap, no side effects, no CUDA
+    context. Runs the native probe when found, else the same file checks."""
+    binary = find_probe_binary()
+    if binary:
+        args = [binary, f"--install-dir={install_dir}"]
+        if not require_devices:
+            args.append("--no-require-devices")
+        try:
+            return subprocess.run(args, capture_output=True, timeout=10).returncode == 0
+        except (OSError, subprocess.TimeoutExpired) as e:
+            log.warning("native probe failed (%s); falling back to file checks", e)
+    return is_valid_driver_lib(driver_lib_path(install_dir)) and \
+        (not require_devices or bool(discover_devices()))
+
+
+def find_bundled_driver() -> Optional[str]:
+    """The directory of driver libraries the operand image bundles
+    (``$GPU_DRIVER_SRC``), if it holds ``libcuda.so.1``."""
+    src = os.environ.get(consts.DRIVER_SRC_ENV)
+    if src and os.path.exists(os.path.join(src, consts.DRIVER_LIB)):
+        return src
+    return None
+
+
+def _nvml_driver_version(nvml_lib=None) -> str:
+    from .. import nvml
+
+    try:
+        with nvml.session(nvml_lib) as s:
+            return s.driver_version()
+    except nvml.NvmlError as e:
+        log.warning("NVML gives no driver version (%s); recording 'unknown'", e)
+        return "unknown"
+
+
+def install(install_dir: str, driver_version: Optional[str] = None,
+            status: Optional[StatusFiles] = None, nvml_lib=None) -> bool:
+    """Place the bundled driver libraries on the host path (the installer
+    DaemonSet's job): each of ``libcuda.so.1`` and ``libnvidia-ml.so.1``
+    the bundle holds is copied to a temporary file beside its target, then
+    swapped in with ``os.replace``, so a reader never sees a torn library.
+    Without a bundle, a preinstalled target is kept, or the install fails.
+
+    The barrier gets the reference's keys: ``libtpu`` (the driver
+    library's path), ``libtpu_version`` and ``devices``. The version is
+    ``driver_version``, else ``$GPU_DRIVER_VERSION``, else NVML's."""
+    status = status or StatusFiles()
+    os.makedirs(install_dir, exist_ok=True)
+    target = driver_lib_path(install_dir)
+    source = find_bundled_driver()
+    if source is None:
+        if os.path.exists(target):
+            log.info("no bundled driver; keeping preinstalled %s", target)
+        else:
+            log.error("no bundled driver (%s) and nothing preinstalled at %s",
+                      consts.DRIVER_SRC_ENV, target)
+            return False
+    elif os.path.abspath(source) != os.path.abspath(install_dir):
+        for name in consts.DRIVER_LIB_FILES:
+            src = os.path.join(source, name)
+            if not os.path.exists(src):
+                continue
+            dst = os.path.join(install_dir, name)
+            tmp = dst + ".tmp"
+            shutil.copyfile(src, tmp)  # follows the bundle's symlinks
+            os.replace(tmp, dst)
+            log.info("installed %s -> %s", src, dst)
+    version = (driver_version or os.environ.get(consts.DRIVER_VERSION_ENV)
+               or _nvml_driver_version(nvml_lib))
+    status.write("driver", {"libtpu": target, "libtpu_version": version,
+                            "devices": discover_devices()})
+    return True
+
+
+def daemon(install_dir: str, driver_version: Optional[str] = None,
+           status: Optional[StatusFiles] = None, heartbeat_interval: float = 30.0,
+           max_beats: Optional[int] = None, nvml_lib=None) -> int:
+    """The installer DaemonSet's main loop: install once, write the CDI
+    spec when ``$GPU_CDI_ENABLED`` is 1, then heartbeat the
+    ``driver-heartbeat`` barrier so the node-status exporter can tell a
+    wedged installer."""
+    status = status or StatusFiles()
+    if not install(install_dir, driver_version, status, nvml_lib):
+        return 1
+    if os.environ.get(consts.CDI_ENABLED_ENV) == "1":
+        from . import cdi
+
+        cdi.run(install_dir, os.environ.get(consts.CDI_DIR_ENV, cdi.DEFAULT_CDI_DIR))
+    beats = 0
+    while max_beats is None or beats < max_beats:
+        time.sleep(heartbeat_interval)
+        status.write("driver-heartbeat", {"beat": beats})
+        beats += 1
+    return 0
 
 
 # -- what a container needs to use a GPU (device plugin and CDI) ------------------

@@ -5,6 +5,11 @@ Components:
 
 ==================  =========================================================
 driver              validate the CUDA driver library + device nodes; barrier
+driver-daemon       installer DaemonSet main: place the bundled driver
+                    libraries ($GPU_DRIVER_SRC) on the host path, record
+                    the driver version, heartbeat the barrier
+driver-probe        the installer's startup probe (exit code only; the
+                    native gpu-probe when found)
 plugin              wait for the GPU extended resource on this node;
                     ``--prewarm`` builds the CUDA sources into the build
                     cache in a background thread meanwhile
@@ -37,11 +42,18 @@ device-plugin       kubelet device plugin for ``nvidia.com/gpu``: one unit
 cdi                 write the CDI spec of the node's GPUs
 telemetry           out-of-band GPU exporter (NVML, an optional runtime
                     endpoint, sysfs, operator records -> Prometheus text)
+slice-partitioner   apply the node's partition (``tpu.ai/slice.config``):
+                    GPU groups over NVML's link topology, handed to the
+                    device plugin
+migrate-agent       node side of a migration: transparent snapshots on the
+                    operator's request, restores of inbound checkpoints
 ==================  =========================================================
 
 Everything that touches a device runs on ``cuda`` unless ``--device=cpu``
-is given; ``device-plugin``, ``cdi`` and ``telemetry`` touch none (NVML
-answers them without a CUDA context) and exit non-zero without NVML.
+is given; ``device-plugin``, ``cdi``, ``telemetry``, ``slice-partitioner``,
+``driver-daemon``, ``driver-probe`` and ``migrate-agent`` touch none (NVML
+answers them without a CUDA context) and import no torch; the first three
+exit non-zero without NVML, the partitioner records ``failed``.
 Every process starts with ``CUDA_DEVICE_ORDER=PCI_BUS_ID`` unless its
 caller chose an order. Every component runs under a root span ``operand.<component>``
 continuing the operator's join trace from ``$GPU_TRACE_PARENT``, written to
@@ -74,15 +86,19 @@ def _default_coordinator() -> str:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="gpu-validator")
     p.add_argument("-c", "--component", required=True,
-                   choices=["driver", "plugin", "workload", "workload-local",
-                            "workload-multihost", "prewarm", "perf", "serving",
-                            "wait", "info", "sleep", "metrics", "feature-discovery",
-                            "device-plugin", "cdi", "telemetry"])
+                   choices=["driver", "driver-daemon", "driver-probe", "plugin",
+                            "workload", "workload-local", "workload-multihost", "prewarm",
+                            "perf", "serving", "wait", "info", "sleep", "metrics",
+                            "feature-discovery", "device-plugin", "cdi", "telemetry",
+                            "slice-partitioner", "migrate-agent"])
     p.add_argument("--device", default="cuda",
                    help="torch device to validate on (cuda; cpu for tests)")
     p.add_argument("--json", action="store_true", help="info: machine-readable output")
     p.add_argument("--install-dir", default=consts.DEFAULT_DRIVER_LIB_DIR,
                    help="the driver library's directory")
+    p.add_argument("--driver-version", default=None,
+                   help="driver-daemon: the version to record (default "
+                        f"${consts.DRIVER_VERSION_ENV}, else NVML's)")
     p.add_argument("--cdi-dir", default="/etc/cdi")
     p.add_argument("--status-dir", default=os.environ.get("STATUS_DIR", consts.VALIDATION_STATUS_DIR))
     p.add_argument("--resource", default=consts.GPU_RESOURCE_NAME)
@@ -140,6 +156,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="multihost rendezvous budget in seconds (0 = torch "
                         "default); a worker that never joins fails "
                         "validation closed within this budget")
+    p.add_argument("--config", default=os.environ.get(consts.PARTITION_CONFIG_ENV),
+                   help="slice-partitioner: the partition table file (default: the "
+                        "port's own table)")
     p.add_argument("--handoff-dir",
                    default=os.environ.get(consts.HANDOFF_DIR_ENV, consts.DEFAULT_HANDOFF_DIR),
                    help="host dir through which the partitioner hands applied "
@@ -278,6 +297,16 @@ def _dispatch(args, status, client) -> int:
                 ok = driver.validate(args.install_dir, status, require_devices)
             sp.set_attribute("passed", ok)
         return 0 if ok else 1
+
+    if component == "driver-daemon":
+        from . import driver
+
+        return driver.daemon(args.install_dir, args.driver_version, status)
+
+    if component == "driver-probe":
+        from . import driver
+
+        return 0 if driver.probe(args.install_dir, require_devices) else 1
 
     if component == "plugin":
         from . import plugin
@@ -561,6 +590,25 @@ def _dispatch(args, status, client) -> int:
             # inventory, spec or exporter
             log.error("%s: %s", component, e)
             return 1
+
+    if component == "slice-partitioner":
+        from ..partitioner import run as partitioner_run
+
+        if client is None:
+            client = make_client()
+        return partitioner_run(client, config_path=args.config, handoff_dir=args.handoff_dir,
+                               status_dir=args.status_dir)
+
+    if component == "migrate-agent":
+        from ..migrate import agent as migrate_agent
+
+        node_name = os.environ.get("NODE_NAME", "")
+        if not node_name:
+            log.error("migrate-agent: NODE_NAME required")
+            return 1
+        if client is None:
+            client = make_client()
+        return migrate_agent.run(client, node_name, status, sleep_interval=args.sleep_interval)
 
     raise AssertionError(f"unhandled component {component}")
 

@@ -4,6 +4,9 @@ the node-local status files as Prometheus gauges, refreshed periodically.
 The metric names, labels and HELP text are the TPU operator's
 (``tpu_operator_node_*``), so one set of dashboards reads both. The text
 exposition format is written here: the port has no ``prometheus_client``.
+``-c metrics`` execs the native ``gpu-exporter``
+(``tpu_operator_torch/native/gpu_exporter.cc``), which writes the same text,
+when it finds it, as the reference execs its ``tpu-exporter``.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Dict, Optional, Tuple
 
+from .. import consts
 from .driver import discover_devices
 from .status import StatusFiles, failed_local_chips, partial_sweep
 
@@ -232,13 +236,44 @@ def http_server(port: int, scrape: Callable[[], bytes]) -> ThreadingHTTPServer:
     return ThreadingHTTPServer(("0.0.0.0", port), Handler)
 
 
+def find_exporter_binary() -> Optional[str]:
+    """The native ``gpu-exporter``; ``$GPU_NATIVE_EXPORTER=0`` keeps the
+    Python server."""
+    from .native import find_native_binary
+
+    return find_native_binary("gpu-exporter", consts.EXPORTER_BIN_ENV,
+                              disable_env=consts.NATIVE_EXPORTER_ENV)
+
+
+def _exec_native_exporter(port: int, status_dir: Optional[str] = None) -> None:
+    """Replace this process with the native exporter if one is usable.
+    Returns when none is found or the exec fails (a binary for another
+    architecture passes the X_OK check), and the caller serves from
+    Python."""
+    binary = find_exporter_binary()
+    if not binary:
+        return
+    log.info("delegating to native exporter %s", binary)
+    args = [binary, f"--port={port}"]
+    if status_dir:
+        args.append(f"--status-dir={status_dir}")
+    try:
+        os.execv(binary, args)
+    except OSError as e:
+        log.warning("native exporter exec failed (%s); falling back to in-process server", e)
+
+
 def serve(port: int, metrics: Optional[NodeMetrics] = None,
           refresh_interval: float = REFRESH_INTERVAL,
           ready_event: Optional[threading.Event] = None,
           stop_event: Optional[threading.Event] = None,
           status_dir: Optional[str] = None) -> int:
     """Serve ``/metrics`` on ``port`` (0: any free port), refreshing every
-    ``refresh_interval`` s until ``stop_event`` is set (forever without)."""
+    ``refresh_interval`` s until ``stop_event`` is set (forever without).
+    Called as the component does (no metrics object, no events), it execs
+    the native exporter when one is found."""
+    if metrics is None and ready_event is None and stop_event is None:
+        _exec_native_exporter(port, status_dir)
     metrics = metrics or NodeMetrics(status=StatusFiles(status_dir) if status_dir else None)
     metrics.refresh()
     stop = stop_event or threading.Event()
