@@ -6,7 +6,8 @@
 Phases, each of which exits non-zero on failure:
 
 1. environment: the card's name and power limit (nvidia-smi), torch, CUDA
-2. build every CUDA source of the port with nvcc (timed)
+2. build every CUDA source of the port with nvcc, then the native probe
+   and exporter with g++ (each timed)
 3. each kernel against its plain PyTorch version on the card, bit-exact
    (K1: the main shape, ragged lengths, chunk boundaries, every relative
    alignment of the two ends with their neighbours untouched, and a plan
@@ -37,8 +38,10 @@ Phases, each of which exits non-zero on failure:
    all but 256 MiB (skips, barrier bytes unchanged); ``-c sleep`` until
    two revalidations; five re-probes in one process with
    ``memory_reserved`` flat, then ``-c serving --serving-interval=1`` in a
-   fresh process for three probes; the metrics exporter, in process and
-   over HTTP. This path launches no hand-written kernel
+   fresh process for three probes; the Python metrics exporter, in
+   process and as ``-c metrics`` over HTTP with ``GPU_NATIVE_EXPORTER=0``
+   (phase 11 drives the native one). This path launches no hand-written
+   kernel
 10. device plumbing, on a copy of that status dir: NVML against
    ``nvidia-smi -q`` in a fresh process that must import no torch and hold
    no primary context; the device plugin's inventory (one unit per GPU,
@@ -52,7 +55,7 @@ Phases, each of which exits non-zero on failure:
 11. the validator's last components, on another copy of that status dir,
    each daemon in a fresh process that must import no torch and hold no
    primary context: the native ``gpu-probe`` and ``gpu-exporter`` (built
-   with ``g++`` in phase 2, beside ``nvcc``); ``driver-daemon`` installing
+   with ``g++`` in phase 2); ``driver-daemon`` installing
    the machine's own ``libcuda.so.1`` and ``libnvidia-ml.so.1`` from a
    bundle assembled from the host's driver paths, its barrier's version
    against ``nvidia-smi``, two heartbeats and the CDI spec; ``driver-probe``
@@ -424,13 +427,14 @@ class CliProcess:
     children of it), stdout read line by line on a thread, and the whole
     group killed by :meth:`stop`."""
 
-    def __init__(self, argv: list, script: str = None):
+    def __init__(self, argv: list, script: str = None, env: dict = None):
         command = ([sys.executable, "-c", script] if script is not None else
                    [sys.executable, "-m", "tpu_operator_torch.cmd.validator", *argv])
         self.started = time.perf_counter()
         self.proc = subprocess.Popen(
             command, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-            start_new_session=True, cwd=os.path.dirname(os.path.abspath(__file__)))
+            start_new_session=True, cwd=os.path.dirname(os.path.abspath(__file__)),
+            env=dict(os.environ, **(env or {})))
         self.lines: "queue.Queue[str]" = queue.Queue()
         self.stderr: list = []
         threading.Thread(target=self._pump, args=(self.proc.stdout, self.lines.put),
@@ -640,7 +644,8 @@ def steady_state_phase(dev, card, status_dir, trace_id, serving_report) -> None:
                           "elapsed_s": [p["elapsed_s"] for p in probes],
                           "decode_p99_ms": [p["decode_p99_ms"] for p in probes]}}))
 
-    # 6. the metrics exporter, in process and over HTTP
+    # 6. the Python metrics exporter, in process and as -c metrics over
+    # HTTP: the native exporter is off here (phase 11 drives it)
     perf = status.read("perf")
     exporter = NodeMetrics(status)
     exporter.refresh()
@@ -653,7 +658,8 @@ def steady_state_phase(dev, card, status_dir, trace_id, serving_report) -> None:
     if torch.cuda.device_count() == 1:
         check("ici_allreduce" not in text, "an all-reduce series on one GPU")
     port = free_port()
-    server = CliProcess(["-c", "metrics", f"--port={port}", f"--status-dir={status_dir}"])
+    server = CliProcess(["-c", "metrics", f"--port={port}", f"--status-dir={status_dir}"],
+                        env={consts.NATIVE_EXPORTER_ENV: "0"})
     try:
         deadline = time.monotonic() + 60
         while True:
@@ -665,8 +671,10 @@ def steady_state_phase(dev, card, status_dir, trace_id, serving_report) -> None:
                 check(server.proc.poll() is None and time.monotonic() < deadline,
                       f"metrics never served: {''.join(server.stderr)[-2000:]}")
                 time.sleep(0.1)
+        exe = os.path.realpath(f"/proc/{server.proc.pid}/exe")
     finally:
         server.stop()
+    check(exe == os.path.realpath(sys.executable), f"-c metrics runs {exe}, not Python")
     refresh = "tpu_operator_node_metrics_last_refresh_ts_seconds"
     check({k: v for k, v in scrape_samples(served).items() if k != refresh} ==
           {k: v for k, v in samples.items() if k != refresh},
@@ -1084,7 +1092,7 @@ def last_components_phase(card, status_dir, native_build_s) -> dict:
         gpus = s.gpus()
     own_nodes = [driver.gpu_node(g.minor) for g in gpus]
 
-    # 1. the native binaries, built with g++ in phase 2 beside nvcc
+    # 1. the native binaries, built with g++ in phase 2
     binaries = {name: str(native.binary_path(name)) for name in native.BINARIES}
     for name, path in binaries.items():
         check(os.access(path, os.X_OK), f"{name} was not built: {path}")
@@ -1458,23 +1466,12 @@ def main() -> int:
     print(f"peaks: {chip} HBM {hbm_peak_gbps} GB/s (data sheet)")
 
     phase("build")
-    # the native probe and exporter (g++) build beside the CUDA sources (nvcc)
-    native_built = {}
-
-    def build_native() -> None:
-        try:
-            native_built["s"] = native.build()
-        except RuntimeError as e:
-            native_built["error"] = e
-
-    native_thread = threading.Thread(target=build_native)
     t0 = time.perf_counter()
-    native_thread.start()
     built = _build.build_all()
-    native_thread.join(timeout=300)
-    check("s" in native_built, f"the native binaries did not build: {native_built.get('error')}")
-    print(json.dumps({"build_s": round(time.perf_counter() - t0, 3), "per_source_s": built,
-                      "native_s": native_built["s"]}))
+    nvcc_s = round(time.perf_counter() - t0, 3)
+    native_s = native.build()  # the native probe and exporter, with g++
+    print(json.dumps({"build_s": nvcc_s, "per_source_s": built, "native_s": native_s,
+                      "native_build_s": round(time.perf_counter() - t0 - nvcc_s, 3)}))
     for name, log in _build.build_logs.items():
         print(f"-- ptxas {name}:\n{log.strip()}")
     print(f"K1: bulk copies of {k1.CHUNK_BYTES} B, two per CTA, dynamic shared memory "
@@ -1628,7 +1625,7 @@ def main() -> int:
 
     phase("the validator's last components: driver, probe, partitioner, exporter, migrate")
     k1.launches = 0
-    last_components_phase(card, status_dir, native_built["s"])
+    last_components_phase(card, status_dir, native_s)
     last_launches = k1.launches
     check(last_launches == 0, f"the last components launched K1 {last_launches} times")
 

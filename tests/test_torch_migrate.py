@@ -395,3 +395,13 @@ def test_a_failing_pass_does_not_end_the_loop(fake_client, tmp_path, monkeypatch
     monkeypatch.setattr(agent, "snapshot_once", lambda *a, **k: 1 / 0)
     assert agent.run(Broken(), "n1", StatusFiles(str(tmp_path)), sleep_interval=0,
                      iterations=2, nvml_lib=fake_nvml.FakeNvml([])) == 0
+
+
+def test_the_links_are_read_at_the_first_pass_nvml_answers(tmp_path, monkeypatch):
+    fake = fake_nvml.FakeNvml(fake_nvml.random_gpus(2, 3), fail={"nvmlInit_v2": 9})
+    seen = []
+    monkeypatch.setattr(agent, "snapshot_once", lambda *a, **k: fake.fail.clear())
+    monkeypatch.setattr(agent, "restore_once", lambda *a, links=None, **k: seen.append(links))
+    assert agent.run(None, "n1", StatusFiles(str(tmp_path)), sleep_interval=0, iterations=3,
+                     nvml_lib=fake) == 0
+    assert seen == [None] + [[[None, "nvlink"], ["nvlink", None]]] * 2

@@ -9,6 +9,7 @@ on this machine, so they build and run here.
 
 import json
 import os
+import shutil
 import socket
 import subprocess
 import sys
@@ -20,6 +21,7 @@ import pytest
 
 from tpu_operator_torch import consts
 from tpu_operator_torch.validator import driver, metrics, native
+from tpu_operator_torch.validator import main as vmain
 from tpu_operator_torch.validator.status import StatusFiles
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -168,6 +170,74 @@ def test_a_failed_build_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="failed building gpu-probe"):
         native.build(["gpu-probe"])
     assert not list((tmp_path / "build").glob("gpu-probe-*"))
+
+
+@pytest.fixture(params=["failing-compiler", "unwritable-build-dir"])
+def unbuildable(request, tmp_path, monkeypatch):
+    """A node where the finder's build cannot succeed: a ``g++`` that fails,
+    or a build directory that cannot be made (its parent is a file). Returns
+    the build directory the component must use."""
+    bin_dir = tmp_path / "bin"
+    bin_dir.mkdir()
+    if request.param == "failing-compiler":
+        (bin_dir / "g++").write_text("#!/bin/sh\necho 'g++: internal error' >&2\nexit 1\n")
+        (bin_dir / "g++").chmod(0o755)
+        build_dir = tmp_path / "build"
+    else:
+        os.symlink(shutil.which("g++"), bin_dir / "g++")
+        (tmp_path / "a-file").write_text("")
+        build_dir = tmp_path / "a-file" / "build"
+    monkeypatch.setenv("PATH", str(bin_dir))
+    for var in (consts.PROBE_BIN_ENV, consts.EXPORTER_BIN_ENV, consts.NATIVE_EXPORTER_ENV):
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setattr(native, "BUILD_DIR", build_dir)
+    return build_dir
+
+
+def test_a_failed_build_leaves_driver_probe_on_the_file_checks(unbuildable, tmp_path,
+                                                                gpu_devs):
+    assert native.find_native_binary("gpu-probe", consts.PROBE_BIN_ENV) is None
+    lib = tmp_path / "lib"
+    elf(lib / "libcuda.so.1")
+    st = str(tmp_path / "st")
+    assert vmain.run(["-c", "driver-probe", f"--install-dir={lib}", f"--status-dir={st}"]) == 0
+    assert vmain.run(["-c", "driver-probe", f"--install-dir={tmp_path / 'none'}",
+                      f"--status-dir={st}"]) == 1
+
+
+def test_a_failed_build_leaves_metrics_on_the_python_server(unbuildable, tmp_path, gpu_devs):
+    """``-c metrics`` in its own process, with the finder's build directory
+    set as above: the Python server answers (it has no ``/healthz``)."""
+    d = tmp_path / "validations"
+    StatusFiles(str(d)).write("driver", {})
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    script = ("import pathlib, sys\n"
+              "from tpu_operator_torch.validator import main, native\n"
+              f"native.BUILD_DIR = pathlib.Path({str(unbuildable)!r})\n"
+              f"sys.exit(main.run(['-c', 'metrics', '--port={port}', '--status-dir={d}']))\n")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    proc = subprocess.Popen([sys.executable, "-c", script], cwd=REPO, env=env,
+                            stderr=subprocess.PIPE)
+    try:
+        served = None
+        for _ in range(400):
+            assert proc.poll() is None, proc.stderr.read().decode()
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=2) as r:
+                    served = r.read().decode()
+                break
+            except OSError:
+                time.sleep(0.05)
+        assert without_refresh(served) == without_refresh(python_text(str(d)))
+        with pytest.raises(urllib.error.HTTPError):
+            urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=2)
+    finally:
+        proc.terminate()
+        proc.wait(timeout=10)
+    assert b"not built" in proc.stderr.read()
 
 
 def test_the_makefile_builds_both(tmp_path):

@@ -426,6 +426,36 @@ def test_no_nvml_is_a_failure_never_a_guess(fake_client, tmp_path):
     assert part.read_handoff(t.handoff["port"]) is None
 
 
+@pytest.mark.parametrize("n, grouped, gated", [(2, "pair", None), (8, "two-halves", None),
+                                               (8, "pair", 7)])
+@pytest.mark.parametrize("call", ["nvmlDeviceGetP2PStatus",
+                                  "nvmlDeviceGetTopologyCommonAncestor"])
+def test_a_pair_nvml_cannot_answer_fails_only_the_layouts_that_need_it(
+        fake_client, tmp_path, n, grouped, gated, call):
+    """One-GPU groups read no pair: they apply on a node whose NVML answers
+    no pair. A layout with a multi-GPU group fails, also as a re-tile
+    around a gated GPU, where an unplaceable layout would defer."""
+    t = Twins(fake_client, tmp_path, n=n, table=dict(part.DEFAULT_PARTITIONS,
+                                                      pair=[{"chips": 2}]),
+              config="single-gpu")
+    t.nvml.fail[call] = nvml.NOT_SUPPORTED
+    port = t.clients["port"]
+
+    def sync():
+        return part.sync_once(port, "n1", t.config, t.handoff["port"], status_dir=t.status,
+                              nvml_lib=t.nvml)
+
+    assert sync() == "success"
+    assert part.read_handoff(t.handoff["port"])["groups"] == [
+        {"topology": "single", "chips": [i]} for i in range(n)]
+    if gated is not None:
+        write_barrier(t.status, passed=False, failed_chips=[gated])
+    port.patch("v1", "Node", "n1", {"metadata": {"labels": {
+        consts.TPU_SLICE_CONFIG_LABEL: grouped}}})
+    assert sync() == "failed"
+    assert part.read_handoff(t.handoff["port"])["partition"] == "single-gpu"
+
+
 def test_the_gpu_count_comes_from_the_label_else_nvml(fake_client, tmp_path):
     t = Twins(fake_client, tmp_path, config="singles")
     t.clients["port"].patch("v1", "Node", "n1", {"metadata": {"labels": {

@@ -223,18 +223,21 @@ def run(client, node_name: str, status, sleep_interval: float = 60.0,
         iterations: Optional[int] = None, nvml_lib=None) -> int:
     """The agent's loop: a snapshot pass and a restore pass every
     ``sleep_interval`` s (forever, or ``iterations`` times). The restore
-    re-maps over the node's NVML links, read once at start; where NVML
-    cannot tell them, manifests are landed as they came."""
+    re-maps over the node's NVML links, read at the first pass where NVML
+    lists the GPUs; until then, and for a shard over a pair NVML cannot
+    answer, manifests are landed as they came."""
     from ..partitioner.partitioner import PartitionError, node_links
 
-    try:
-        _, links = node_links(nvml_lib)
-    except PartitionError as e:
-        log.warning("migrate-agent: no link matrix (%s); restores keep their manifests", e)
-        links = None
     log.info("migrate-agent: watching %s (interval %ss)", node_name, sleep_interval)
+    links = None
     count = 0
     while True:
+        if links is None:
+            try:
+                _, links = node_links(nvml_lib)
+            except PartitionError as e:
+                log.warning("migrate-agent: no link matrix (%s); restores keep their "
+                            "manifests", e)
         try:
             snapshot_once(client, node_name, status)
             restore_once(client, node_name, status, links=links)

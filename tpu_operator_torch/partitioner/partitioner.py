@@ -23,6 +23,7 @@ Nothing here imports torch or opens a CUDA context: NVML answers it.
 
 from __future__ import annotations
 
+import itertools
 import json
 import logging
 import os
@@ -83,14 +84,22 @@ def load_config(path: Optional[str]) -> Dict[str, List[dict]]:
 
 def node_links(nvml_lib=None):
     """The node's GPUs (PCI order) and their pairwise link classes, from
-    one NVML session. Raises PartitionError where NVML cannot answer:
-    nearness is never guessed."""
+    one NVML session. A pair NVML cannot answer holds the reason in place
+    of a class: reading it raises ``topology.UnknownLink``, so only a
+    layout that needs that pair fails, and one-GPU groups still place.
+    Raises PartitionError where NVML cannot list the GPUs."""
     try:
         with nvml.session(nvml_lib) as s:
             gpus = s.gpus()
-            return gpus, s.links(gpus)
+            links: List[List[Optional[str]]] = [[None] * len(gpus) for _ in gpus]
+            for i, j in itertools.combinations(range(len(gpus)), 2):
+                try:
+                    links[i][j] = links[j][i] = s.link(gpus[i], gpus[j])
+                except nvml.NvmlError as e:
+                    links[i][j] = links[j][i] = f"unknown ({e})"
+            return gpus, links
     except nvml.NvmlError as e:
-        raise PartitionError(f"the node's GPU links: {e}") from e
+        raise PartitionError(f"the node's GPUs: {e}") from e
 
 
 def compute_partition(layout: List[dict], links: topology.Links,
@@ -101,6 +110,8 @@ def compute_partition(layout: List[dict], links: topology.Links,
     left out of every group."""
     try:
         return topology.tile_partition(links, layout, blocked=blocked)
+    except topology.UnknownLink:
+        raise  # NVML could not answer for a pair: the node fails, never defers
     except topology.TopologyError as e:
         # config nonsense is a partition failure with an entry-naming
         # reason; anything else escaping the tiler is a bug and stays loud

@@ -21,8 +21,10 @@ changes:
   sets tried in lexical order (its row-major anchors), so the output is
   deterministic; ``blocked`` GPUs count as occupied and ``count: "all"``
   scales down to the healthy GPUs left;
-- a pair NVML cannot answer is never guessed: the caller gets NVML's error
-  before this module sees a matrix.
+- a pair NVML cannot answer is never guessed: its entry holds the reason
+  instead of a class, and reading it raises :class:`UnknownLink`, so a
+  layout that needs the pair fails while one-GPU groups, which read no
+  pair, still place.
 """
 
 from __future__ import annotations
@@ -46,13 +48,25 @@ class TopologyError(ValueError):
     pass
 
 
+class UnknownLink(TopologyError):
+    """A pair of GPUs whose link class is not known (NVML could not
+    answer): a failure of the node, never a placement to defer."""
+
+
+def _link(links: Links, a: int, b: int) -> str:
+    cls = links[a][b]
+    if cls not in RANK:
+        raise UnknownLink(f"GPUs {a} and {b}: link {cls!r} is not one of {list(LINK_CLASSES)}")
+    return cls
+
+
 def link_cost(gpus: Sequence[int], links: Optional[Links]) -> int:
     """The sum over pairs of ``gpus`` of their link class's rank: lower is
     nearer. The tiler's and the device plugin's one measure; without a
     matrix every set costs 0, so a caller's tie-break (lexical) decides."""
     if links is None:
         return 0
-    return sum(RANK[links[a][b]] for a, b in itertools.combinations(gpus, 2))
+    return sum(RANK[_link(links, a, b)] for a, b in itertools.combinations(gpus, 2))
 
 
 def group_class(gpus: Sequence[int], links: Links) -> str:
@@ -60,18 +74,20 @@ def group_class(gpus: Sequence[int], links: Links) -> str:
     :data:`SINGLE` for one GPU."""
     if len(gpus) < 2:
         return SINGLE
-    return max((links[a][b] for a, b in itertools.combinations(gpus, 2)), key=RANK.__getitem__)
+    return max((_link(links, a, b) for a, b in itertools.combinations(gpus, 2)),
+               key=RANK.__getitem__)
 
 
 def check_links(links: Links, total: int) -> None:
-    """``links`` is a symmetric ``total`` x ``total`` matrix of known link
-    classes; raises TopologyError otherwise."""
+    """``links`` is a symmetric ``total`` x ``total`` matrix; raises
+    TopologyError otherwise. Its entries are checked where they are read
+    (:class:`UnknownLink`)."""
     if len(links) != total or any(len(row) != total for row in links):
         raise TopologyError(f"the link matrix is not {total} x {total} (the node's GPUs)")
     for a, b in itertools.combinations(range(total), 2):
-        if links[a][b] not in RANK or links[a][b] != links[b][a]:
-            raise TopologyError(f"GPUs {a} and {b}: link {links[a][b]!r} is not one of "
-                                f"{list(LINK_CLASSES)}")
+        if links[a][b] != links[b][a]:
+            raise TopologyError(f"GPUs {a} and {b}: link {links[a][b]!r} one way, "
+                                f"{links[b][a]!r} the other")
 
 
 def _bound(declared, chips: int) -> Optional[str]:
@@ -94,7 +110,7 @@ def _candidates(chips: int, bound: str, links: Links, free: Sequence[int]
     ``bound``, in lexical order."""
     limit = RANK[bound]
     for combo in itertools.combinations(free, chips):
-        if all(RANK[links[a][b]] <= limit for a, b in itertools.combinations(combo, 2)):
+        if all(RANK[_link(links, a, b)] <= limit for a, b in itertools.combinations(combo, 2)):
             yield combo
 
 

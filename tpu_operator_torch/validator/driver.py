@@ -3,8 +3,11 @@
 "Driver ready" on a GPU node means: the CUDA driver library
 (``libcuda.so.1``) is at the install path and the GPU device nodes
 (``/dev/nvidia[0-9]*``) are visible. Both are cheap file checks, which the
-native ``gpu-probe`` makes in about a millisecond for the installer's
-startup probe (:func:`probe`).
+native ``gpu-probe`` makes for the installer's startup probe (:func:`probe`)
+without starting an interpreter. On an NVIDIA H100 80GB HBM3 host at
+700 W (``chip_smoke.py`` phase 11, PERF.md §6) one exec took 10.9-23.6 ms
+from a torch-free Python process; the Python ``-c driver-probe`` process
+took 315-374 ms.
 
 The installer (:func:`install`, :func:`daemon`) places the user-space
 driver libraries the operand image bundles (``$GPU_DRIVER_SRC``) on the
@@ -124,9 +127,9 @@ def validate(install_dir: str, status: Optional[StatusFiles] = None,
 
 
 def find_probe_binary() -> Optional[str]:
-    """The native ``gpu-probe`` (``tpu_operator_torch/native``): about a
-    millisecond per exec against a second of interpreter start, which
-    matters for a kubelet exec probe firing every few seconds."""
+    """The native ``gpu-probe`` (``tpu_operator_torch/native``): a kubelet
+    exec probe firing every few seconds pays no interpreter start, which
+    is most of the Python probe's time (figures in the module docstring)."""
     from .native import find_native_binary
 
     return find_native_binary("gpu-probe", consts.PROBE_BIN_ENV)

@@ -9,13 +9,15 @@ Resolution order, the reference's: an explicit environment override, then
 in ``tpu_operator_torch/native/``; each is built with ``g++`` at first use
 into ``build/tpu_operator_torch/native/`` under the checkout, keyed by a
 hash of the source and the flags, as ``kernels/_build.py`` keys the CUDA
-sources. Without a compiler nothing is built and the caller takes its
-Python path; a compiler that fails raises.
+sources. Without a compiler, or where the build fails (a compiler error,
+a build directory that cannot be written), the finder logs why and the
+caller takes its Python path; :func:`build` itself raises.
 """
 
 from __future__ import annotations
 
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
@@ -29,6 +31,8 @@ CXX_FLAGS = ("-O2", "-Wall", "-Wextra", "-std=c++17")
 #: binary name -> source file
 BINARIES = {"gpu-probe": "gpu_probe.cc", "gpu-exporter": "gpu_exporter.cc"}
 
+log = logging.getLogger(__name__)
+
 
 def find_compiler() -> Optional[str]:
     return shutil.which("g++")
@@ -41,33 +45,30 @@ def binary_path(name: str) -> Path:
 
 
 def build(names: Iterable[str] = tuple(BINARIES), timeout: float = 120.0) -> Dict[str, float]:
-    """Build each binary not yet built, one compiler each, started together.
-    Returns the seconds each took (0.0 when already built). Raises without
-    a compiler or when a build fails."""
+    """Build each binary not yet built, one after another. Returns the
+    seconds each took (0.0 when already built). Raises without a compiler
+    or when a build fails."""
     cxx = find_compiler()
     if cxx is None:
         raise RuntimeError("g++ not found: the native probe and exporter cannot be built")
-    names = list(names)
-    seconds = {name: 0.0 for name in names}
-    pending = {n: binary_path(n) for n in names if not binary_path(n).exists()}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    t0 = time.perf_counter()
-    procs = {}
-    for name, out in pending.items():
+    seconds = {}
+    for name in names:
+        out = binary_path(name)
+        seconds[name] = 0.0
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        procs[name] = (tmp, subprocess.Popen(
-            [cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCES / BINARIES[name])],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    for name, (tmp, proc) in procs.items():
+        t0 = time.perf_counter()
         try:
-            log, _ = proc.communicate(timeout=timeout)
+            done = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCES / BINARIES[name])],
+                                  capture_output=True, text=True, timeout=timeout)
         except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.communicate()
-            raise RuntimeError(f"{cxx} timed out after {timeout}s building {name}")
-        if proc.returncode != 0:
-            raise RuntimeError(f"{cxx} failed building {name} (rc {proc.returncode}):\n{log}")
-        os.replace(tmp, pending[name])  # atomic: a concurrent finder never runs a partial file
+            raise RuntimeError(f"{cxx} timed out after {timeout}s building {name}") from None
+        if done.returncode != 0:
+            raise RuntimeError(f"{cxx} failed building {name} (rc {done.returncode}):\n"
+                               f"{done.stdout}{done.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent finder never runs a partial file
         seconds[name] = round(time.perf_counter() - t0, 3)
     return seconds
 
@@ -87,5 +88,9 @@ def find_native_binary(name: str, env_override: str,
     if not built.exists():
         if find_compiler() is None:
             return None
-        build([name])
+        try:
+            build([name])
+        except (RuntimeError, OSError) as e:
+            log.warning("%s not built (%s); taking the Python path", name, e)
+            return None
     return str(built)
