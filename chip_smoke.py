@@ -71,8 +71,23 @@ Phases, each of which exits non-zero on failure:
    and then restoring it on the same node, its manifest re-mapped over
    NVML's links. No hand-written kernel
 
-``workload`` spawns a pod through an apiserver, which this machine lacks:
-the CPU tests (``tests/test_torch_join_chain.py``) cover it.
+12. the operator's join on the card: an in-process MiniApiServer whose one
+   Node is this machine (NVIDIA's feature-discovery PCI label, no GPU
+   capacity yet); ``gpu-operator`` in a subprocess that must map neither
+   torch nor libcuda; the port's sample ClusterPolicy with its host paths
+   in a temp dir and its device globs the card's; a process kubelet
+   (``tpu_operator_torch/testing/kubelet.py``) running what the operator
+   renders: the driver installer (from a bundle of the machine's driver
+   libraries) until its startup probe passes, the validator's init chain
+   ``driver`` -> ``plugin --prewarm`` -> ``workload`` and the pod that
+   ``workload`` spawns, on the card, the device plugin's driver wait (then
+   the node's ``nvidia.com/gpu``; its gRPC server is not run), feature
+   discovery, telemetry and the exporter. Printed: seconds from the CR's
+   creation to each join milestone, each process's wall time, the sweep's
+   own ``elapsed_s``/``compile_s``, the reconcile count. Then the validator
+   pod is recycled with its workload pod allocated no GPU: the failing
+   barrier flips the ClusterPolicy to ``notReady``, and the kubelet's
+   rerun with the GPU restores ``ready``. No hand-written kernel
 
 Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Needs a CUDA device and the rest of the repository beside this file.
@@ -1414,6 +1429,236 @@ def last_components_phase(card, status_dir, native_build_s) -> dict:
     return numbers
 
 
+class Milestones:
+    """The first time, in seconds from ``t0``, each named predicate held,
+    polled on a thread every 50 ms."""
+
+    def __init__(self, t0: float, predicates: dict):
+        self.t0 = t0
+        self.predicates = predicates
+        self.seen: dict = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._poll, daemon=True)
+        self._thread.start()
+
+    def _poll(self) -> None:
+        while not self._stop.wait(0.05):
+            for name, predicate in self.predicates.items():
+                if name not in self.seen:
+                    try:
+                        if predicate():
+                            self.seen[name] = round(time.time() - self.t0, 3)
+                    except Exception:  # a read racing a write: try again
+                        pass
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join(timeout=10)
+        return dict(self.seen)
+
+
+def _report_line(text: str, key: str):
+    """The last JSON object line of a component's log that holds ``key``."""
+    for line in reversed(text.splitlines()):
+        if line.startswith("{") and key in line:
+            with contextlib.suppress(ValueError):
+                return json.loads(line)
+    return None
+
+
+def operator_phase(card) -> dict:
+    """Phase 12: ``gpu-operator`` reconciles the port's sample ClusterPolicy
+    onto this machine as a one-node cluster, and a process kubelet runs the
+    DaemonSets it renders, the validation chain and its spawned workload pod
+    on the card."""
+    import shutil
+
+    from tpu_operator_torch import consts, nvml
+    from tpu_operator_torch.testing.apiserver import MiniApiServer
+    from tpu_operator_torch.testing.kubelet import INIT, RUN, ProcessKubelet
+    from tpu_operator_torch.validator import driver
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="chip-smoke-operator-")
+    node_name = re.sub(r"[^a-z0-9.-]", "-", socket.gethostname().lower()).strip("-.") or "node"
+    with nvml.session() as s:
+        gpu_count = len(s.gpus())
+    # the driver image's content: the machine's own driver libraries
+    host_dir = os.path.dirname(driver.find_host_driver() or fail("no host libcuda.so.1"))
+    bundle = os.path.join(work, "bundle")
+    os.makedirs(bundle)
+    for name in consts.DRIVER_LIB_FILES:
+        os.symlink(os.path.realpath(os.path.join(host_dir, name)), os.path.join(bundle, name))
+    status_dir = os.path.join(work, "status")
+    cp = json.load(open(os.path.join(repo, "tpu_operator_torch", "manifests", "samples",
+                                     "v1_clusterpolicy.json")))
+    cp["spec"]["hostPaths"] = {
+        "validationStatusDir": status_dir,
+        "partitionHandoffDir": os.path.join(work, "handoff"),
+        "driverInstallDir": os.path.join(work, "driver-install"),
+        "devGlobs": os.environ["GPU_DEV_GLOBS"].split(","),
+    }
+    cp["spec"]["validator"]["revalidateIntervalS"] = 0
+    cp["spec"]["telemetry"]["metricsPort"] = free_port()
+    cp["spec"]["nodeStatusExporter"]["metricsPort"] = free_port()
+
+    srv = MiniApiServer()
+    base = srv.start()
+    srv.backend.create({"apiVersion": "v1", "kind": "Node", "metadata": {
+        "name": node_name, "labels": {consts.NFD_NVIDIA_PCI_LABEL: "true",
+                                      "kubernetes.io/hostname": node_name}}})
+    metrics_port = free_port()
+    operator_log = os.path.join(work, "operator.log")
+    operator = subprocess.Popen(
+        [sys.executable, "-m", "tpu_operator_torch.cmd.operator", f"--api-server={base}",
+         f"--namespace={consts.DEFAULT_NAMESPACE}", f"--metrics-port={metrics_port}",
+         "--health-port=0"],
+        cwd=repo, stdout=open(operator_log, "w"), stderr=subprocess.STDOUT,
+        start_new_session=True,
+        env={k: v for k, v in os.environ.items() if not k.startswith("GPU_")})
+    base_env = {k: os.environ[k] for k in ("PATH", "HOME", "TMPDIR", "LD_LIBRARY_PATH",
+                                           "CUDA_HOME") if k in os.environ}
+    base_env.update(PYTHONPATH=repo, KUBE_API_URL=base)
+    kubelet = ProcessKubelet(
+        srv.backend, node_name, consts.DEFAULT_NAMESPACE, os.path.join(work, "logs"), base_env,
+        {"gpu-validator": [sys.executable, "-m", "tpu_operator_torch.cmd.validator"]},
+        modes={"gpu-driver": RUN, "gpu-operator-validator": RUN, "gpu-device-plugin": INIT,
+               "gpu-feature-discovery": RUN, "gpu-telemetry-exporter": RUN,
+               "gpu-node-status-exporter": RUN},
+        image_env={"gpu-driver": {consts.DRIVER_SRC_ENV: bundle}},
+        capacity_app="gpu-device-plugin", gpu_count=gpu_count,
+        path_map={"/var/cache/gpu-kernels": os.path.join(work, "kernel-cache")})
+
+    def policy_state():
+        live = srv.backend.get("tpu.ai/v1", "ClusterPolicy", "cluster-policy")
+        return (live.get("status") or {}).get("state")
+
+    def node():
+        return srv.backend.get("v1", "Node", node_name)
+
+    def barrier(name):
+        path = os.path.join(status_dir, f"{name}-ready")
+        return os.path.exists(path)
+
+    enabled = 6  # driver, validator, device plugin, feature discovery, telemetry, exporter
+    numbers = {"card": card, "node": node_name, "gpus": gpu_count}
+    try:
+        kubelet.start()
+        t0 = time.time()
+        srv.backend.create(cp)
+        milestones = Milestones(t0, {
+            "node labelled": lambda: node()["metadata"].get("labels", {}).get(
+                consts.GPU_PRESENT_LABEL) == "true",
+            "DaemonSets created": lambda: len(srv.backend.list(
+                "apps/v1", "DaemonSet", consts.DEFAULT_NAMESPACE)) >= enabled,
+            "driver barrier": lambda: barrier("driver"),
+            "nvidia.com/gpu allocatable": lambda: int(node().get("status", {}).get(
+                "allocatable", {}).get(consts.GPU_RESOURCE_NAME, 0)) > 0,
+            "plugin barrier": lambda: barrier("plugin"),
+            "workload barrier": lambda: barrier("workload"),
+            "workload pod Succeeded": lambda: kubelet.first("pod-exit", phase="Succeeded"),
+            "ClusterPolicy ready": lambda: policy_state() == "ready",
+        })
+        _wait_for(lambda: "ClusterPolicy ready" in milestones.seen, 600, "ClusterPolicy ready")
+        seen = milestones.stop()
+        for name in milestones.predicates:
+            check(name in seen, f"no time for {name!r}: {seen}")
+        # the in-pod sweep writes the workload barrier, then its pod exits
+        order = ["node labelled", "DaemonSets created", "driver barrier",
+                 "nvidia.com/gpu allocatable", "plugin barrier", "workload barrier",
+                 "workload pod Succeeded", "ClusterPolicy ready"]
+        check([seen[k] for k in order] == sorted(seen[k] for k in order),
+              f"join out of order: {seen}")
+        status = {name: json.load(open(os.path.join(status_dir, f"{name}-ready")))
+                  for name in ("driver", "plugin", "workload")}
+        check(status["workload"].get("passed") and status["workload"].get("platform") == "gpu",
+              f"workload barrier {status['workload']}")
+        check(status["plugin"].get("count") == gpu_count, f"plugin barrier {status['plugin']}")
+        check(status["driver"].get("libtpu") == os.path.join(
+            cp["spec"]["hostPaths"]["driverInstallDir"], consts.DRIVER_LIB),
+            f"driver barrier {status['driver']}")
+        simulated = sorted(e["ds"] for e in kubelet.events if e["kind"] == "simulated")
+        partial = [(e["ds"], e["simulated_containers"]) for e in kubelet.events
+                   if e["kind"] == "ready" and e.get("simulated_containers")]
+        print(f"simulated (not run): DaemonSets {simulated}; main containers {partial}")
+        # each validator process's own numbers, from its output
+        spawned = kubelet.spawned_logs()
+        sweep = next((r for r in (_report_line(t, '"elapsed_s"') for t in spawned.values())
+                      if r), None)
+        check(sweep is not None, f"no sweep report from the workload pod: {spawned}")
+        logs = kubelet.logs("gpu-operator-validator")
+        warmed = re.search(r"build cache warmed in ([0-9.]+)s", logs.get("plugin-validation", ""))
+        processes = {}
+        for e in kubelet.events:
+            if e["kind"] == "init-exit":
+                start = max(x["t"] for x in kubelet.events if x["kind"] == "init-start"
+                            and x["ds"] == e["ds"] and x["container"] == e["container"]
+                            and x["t"] <= e["t"])
+                processes[f"{e['ds']}/{e['container']}"] = round(e["t"] - start, 3)
+        text = _try_scrape(metrics_port) or ""
+        reconciles = scrape_samples(text).get("tpu_operator_reconciliation_total")
+        with open(f"/proc/{operator.pid}/maps") as f:
+            maps = f.read()
+        operator_torch = "libtorch" in maps
+        operator_cuda = "libcuda" in maps
+        check(not operator_torch and not operator_cuda,
+              f"the operator process maps torch ({operator_torch}) or libcuda ({operator_cuda})")
+        numbers.update({
+            "join_s": seen,
+            "process_wall_s": processes,
+            "workload_pod": {"elapsed_s": sweep.get("elapsed_s"),
+                             "compile_s": sweep.get("compile_s"),
+                             "platform": sweep.get("platform"),
+                             "n_devices": sweep.get("n_devices")},
+            "prewarm_compile_s": float(warmed.group(1)) if warmed else None,
+            "reconciles_to_ready": reconciles,
+            "operator_maps_torch": operator_torch, "operator_maps_libcuda": operator_cuda,
+            "simulated": simulated,
+        })
+        print(json.dumps({"operator_join": numbers}))
+
+        # a failing workload barrier flips the CR; a passing rerun restores it
+        t1 = time.time()
+        kubelet.pod_env = {"CUDA_VISIBLE_DEVICES": ""}  # the pod is allocated no GPU
+        kubelet.restart("gpu-operator-validator")
+        _wait_for(lambda: policy_state() == "notReady", 300, "notReady after the recycle")
+        t_not_ready = round(time.time() - t1, 3)
+        _wait_for(lambda: kubelet.first("pod-exit", phase="Failed"), 300, "a failed workload pod")
+        _wait_for(lambda: json.load(open(os.path.join(status_dir, "workload-ready")))
+                  .get("passed") is False, 300, "the failed workload barrier")
+        check(policy_state() == "notReady", "ready with a failed workload barrier")
+        t_failed = round(time.time() - t1, 3)
+        kubelet.pod_env = None
+        _wait_for(lambda: policy_state() == "ready", 300, "ready after a passing rerun")
+        t_ready = round(time.time() - t1, 3)
+        restored = json.load(open(os.path.join(status_dir, "workload-ready")))
+        check(restored.get("passed") and restored.get("platform") == "gpu",
+              f"restored barrier {restored}")
+        text = _try_scrape(metrics_port) or ""
+        numbers["flip"] = {"not_ready_s": t_not_ready, "failed_barrier_s": t_failed,
+                           "ready_again_s": t_ready,
+                           "reconciles_total": scrape_samples(text).get(
+                               "tpu_operator_reconciliation_total")}
+        print(json.dumps({"operator_flip": numbers["flip"], "card": card}))
+    except SystemExit:
+        print(f"-- operator log:\n{open(operator_log).read()[-6000:]}", file=sys.stderr)
+        for ds in ("gpu-driver", "gpu-operator-validator", "gpu-device-plugin"):
+            for name, text in kubelet.logs(ds).items():
+                print(f"-- {ds}/{name}:\n{text[-3000:]}", file=sys.stderr)
+        for name, text in kubelet.spawned_logs().items():
+            print(f"-- pod {name}:\n{text[-3000:]}", file=sys.stderr)
+        print(f"-- kubelet events: {kubelet.events}", file=sys.stderr)
+        raise
+    finally:
+        kubelet.stop()
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(operator.pid, signal.SIGKILL)
+        operator.wait(timeout=60)
+        srv.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    return numbers
+
+
 def _try_scrape(port: int):
     try:
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=2) as r:
@@ -1629,6 +1874,12 @@ def main() -> int:
     last_launches = k1.launches
     check(last_launches == 0, f"the last components launched K1 {last_launches} times")
 
+    phase("the operator's join on the card: gpu-operator, a process kubelet, the chain")
+    k1.launches = 0
+    operator_phase(card)
+    operator_launches = k1.launches
+    check(operator_launches == 0, f"the operator path launched K1 {operator_launches} times")
+
     print(json.dumps({"kernels": [{
         "name": "stream_copy",
         "route": "cuda",
@@ -1642,12 +1893,13 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": timing["library"],
         # the paths without K1 launch it no time: serving (7), the steady
-        # state (9), the device plumbing (10) and the last components (11)
-        # are checked at 0 above
+        # state (9), the device plumbing (10), the last components (11) and
+        # the operator (12) are checked at 0 above
         "launches_by_phase": {"perf": k1_main_launches, "serving": serving_launches,
                               "steady_state": steady_state_launches,
                               "device_plumbing": plumbing_launches,
-                              "last_components": last_launches},
+                              "last_components": last_launches,
+                              "operator": operator_launches},
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -170,11 +170,15 @@ def test_the_components(bundle, tmp_path, monkeypatch):
             raise Stop
         beats.append(1)
 
+    real_sleep = driver.time.sleep
     monkeypatch.setattr(driver.time, "sleep", sleep)
     lib, st = tmp_path / "lib", tmp_path / "st"
     with pytest.raises(Stop):
         vmain.run(["-c", "driver-daemon", f"--install-dir={lib}", "--driver-version=570.9",
                    f"--status-dir={st}"])
+    # the patch is the global time.sleep, which subprocess's wait for the
+    # native probe also calls when the probe has not exited yet
+    monkeypatch.setattr(driver.time, "sleep", real_sleep)
     status = StatusFiles(str(st))
     assert status.read("driver")["libtpu_version"] == "570.9"
     assert status.read("driver-heartbeat")["beat"] == 1

@@ -1,9 +1,12 @@
 """The PyTorch port stands alone: no module of tpu_operator_torch (nor
 chip_smoke.py) imports jax or anything of tpu_operator, nor
-prometheus_client or yaml (the port writes the text format and reads its
-YAML itself), and importing the package builds and loads no kernel. grpc
-and google.protobuf are imported only by the device plugin's wire layer:
-the package, the plugin's plan layer included, imports without them."""
+prometheus_client, yaml or requests (the port writes the text format,
+reads its YAML itself and speaks HTTP through the standard library), and
+importing the package builds and loads no kernel and loads no jinja2 (the
+manifest renderer imports it when it renders). grpc and google.protobuf
+are imported only by the device plugin's wire layer: the package, the
+plugin's plan layer included, imports without them. The operator's
+process, like the node daemons, imports no torch."""
 
 import ast
 import os
@@ -18,7 +21,7 @@ import tpu_operator_torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(REPO, "tpu_operator_torch")
 FORBIDDEN = ("jax", "jaxlib", "tpu_operator", "__graft_entry__", "triton",
-             "prometheus_client", "yaml")
+             "prometheus_client", "yaml", "requests")
 
 
 def _port_modules():
@@ -43,8 +46,9 @@ def test_every_module_imports_without_jax_or_reference():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "from tpu_operator_torch.kernels import _build\n"
-        "print(len(sys.modules), bad, sorted(_build._loaded))\n"
-        "sys.exit(1 if bad or _build._loaded else 0)\n")
+        "jinja = 'jinja2' in sys.modules\n"
+        "print(len(sys.modules), bad, sorted(_build._loaded), jinja)\n"
+        "sys.exit(1 if bad or _build._loaded or jinja else 0)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     result = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
                             capture_output=True, text=True, timeout=120)
@@ -66,7 +70,17 @@ def test_port_module_list_is_complete():
                      "deviceplugin.proto", "deviceplugin.proto.deviceplugin_pb2",
                      "validator.cdi", "validator.telemetry", "testing",
                      "testing.fake_nvml", "partitioner.topology", "validator.native",
-                     "events", "migrate", "migrate.agent", "migrate.checkpoint"):
+                     "events", "migrate", "migrate.agent", "migrate.checkpoint",
+                     "yamlsubset", "client.errors", "client.interface", "client.scheme",
+                     "client.fake", "client.batch", "client.preconditions", "client.rest",
+                     "api", "api.specbase", "api.common", "api.k8s_schemas",
+                     "api.clusterpolicy", "conditions", "render", "nodeinfo",
+                     "nodeinfo.node_info", "nodeinfo.labeler", "state", "state.skel",
+                     "state.manager", "state.nodepool", "state.driver", "state.multihost",
+                     "state.operands", "controllers", "controllers.runtime",
+                     "controllers.predicates", "controllers.metrics",
+                     "controllers.clusterpolicy_controller", "controllers.manager",
+                     "cmd.operator", "testing.apiserver", "testing.kubelet"):
         assert f"tpu_operator_torch.{expected}" in names
 
 
@@ -159,8 +173,11 @@ def test_the_package_imports_without_grpc_and_the_wire_layer_names_it(tmp_path):
     assert "grpc" in result.stderr  # the CLI's error names it
 
 
-#: the node daemons, which open no CUDA context and never import torch
-DAEMON_MODULES = ("tpu_operator_torch.partitioner.partitioner",
+#: the node daemons and the operator, which open no CUDA context and never
+#: import torch
+DAEMON_MODULES = ("tpu_operator_torch.cmd.operator", "tpu_operator_torch.controllers.manager",
+                  "tpu_operator_torch.testing.apiserver", "tpu_operator_torch.testing.kubelet",
+                  "tpu_operator_torch.partitioner.partitioner",
                   "tpu_operator_torch.partitioner.topology",
                   "tpu_operator_torch.validator.driver", "tpu_operator_torch.validator.native",
                   "tpu_operator_torch.validator.metrics", "tpu_operator_torch.migrate.agent",
@@ -259,3 +276,18 @@ def test_no_daemon_module_imports_torch_at_module_level(daemon):
                 todo.append(imported)
     if daemon.endswith("partitioner.partitioner"):  # the walk follows the package
         assert {"tpu_operator_torch.nvml", "tpu_operator_torch.health.drain"} <= seen
+
+
+def test_jinja2_loads_with_the_first_render():
+    script = (
+        "import sys\n"
+        "from tpu_operator_torch.state.operands import cluster_policy_states\n"
+        "from tpu_operator_torch.controllers import manager\n"
+        "before = 'jinja2' in sys.modules\n"
+        "states = cluster_policy_states(client=None)\n"
+        "print(before, 'jinja2' in sys.modules, 'torch' in sys.modules)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    result = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                            capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stderr[-2000:]
+    assert result.stdout.split() == ["False", "True", "False"]

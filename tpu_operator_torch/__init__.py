@@ -8,3 +8,5 @@ NVIDIA H100. It imports ``torch``, never ``jax``, and nothing of
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``; without a CUDA device it raises (``device.resolve_device``).
 """
+
+__version__ = "0.1.0"

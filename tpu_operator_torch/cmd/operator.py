@@ -1,0 +1,46 @@
+"""``gpu-operator`` entry point (counterpart of tpu_operator/cmd/operator.py;
+NVIDIA's cmd/gpu-operator/main.go:74-233).
+
+The parser keeps every flag of the reference whose machinery the port has.
+It leaves out, rather than accepting and ignoring, ``--leader-elect``,
+``--api-qps``, ``--api-burst``, ``--breaker-threshold``,
+``--no-cache-reads``, ``--trace-buffer-size`` and ``--debug-endpoints``:
+their leader election, client layers and flight recorder wait for their
+slices.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from .. import __version__
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="gpu-operator",
+                                description="GPU cluster operator controller manager")
+    p.add_argument("--api-server", default=None,
+                   help="API server base URL (default: $KUBE_API_URL, else in-cluster config)")
+    p.add_argument("--token", default=None, help="Bearer token (default: serviceaccount token)")
+    p.add_argument("--namespace", default=None, help="operator namespace (default: $OPERATOR_NAMESPACE)")
+    p.add_argument("--metrics-port", type=int, default=8080, help="Prometheus metrics port (0 disables)")
+    p.add_argument("--health-port", type=int, default=8081, help="healthz port (0 disables)")
+    p.add_argument("--log-level", default="info", choices=["debug", "info", "warning", "error"])
+    p.add_argument("--api-timeout", type=float, default=30.0,
+                   help="per-request apiserver deadline in seconds (the watch "
+                        "stream keeps its own 330s read timeout)")
+    p.add_argument("--version", action="version", version=f"gpu-operator {__version__}")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    # deferred import so --help/--version work without a cluster
+    from ..controllers.manager import run_operator
+
+    return run_operator(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,12 +1,76 @@
-"""Constants of the GPU validation path (counterpart of tpu_operator/consts.py).
+"""Constants of the port (counterpart of tpu_operator/consts.py).
 
 The port's own copy: only what its modules use, with the accelerator names
 swapped for NVIDIA's.
+
+Keys: every ``tpu.ai/...`` label and annotation key that names the
+operator's protocol stays as the reference has it: health, serving, slice
+config and state, drain, migrate, template hash, trace, operand state and
+spec hash. ``tpu.ai`` is the operator's API group, not the accelerator's,
+and the node agents and the operator of either package read and write the
+same keys. The two keys that name the accelerator on a node take NVIDIA's
+(:data:`GPU_PRESENT_LABEL`, :data:`DEPLOY_LABEL_PREFIX`). Env names take
+``GPU_`` where the reference's take ``TPU_``.
 """
 
 # -- operator identity -------------------------------------------------------
+OPERATOR_NAME = "gpu-operator"
 NAMESPACE_ENV = "OPERATOR_NAMESPACE"
 DEFAULT_NAMESPACE = "tpu-operator"
+
+# -- labels and annotations the operator writes ---------------------------------
+#: every object the state engine creates carries the state that owns it
+STATE_LABEL = "tpu.ai/operator.state"
+#: fingerprint of what the operator rendered for an object
+SPEC_HASH_ANNOTATION = "tpu.ai/operator-spec-hash"
+#: consecutive drift heals of one object (the damper's counter)
+DRIFT_HEALS_ANNOTATION = "tpu.ai/operator-drift-heals"
+#: set on GPU nodes (NVIDIA's operator: nvidia.com/gpu.present)
+GPU_PRESENT_LABEL = "tpu.ai/gpu.present"
+#: per-operand node kill switches (NVIDIA's: nvidia.com/gpu.deploy.<operand>)
+DEPLOY_LABEL_PREFIX = "tpu.ai/gpu.deploy."
+#: which stack provides the component on a node: "host" records adoption
+#: of a platform-preinstalled driver or device plugin
+DRIVER_STACK_LABEL = "tpu.ai/tpu.driver.stack"
+PLUGIN_STACK_LABEL = "tpu.ai/tpu.device-plugin.stack"
+#: unix seconds the labeller first saw the node: kubelets start pulling
+#: operand images then
+IMAGE_PREPULL_ANNOTATION = "tpu.ai/image-prepull"
+
+# -- multi-node validation -------------------------------------------------------
+#: nodes carrying the same value form one multi-node slice
+TPU_SLICE_ID_LABEL = "tpu.ai/slice.id"
+#: slice-level validation stamp (value: hash of the validated config)
+MULTIHOST_VALIDATED_ANNOTATION = "tpu.ai/multihost-validated"
+#: rendezvous pods: slice, worker id and the config hash their run validated
+MULTIHOST_SLICE_LABEL = "tpu.ai/slice"
+MULTIHOST_WORKER_ID_LABEL = "tpu.ai/worker-id"
+MULTIHOST_CONFIG_HASH_ANNOTATION = "tpu.ai/config-hash"
+#: torch.distributed's default rendezvous port
+MASTER_PORT = 29500
+
+# -- labels read from the platform -----------------------------------------------
+#: node feature discovery's PCI vendor label for NVIDIA (0x10de), the signal
+#: NVIDIA's own operator keys GPU nodes on
+NFD_NVIDIA_PCI_LABEL = "feature.node.kubernetes.io/pci-10de.present"
+#: GKE's accelerator label value prefix on NVIDIA nodes (nvidia-h100-80gb)
+GKE_NVIDIA_PREFIX = "nvidia-"
+
+#: operand names, for deploy labels and state wiring
+OPERANDS = (
+    "driver",
+    "device-plugin",
+    "feature-discovery",
+    "telemetry",
+    "node-status-exporter",
+    "operator-validator",
+    "slice-partitioner",
+    "serving",
+)
+
+
+def deploy_label(operand: str) -> str:
+    return DEPLOY_LABEL_PREFIX + operand
 
 # -- node-local paths ---------------------------------------------------------
 #: status-file barrier dir (same layout as the TPU operator's, so one set
@@ -33,8 +97,6 @@ GPU_RESOURCE_NAME = "nvidia.com/gpu"
 COMPILATION_CACHE_DIR_ENV = "GPU_COMPILATION_CACHE_DIR"
 
 # -- node health and serving ----------------------------------------------------
-# Label and annotation keys stay the operator's until its control plane is
-# ported; env names take GPU_ where the TPU operator's take TPU_.
 #: per-node chip-health state machine label (healthy -> degraded ->
 #: quarantined -> remediating -> recovered | failed)
 HEALTH_STATE_LABEL = "tpu.ai/health-state"

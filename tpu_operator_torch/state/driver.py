@@ -1,0 +1,97 @@
+"""state-driver: place the GPU driver's user-space libraries on every GPU
+node (counterpart of tpu_operator/state/driver.py; NVIDIA's
+internal/state/driver.go).
+
+NVIDIA's operator builds and loads a kernel module per kernel-version pool;
+the port's installer places the user-space libraries (``gpu-validator -c
+driver-daemon``) into ``hostPaths.driverInstallDir``, and its probe is
+"libraries present + device nodes visible". The reference hands the driver
+DaemonSet over to per-pool TPUDriver CRs when any exist; that CRD waits for
+its slice, so on this path the ClusterPolicy always owns the driver
+DaemonSet.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List
+
+from .. import consts, tracing
+from ..api.clusterpolicy import ClusterPolicy
+from ..client.interface import Client
+from ..render import Renderer
+from .manager import (
+    INFO_CLUSTER_POLICY,
+    INFO_NAMESPACE,
+    INFO_NODES,
+    InfoCatalog,
+    StateResult,
+)
+from .skel import StateSkel, SyncState
+
+MANIFEST_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "manifests")
+
+DEFAULT_APP_NAME = "gpu-driver"
+
+
+class StateDriver:
+    name = "state-driver"
+
+    def __init__(self, client: Client):
+        self.client = client
+        self.renderer = Renderer(os.path.join(MANIFEST_DIR, "state-driver"))
+        self.skel = StateSkel(self.name, client)
+
+    # -- render data ----------------------------------------------------------
+    def render_data(self, policy: ClusterPolicy, namespace: str) -> dict:
+        driver = policy.spec.driver
+        return {
+            "app_name": DEFAULT_APP_NAME,
+            "namespace": namespace,
+            "deploy_label": consts.deploy_label("driver"),
+            "gpu_resource": consts.GPU_RESOURCE_NAME,
+            "validation_status_dir": policy.spec.host_paths.validation_status_dir,
+            "dev_globs": ",".join(policy.spec.host_paths.dev_globs),
+            "trace_parent": tracing.join_traceparent(policy.obj),
+            "cdi_enabled": policy.spec.cdi.enabled,
+            "daemonsets": {
+                # autoUpgrade hands rollout ordering to the upgrade state
+                # machine: the DS must not replace pods on its own (OnDelete),
+                # matching the reference's driver-manager contract
+                "update_strategy": ("OnDelete" if driver.upgrade_policy.auto_upgrade
+                                    else policy.spec.daemonsets.update_strategy),
+                "rolling_update": policy.spec.daemonsets.rolling_update,
+                "priority_class_name": policy.spec.daemonsets.priority_class_name,
+                "tolerations": policy.spec.daemonsets.tolerations,
+                "annotations": policy.spec.daemonsets.annotations,
+            },
+            "driver": {
+                "image": driver.image_path(),
+                "image_pull_policy": driver.image_pull_policy,
+                "image_pull_secrets": driver.image_pull_secrets,
+                # an explicit spec.hostPaths.driverInstallDir wins over the
+                # driver spec's installDir
+                "install_dir": policy.spec.driver_dir(),
+                "driver_version": driver.driver_version,
+                "env": [e.to_k8s() for e in driver.env],
+                "resources": driver.resources,
+            },
+        }
+
+    def render_objects(self, policy: ClusterPolicy, namespace: str) -> List[dict]:
+        from .operands import stamp_operator_meta
+
+        return stamp_operator_meta(
+            self.renderer.render_objects(self.render_data(policy, namespace)), policy)
+
+    # -- ClusterPolicy-path sync (one DS for all GPU nodes) -------------------
+    def sync(self, catalog: InfoCatalog) -> StateResult:
+        policy: ClusterPolicy = catalog.require(INFO_CLUSTER_POLICY)
+        namespace: str = catalog.require(INFO_NAMESPACE)
+        if not policy.spec.driver.is_enabled():
+            self.skel.delete_objs(self.skel.list_owned("apps/v1", "DaemonSet", namespace))
+            return StateResult(self.name, SyncState.IGNORE, "driver disabled")
+        objs = self.render_objects(policy, namespace)
+        applied = self.skel.create_or_update_objs(objs, owner=policy.obj)
+        status = self.skel.get_sync_state(applied, nodes=catalog.get(INFO_NODES))
+        return StateResult(self.name, status)

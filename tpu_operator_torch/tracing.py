@@ -1,5 +1,6 @@
-"""Join-trace spans for the validator's components (the part of
-tpu_operator/tracing.py that the node agents use).
+"""Join-trace spans for the validator's components and the operator (the
+part of tpu_operator/tracing.py that the port's agents and reconciler use;
+the operator's flight recorder waits for its slice).
 
 OTel-style spans with no external dependency. The operator stamps a
 traceparent into every operand pod (``$GPU_TRACE_PARENT``); the component's
@@ -23,7 +24,7 @@ import time
 import uuid
 from typing import Dict, Iterator, List, Optional
 
-from .consts import TRACE_PARENT_ENV  # noqa: F401  (re-exported for span users)
+from .consts import TRACE_ID_ANNOTATION, TRACE_PARENT_ENV  # noqa: F401  (re-exported)
 
 _current_span: contextvars.ContextVar[Optional["Span"]] = contextvars.ContextVar(
     "tpu_operator_torch_current_span", default=None)
@@ -77,6 +78,23 @@ def parse_traceparent(value: Optional[str]):
     except ValueError:
         return None
     return trace_id, span_id
+
+
+def stable_traceparent(seed: str) -> str:
+    """Deterministic traceparent for a seed string (sha256-derived): the
+    same policy always yields the same join trace id, so node-side spans
+    from any sweep stitch into one join trace."""
+    import hashlib
+
+    h = hashlib.sha256(seed.encode()).hexdigest()
+    return format_traceparent(h[:32], h[32:48])
+
+
+def join_traceparent(policy_obj: dict) -> str:
+    """The join traceparent the operator stamps into every operand pod of
+    a ClusterPolicy (uid-keyed, name fallback where no uid was minted)."""
+    meta = (policy_obj or {}).get("metadata", {}) or {}
+    return stable_traceparent(f"join:{meta.get('uid') or meta.get('name', '')}")
 
 
 class Span:
@@ -195,6 +213,16 @@ def span(name: str, kind: str = "internal", **attributes):
         child.finish()
     finally:
         _current_span.reset(token)
+
+
+def phase_span(phase: str, **attributes):
+    """A reconcile-phase child span (label-nodes, sync-state, status-update)."""
+    return span(phase, kind="phase", phase=phase, **attributes)
+
+
+def api_span(verb: str, path: str, **attributes):
+    """An apiserver call child span."""
+    return span(f"api.{verb.lower()}", kind="api", verb=verb, path=path, **attributes)
 
 
 def current_trace_id() -> Optional[str]:

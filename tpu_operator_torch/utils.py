@@ -1,12 +1,14 @@
-"""Object helpers the validator needs (copies of tpu_operator/utils/objects.py
-and of ``object_hash`` in tpu_operator/utils/hash.py), and the CUDA
+"""Object helpers of the validator and the operator (copies of
+tpu_operator/utils/objects.py and tpu_operator/utils/hash.py), and the CUDA
 device-order pin every sweep process gets (torch-free, for the processes
 that must not import torch)."""
 
 from __future__ import annotations
 
+import copy
 import json
 import re
+import time
 from typing import Any, Mapping, MutableMapping, Optional
 
 from . import consts
@@ -20,6 +22,27 @@ def deep_get(obj: Optional[Mapping], *path: str, default: Any = None) -> Any:
             return default
         cur = cur[step]
     return cur
+
+
+def rfc3339_now() -> str:
+    """UTC now in the second-precision RFC 3339 form of metav1.Time."""
+    return time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime())
+
+
+def json_merge_patch(target: dict, patch: Mapping) -> dict:
+    """RFC 7386 JSON merge patch: null deletes, mappings recurse, the rest
+    replaces."""
+    for key, value in patch.items():
+        if value is None:
+            target.pop(key, None)
+        elif isinstance(value, Mapping):
+            node = target.get(key)
+            if not isinstance(node, dict):
+                node = target[key] = {}
+            json_merge_patch(node, value)
+        else:
+            target[key] = value
+    return target
 
 
 def pod_requests_resource(pod: Mapping, resource: str) -> bool:
@@ -71,6 +94,16 @@ def object_hash(obj: Any) -> str:
     operator's hash, so both sides compute the same drain-plan identity."""
     payload = json.dumps(obj, sort_keys=True, separators=(",", ":"), default=str)
     return format(fnv32a(payload.encode("utf-8")), "x")
+
+
+def template_fingerprint(template: dict) -> str:
+    """Whole-pod-template fingerprint, the fingerprint label itself left
+    out (it is derived from the rest of the template)."""
+    doc = copy.deepcopy(template or {})
+    labels = doc.get("metadata", {}).get("labels")
+    if labels:
+        labels.pop(consts.TEMPLATE_HASH_LABEL, None)
+    return object_hash(doc)
 
 
 def pin_device_order(env: MutableMapping[str, str]) -> MutableMapping[str, str]:

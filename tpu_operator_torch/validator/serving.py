@@ -17,12 +17,14 @@ from __future__ import annotations
 import json
 import logging
 import os
-from typing import Optional, Sequence
+from typing import TYPE_CHECKING, Optional, Sequence
 
 from .. import consts
-from ..device import DeviceLike
 from ..utils import deep_get
 from .status import StatusFiles
+
+if TYPE_CHECKING:  # the operator reads parse_serving_detail without torch
+    from ..device import DeviceLike
 
 log = logging.getLogger(__name__)
 
