@@ -85,9 +85,14 @@ Phases, each of which exits non-zero on failure:
    discovery, telemetry and the exporter. Printed: seconds from the CR's
    creation to each join milestone, each process's wall time, the sweep's
    own ``elapsed_s``/``compile_s``, the reconcile count. Then the validator
-   pod is recycled with its workload pod allocated no GPU: the failing
-   barrier flips the ClusterPolicy to ``notReady``, and the kubelet's
-   rerun with the GPU restores ``ready``. No hand-written kernel
+   pod is recycled with its workload pod allocated no GPU: the recycle
+   makes the validator DaemonSet unavailable, so the ClusterPolicy goes
+   ``notReady`` at once (that time measures the recycle, not the barrier);
+   the failed ``workload`` barrier then holds the DaemonSet at no available
+   pod and the ClusterPolicy ``notReady`` across a back-off rerun that
+   fails again, and the kubelet's next rerun, with the GPU, restores
+   ``ready``. No hand-written kernel runs in this phase (K1's count under
+   ``operator`` is 0).
 
 Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Needs a CUDA device and the rest of the repository beside this file.
@@ -1617,17 +1622,41 @@ def operator_phase(card) -> dict:
         })
         print(json.dumps({"operator_join": numbers}))
 
-        # a failing workload barrier flips the CR; a passing rerun restores it
+        # a failing workload barrier holds the CR notReady; a passing rerun
+        # restores it. The recycle alone makes the validator DaemonSet
+        # unavailable, so notReady comes at once (not_ready_s times the
+        # recycle, not the barrier); what the failed barrier shows is that
+        # the failed init holds the DaemonSet at no available pod, and the
+        # CR notReady, across a back-off rerun that fails again
         t1 = time.time()
         kubelet.pod_env = {"CUDA_VISIBLE_DEVICES": ""}  # the pod is allocated no GPU
         kubelet.restart("gpu-operator-validator")
         _wait_for(lambda: policy_state() == "notReady", 300, "notReady after the recycle")
         t_not_ready = round(time.time() - t1, 3)
-        _wait_for(lambda: kubelet.first("pod-exit", phase="Failed"), 300, "a failed workload pod")
+        _wait_for(lambda: kubelet.first("pod-exit", after=t1, phase="Failed"), 300,
+                  "a failed workload pod")
         _wait_for(lambda: json.load(open(os.path.join(status_dir, "workload-ready")))
                   .get("passed") is False, 300, "the failed workload barrier")
         check(policy_state() == "notReady", "ready with a failed workload barrier")
         t_failed = round(time.time() - t1, 3)
+        failed = dict(kind="init-exit", ds="gpu-operator-validator",
+                      container="workload-validation", rc=1)
+        held = 0
+        deadline = time.monotonic() + 300
+        while len(kubelet.matching(after=t1, **failed)) < 2:
+            ds = srv.backend.get("apps/v1", "DaemonSet", "gpu-operator-validator",
+                                 consts.DEFAULT_NAMESPACE)
+            available = (ds.get("status") or {}).get("numberAvailable")
+            check(available == 0 and policy_state() == "notReady",
+                  f"after the failed barrier: numberAvailable {available}, "
+                  f"state {policy_state()}")
+            check(time.monotonic() < deadline, "a failed back-off rerun within 300s")
+            held += 1
+            time.sleep(0.05)
+        first = kubelet.matching(after=t1, **failed)[0]
+        check(kubelet.first("init-start", after=first["t"], ds="gpu-operator-validator",
+                            container="workload-validation"), "no back-off rerun")
+        t_rerun_failed = round(time.time() - t1, 3)
         kubelet.pod_env = None
         _wait_for(lambda: policy_state() == "ready", 300, "ready after a passing rerun")
         t_ready = round(time.time() - t1, 3)
@@ -1636,6 +1665,7 @@ def operator_phase(card) -> dict:
               f"restored barrier {restored}")
         text = _try_scrape(metrics_port) or ""
         numbers["flip"] = {"not_ready_s": t_not_ready, "failed_barrier_s": t_failed,
+                           "rerun_failed_s": t_rerun_failed, "held_polls": held,
                            "ready_again_s": t_ready,
                            "reconciles_total": scrape_samples(text).get(
                                "tpu_operator_reconciliation_total")}

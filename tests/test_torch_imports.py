@@ -64,7 +64,7 @@ def test_port_module_list_is_complete():
                      "client", "serving", "serving.frontier", "serving.probe",
                      "validator.serving", "tracing", "joinprofile", "joinprofile.records",
                      "health", "health.drain", "validator.feature_discovery",
-                     "validator.info", "validator.metrics", "nvml", "cuda_driver", "configmap",
+                     "validator.info", "validator.metrics", "nvml", "cuda_driver",
                      "partitioner", "partitioner.partitioner", "deviceplugin",
                      "deviceplugin.plugin", "deviceplugin.grpc_api",
                      "deviceplugin.proto", "deviceplugin.proto.deviceplugin_pb2",

@@ -290,12 +290,26 @@ def test_the_process_kubelet_runs_the_join_chain_on_the_cpu(server, tmp_path):
 
         # a failing workload barrier flips the CR; a passing rerun restores it
         kubelet.pod_env = {"STATUS_DIR": os.devnull + "/status"}  # the sweep cannot write
+        t1 = time.time()
         kubelet.restart("gpu-operator-validator")
         _wait(lambda: _state(srv) == "notReady", JOIN_TIMEOUT_S, "notReady")
         _wait(lambda: kubelet.first("pod-exit", phase="Failed"), JOIN_TIMEOUT_S, "a failed pod")
         _wait(lambda: json.loads((status / "workload-ready").read_text())["passed"] is False,
               JOIN_TIMEOUT_S, "the failed barrier")
         assert _state(srv) == "notReady"
+        # the failed init holds the validator unavailable: its back-off
+        # rerun fails too, and meanwhile the DaemonSet has no available pod
+        failed = dict(kind="init-exit", ds="gpu-operator-validator",
+                      container="workload-validation", rc=1)
+        deadline = time.monotonic() + JOIN_TIMEOUT_S
+        while len(kubelet.matching(after=t1, **failed)) < 2:
+            ds = srv.backend.get("apps/v1", "DaemonSet", "gpu-operator-validator", NS)
+            assert ds["status"]["numberAvailable"] == 0 and _state(srv) == "notReady"
+            assert time.monotonic() < deadline, "timed out waiting for a failed rerun"
+            time.sleep(0.1)
+        first = kubelet.matching(after=t1, **failed)[0]
+        assert kubelet.first("init-start", after=first["t"], ds="gpu-operator-validator",
+                             container="workload-validation")
         kubelet.pod_env = None
         _wait(lambda: _state(srv) == "ready", JOIN_TIMEOUT_S, "ready again")
         assert json.loads((status / "workload-ready").read_text())["passed"] is True

@@ -16,7 +16,6 @@ import yaml
 from tpu_operator_torch import consts
 from tpu_operator_torch.partitioner.partitioner import DEFAULT_PARTITIONS
 from tpu_operator_torch.utils import template_fingerprint
-from tpu_operator_torch.validator.driver import HOST_DRIVER_PATHS
 
 #: the reference's TPU accelerator values -> a GPU model each (GKE's label
 #: values), one to one, so node pools map to node pools
@@ -58,6 +57,19 @@ STRING_RULES = [
 #: fields whose values keep the reference's (the operator's namespace)
 KEEP_KEYS = {"namespace"}
 
+#: each host path where the reference's driver check looks for libtpu (its
+#: TPU_HOST_LIBTPU_PATHS, under the host root at /host) -> where the port's
+#: looks for the CUDA driver library in the same place, in the same order
+HOST_LIBRARY_PATHS = {
+    # GKE's node image: the platform's driver install dir
+    "/host/home/kubernetes/bin/libtpu.so": ["/host/home/kubernetes/bin/nvidia/lib64/libcuda.so.1"],
+    # the distribution's library dir (Debian/Ubuntu, then RHEL)
+    "/host/usr/lib/libtpu.so": ["/host/usr/lib/x86_64-linux-gnu/libcuda.so.1",
+                                "/host/usr/lib64/libcuda.so.1"],
+    # a local install beside the distribution's
+    "/host/usr/local/lib/libtpu/libtpu.so": ["/host/usr/local/nvidia/lib64/libcuda.so.1"],
+}
+
 
 def _map_string(text: str) -> str:
     for pattern, repl in STRING_RULES:
@@ -71,7 +83,8 @@ def _map_value(value, key=None):
         if out.get("name") == consts.NAMESPACE_ENV and "value" in value:
             out["value"] = value["value"]  # the namespace itself stays
         if out.get("name") == "GPU_HOST_DRIVER_PATHS":
-            out["value"] = ":".join("/host" + p for p in HOST_DRIVER_PATHS)
+            out["value"] = ":".join(path for ref in value["value"].split(":")
+                                    for path in HOST_LIBRARY_PATHS[ref])
         return out
     if isinstance(value, list):
         return [_map_value(v, key) for v in value]
@@ -207,15 +220,26 @@ def test_the_mapping_changes_nothing_the_port_renders():
         {"driver": {"driverVersion": "1"}}
 
 
+#: the TPU words a mapped render keeps: the operator's namespace, the
+#: protocol keys the node agents share, and the status and handoff host
+#: paths (as paths and as flags)
+KEPT = {consts.DEFAULT_NAMESPACE, consts.TEMPLATE_HASH_LABEL, consts.TRACE_ID_ANNOTATION,
+        consts.VALIDATION_STATUS_DIR, f"--status-dir={consts.VALIDATION_STATUS_DIR}",
+        consts.DEFAULT_HANDOFF_DIR, f"--handoff-dir={consts.DEFAULT_HANDOFF_DIR}"}
+
+
 def test_the_mapping_leaves_no_tpu_name_in_a_render():
     """After mapping, a reference render names the GPU resource, the GPU
-    validator and GPU env only; the TPU words left are the operator's
-    protocol keys (tpu.ai/...), its namespace, the status and handoff
-    host paths the node agents share, metric names and the alert texts
-    that read them, and the reference's image strings."""
+    validator and GPU env only. The TPU words left are the :data:`KEPT`
+    values, the deploy labels (which keep the operator's ``tpu.ai/``
+    group), the images the test spec names, and the alert rules, whose
+    names, texts and expressions over the ``tpu_*`` metric families the
+    port keeps as the reference wrote them."""
+    from test_golden_states import SPEC
+
     ref, _ = _renders(None)
-    allowed = re.compile(r"tpu\.ai/|tpu_operator_|tpu_|tpu-operator$|gcr\.io/tpu|TPU|"
-                         r"libtpu|/run/tpu/|/var/lib/tpu-partitions")
+    kept = KEPT | {f"{c['repository']}/{c['image']}:{c['version']}"
+                   for c in SPEC.values() if isinstance(c, dict) and "image" in c}
     leftovers = set()
 
     def walk(value):
@@ -227,10 +251,12 @@ def test_the_mapping_leaves_no_tpu_name_in_a_render():
             for v in value:
                 walk(v)
         elif (isinstance(value, str) and re.search(r"(^|[^a-z])tpu", value.lower())
-              and not allowed.search(value)):
+              and value not in kept and not value.startswith(consts.DEPLOY_LABEL_PREFIX)):
             leftovers.add(value)
 
     for obj in ref:
-        if obj["kind"] != "PrometheusRule":  # the alerts keep the reference's text
-            walk({k: v for k, v in map_object(obj).items() if k != "data"})
+        mapped = {k: v for k, v in map_object(obj).items() if k != "data"}
+        if obj["kind"] == "PrometheusRule":
+            mapped["spec"] = {k: v for k, v in mapped["spec"].items() if k != "groups"}
+        walk(mapped)
     assert not leftovers, sorted(leftovers)[:10]

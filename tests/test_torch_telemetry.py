@@ -28,7 +28,7 @@ from hypothesis import strategies as st
 from test_telemetry import RUNTIME_TEXT, serve_text
 from tpu_operator.partitioner.partitioner import write_handoff
 from tpu_operator.validator import telemetry as ref
-from tpu_operator_torch import configmap, consts
+from tpu_operator_torch import consts, yamlsubset
 from tpu_operator_torch.testing.fake_nvml import GIB, FakeNvml, random_gpus
 from tpu_operator_torch.validator import telemetry as port
 
@@ -218,6 +218,9 @@ REFERENCE_CONFIGS = [
     "labels:\n  pool: h100-8   # node pool\n  tier: 'yes'\n"
     "runtime_url: http://localhost:9401/metrics\n",
     "---\nlabels: {}\nrename:\n  'a b': \"c\"\n",
+    # one-line flow lists, which PyYAML reads too
+    "exclude: [tpu_runtime_uptime_seconds, tpu_ici_link_up]  # noisy\ninclude: []\n",
+    "include: ['tpu_chip_up', \"tpu_hbm_used_bytes\"]\nlabels:\n  pool: [a, b]\n",
 ]
 
 
@@ -233,7 +236,7 @@ def test_config_loads_as_the_reference_loads_it(tmp_path, text):
     theirs.rename.update({k: v for k, v in port.DEFAULT_RENAME.items()
                           if k not in ref.DEFAULT_RENAME})  # the dcgm-exporter names
     assert _fields(mine) == _fields(theirs)
-    assert configmap.parse(text) == yaml.safe_load(text)
+    assert yamlsubset.parse(text) == yaml.safe_load(text)
 
 
 @pytest.mark.parametrize("text", ["{rename: {a: b}}", "labels: &x\n  a: 1\nl2: *x\n",
@@ -246,8 +249,8 @@ def test_config_outside_the_subset_gives_defaults_with_an_error(tmp_path, caplog
         config = port.MetricsConfig.load(str(path))
     assert _fields(config) == _fields(port.MetricsConfig())
     assert "unparseable" in caplog.text
-    with pytest.raises(configmap.SubsetError):
-        configmap.parse(text)
+    with pytest.raises(yamlsubset.SubsetError):
+        yamlsubset.parse(text)
 
 
 _KEYS = st.text(st.sampled_from("abcxyzAZ_-09./"), min_size=1, max_size=8)
@@ -266,8 +269,8 @@ def test_the_subset_reads_what_pyyaml_reads(doc):
     for indent in (2, 4):
         text = yaml.safe_dump(doc, default_flow_style=False, indent=indent, sort_keys=False)
         try:
-            value = configmap.parse(text)
-        except configmap.SubsetError:
+            value = yamlsubset.parse(text)
+        except yamlsubset.SubsetError:
             continue
         assert value == yaml.safe_load(text) == doc
 
@@ -283,7 +286,7 @@ def test_the_subset_reads_every_flat_config(doc):
     """What the configs use (flat scalars, lists of names, one level of
     mapping) always parses, to PyYAML's value."""
     text = yaml.safe_dump({"labels": doc, "exclude": sorted(doc)}, default_flow_style=False)
-    assert configmap.parse(text) == yaml.safe_load(text)
+    assert yamlsubset.parse(text) == yaml.safe_load(text)
 
 
 # -- out of band, and the CLI ---------------------------------------------------------

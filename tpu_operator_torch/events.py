@@ -14,22 +14,17 @@ from __future__ import annotations
 
 import hashlib
 import logging
-import time
 import uuid
 from typing import Optional
 
 from . import consts, tracing
 from .client import is_conflict
+from .utils import rfc3339_now
 
 log = logging.getLogger(__name__)
 
 NORMAL = "Normal"
 WARNING = "Warning"
-
-
-def rfc3339_now() -> str:
-    """UTC now, in the second-precision RFC 3339 form of metav1.Time."""
-    return time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime())
 
 
 def _involved_ref(involved: dict) -> dict:

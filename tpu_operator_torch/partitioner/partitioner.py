@@ -32,7 +32,7 @@ from typing import Dict, List, Optional
 
 from .. import consts, nvml
 from ..client import preconditioned_patch
-from ..configmap import SubsetError, parse
+from ..yamlsubset import SubsetError, parse
 from ..health import drain as drainproto
 from ..utils import deep_get, pod_requests_resource
 from . import topology
@@ -66,7 +66,7 @@ class PartitionError(ValueError):
 
 def load_config(path: Optional[str]) -> Dict[str, List[dict]]:
     """The partition table in the file at ``path`` (JSON or the YAML subset
-    of ``configmap.py``); None gives :data:`DEFAULT_PARTITIONS`."""
+    of ``yamlsubset.py``); None gives :data:`DEFAULT_PARTITIONS`."""
     if path is None:
         return {name: [dict(e) for e in layout] for name, layout in DEFAULT_PARTITIONS.items()}
     try:

@@ -274,11 +274,17 @@ class ProcessKubelet:
             self.events.append(dict(fields, kind=kind, t=time.time()))
         log.info("kubelet: %s %s", kind, fields)
 
-    def first(self, kind: str, **match) -> Optional[dict]:
-        """The first event of ``kind`` whose fields equal ``match``."""
+    def matching(self, kind: str, after: float = 0.0, **match) -> List[dict]:
+        """The events of ``kind`` later than ``after`` whose fields equal
+        ``match``, in order."""
         with self._events_lock:
-            return next((e for e in self.events if e["kind"] == kind
-                         and all(e.get(k) == v for k, v in match.items())), None)
+            return [e for e in self.events if e["kind"] == kind and e["t"] > after
+                    and all(e.get(k) == v for k, v in match.items())]
+
+    def first(self, kind: str, after: float = 0.0, **match) -> Optional[dict]:
+        """The first of :meth:`matching`'s events, or None."""
+        found = self.matching(kind, after, **match)
+        return found[0] if found else None
 
     # -- the loop ---------------------------------------------------------------
     def start(self) -> "ProcessKubelet":

@@ -42,13 +42,15 @@ def discover_devices(dev_globs=None) -> List[str]:
     return found
 
 
-#: where GPU node images preinstall the CUDA driver library; override
-#: with $GPU_HOST_DRIVER_PATHS (colon-separated)
+#: where GPU node images preinstall the CUDA driver library, in the
+#: reference's order (the platform's install dir first, then the
+#: distribution's, then a local install); override with
+#: $GPU_HOST_DRIVER_PATHS (colon-separated)
 HOST_DRIVER_PATHS = (
+    "/home/kubernetes/bin/nvidia/lib64/libcuda.so.1",
     "/usr/lib/x86_64-linux-gnu/libcuda.so.1",
     "/usr/lib64/libcuda.so.1",
     "/usr/local/nvidia/lib64/libcuda.so.1",
-    "/home/kubernetes/bin/nvidia/lib64/libcuda.so.1",
 )
 
 

@@ -619,7 +619,7 @@ def _plugin_tunables() -> dict:
     ``absenceGraceS``. Text that does not parse, or values that are not
     numbers, give the defaults with an error: a ConfigMap typo must never
     crash-loop the plugin off the kubelet."""
-    from ..configmap import SubsetError, parse
+    from ..yamlsubset import SubsetError, parse
 
     path = os.environ.get(consts.PLUGIN_CONFIG_ENV)
     if not path or not os.path.exists(path):

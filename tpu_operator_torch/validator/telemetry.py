@@ -25,7 +25,7 @@ The families are the reference's ``tpu_*`` names, labels and HELP text,
 so one set of dashboards reads both; the GPU's ``chip`` label is its
 position in PCI bus-id order, the device plugin's unit index. The text
 format is written here (``metrics.py``): the port has no
-``prometheus_client``. The metrics config is read by ``configmap.parse``:
+``prometheus_client``. The metrics config is read by ``yamlsubset.parse``:
 the port has no ``yaml``.
 """
 
@@ -42,7 +42,7 @@ import urllib.parse
 import urllib.request
 from typing import Dict, List, Optional, Tuple
 
-from .. import configmap, consts, nvml
+from .. import consts, nvml, yamlsubset
 from ..partitioner.partitioner import DEFAULT_HANDOFF_DIR, HANDOFF_FILE
 from .driver import discover_devices
 from .metrics import Counter, Gauge, http_server
@@ -106,7 +106,7 @@ def parse_prometheus(text: str) -> List[Tuple[str, Dict[str, str], float]]:
 class MetricsConfig:
     """Custom-metrics configuration (the ConfigMap surface).
 
-    JSON or the YAML subset of :mod:`~tpu_operator_torch.configmap`, with
+    JSON or the YAML subset of :mod:`~tpu_operator_torch.yamlsubset`, with
     keys: ``rename`` (source->target family map, extends defaults),
     ``include`` (target allowlist; empty = all), ``exclude`` (target
     denylist), ``labels`` (static labels on every sample), ``runtime_url``
@@ -130,8 +130,8 @@ class MetricsConfig:
         with open(path) as f:
             text = f.read()
         try:
-            data = configmap.parse(text)
-        except configmap.SubsetError as e:
+            data = yamlsubset.parse(text)
+        except yamlsubset.SubsetError as e:
             log.error("metrics config %s unparseable (%s); using defaults", path, e)
             return cls()
         if not isinstance(data, dict):

@@ -3,14 +3,14 @@
 The reference reads its ConfigMaps and rendered manifests with
 ``yaml.safe_load``; the card's machine need not have PyYAML, so the port
 reads YAML itself, the part its configs and manifests use: block mappings,
-block lists (an item may itself be a block, as in ``- name: x``), and
-one-line scalars (plain, single- or double-quoted) resolved as PyYAML's
-YAML 1.1 resolver resolves them: ``null``/``~``,
-``yes``/``no``/``true``/``false``/``on``/``off``, decimal ints, floats with
-a dot; ``[]`` and ``{}`` for empty collections; ``#`` comments and a
-leading ``---``. The manifest reader (:func:`parse_all`) also reads
-documents split by ``---`` and one-line flow sequences of scalars, such as
-``args: [-c, driver]``.
+block lists (an item may itself be a block, as in ``- name: x``), one-line
+flow sequences of scalars (``args: [-c, driver]``), and one-line scalars
+(plain, single- or double-quoted) resolved as PyYAML's YAML 1.1 resolver
+resolves them: ``null``/``~``, ``yes``/``no``/``true``/``false``/``on``/``off``,
+decimal ints, floats with a dot; ``[]`` and ``{}`` for empty collections;
+``#`` comments and a leading ``---``. :func:`parse` reads one document (a
+ConfigMap's text, JSON first), :func:`parse_all` the documents of a
+rendered manifest split by ``---``.
 
 Everything else raises :class:`SubsetError` instead of being guessed at:
 flow mappings, nested flow collections, anchors and aliases, tags, block
@@ -61,20 +61,18 @@ class _Line(NamedTuple):
 
 def parse(text: str):
     """The value of ``text``: JSON if it parses as JSON, else one document
-    of the YAML subset, without flow sequences. Raises :class:`SubsetError`
-    for text outside both."""
+    of the YAML subset. Raises :class:`SubsetError` for text outside both."""
     try:
         return json.loads(text)
     except ValueError:
         pass
-    return _document(list(enumerate(text.splitlines(), 1)), flow=False)
+    return _document(list(enumerate(text.splitlines(), 1)))
 
 
 def parse_all(text: str) -> list:
-    """The documents of ``text`` split at ``---`` lines, each read as
-    :func:`parse` reads one, with one-line flow sequences too; documents
-    that hold only comments are left out (``yaml.safe_load_all`` gives
-    them as None)."""
+    """The documents of ``text`` split at ``---`` lines, each one document
+    of the subset; documents that hold only comments are left out
+    (``yaml.safe_load_all`` gives them as None)."""
     docs: list = []
     current: list = []
     for number, raw in enumerate(text.splitlines(), 1):
@@ -84,11 +82,11 @@ def parse_all(text: str) -> list:
         else:
             current.append((number, raw))
     docs.append(current)
-    values = (_document(lines, flow=True) for lines in docs)
+    values = (_document(lines) for lines in docs)
     return [value for value in values if value is not None]
 
 
-def _document(numbered, flow: bool):
+def _document(numbered):
     lines: List[_Line] = []
     for number, raw in numbered:
         body = raw.rstrip()
@@ -104,7 +102,7 @@ def _document(numbered, flow: bool):
         lines.append(_Line(number, len(body) - len(stripped), stripped))
     if not lines:
         return None
-    value, i = _block(lines, 0, lines[0].indent, flow)
+    value, i = _block(lines, 0, lines[0].indent)
     if i != len(lines):
         raise SubsetError(f"line {lines[i].number}: indentation does not match a parent")
     return value
@@ -114,19 +112,19 @@ def _is_item(text: str) -> bool:
     return text == "-" or text.startswith("- ")
 
 
-def _block(lines: List[_Line], i: int, indent: int, flow: bool) -> Tuple[object, int]:
+def _block(lines: List[_Line], i: int, indent: int) -> Tuple[object, int]:
     text = lines[i].text
     if _is_item(text):
-        return _sequence(lines, i, indent, flow)
+        return _sequence(lines, i, indent)
     if _split_key(text, lines[i].number) is not None:
-        return _mapping(lines, i, indent, flow)
-    value = _scalar(text, lines[i].number, flow)
+        return _mapping(lines, i, indent)
+    value = _scalar(text, lines[i].number)
     if i + 1 < len(lines) and lines[i + 1].indent > indent:
         raise SubsetError(f"line {lines[i + 1].number}: a scalar spanning lines")
     return value, i + 1
 
 
-def _mapping(lines: List[_Line], i: int, indent: int, flow: bool) -> Tuple[dict, int]:
+def _mapping(lines: List[_Line], i: int, indent: int) -> Tuple[dict, int]:
     out: dict = {}
     while i < len(lines) and lines[i].indent == indent:
         number = lines[i].number
@@ -136,13 +134,13 @@ def _mapping(lines: List[_Line], i: int, indent: int, flow: bool) -> Tuple[dict,
         key, rest = split
         i += 1
         if rest:
-            out[key] = _scalar(rest, number, flow)
+            out[key] = _scalar(rest, number)
             if i < len(lines) and lines[i].indent > indent:
                 raise SubsetError(f"line {lines[i].number}: a scalar spanning lines")
         elif i < len(lines) and lines[i].indent > indent:
-            out[key], i = _block(lines, i, lines[i].indent, flow)
+            out[key], i = _block(lines, i, lines[i].indent)
         elif i < len(lines) and lines[i].indent == indent and _is_item(lines[i].text):
-            out[key], i = _sequence(lines, i, indent, flow)  # an indentless list
+            out[key], i = _sequence(lines, i, indent)  # an indentless list
         else:
             out[key] = None
     if i < len(lines) and lines[i].indent > indent:
@@ -150,7 +148,7 @@ def _mapping(lines: List[_Line], i: int, indent: int, flow: bool) -> Tuple[dict,
     return out, i
 
 
-def _sequence(lines: List[_Line], i: int, indent: int, flow: bool) -> Tuple[list, int]:
+def _sequence(lines: List[_Line], i: int, indent: int) -> Tuple[list, int]:
     out: list = []
     lines = list(lines)  # an item's first line is rewritten in place
     while i < len(lines) and lines[i].indent == indent and _is_item(lines[i].text):
@@ -159,14 +157,14 @@ def _sequence(lines: List[_Line], i: int, indent: int, flow: bool) -> Tuple[list
         if not rest or rest.startswith("#"):
             i += 1
             if i < len(lines) and lines[i].indent > indent:
-                value, i = _block(lines, i, lines[i].indent, flow)
+                value, i = _block(lines, i, lines[i].indent)
             else:
                 value = None
         else:
             # the item's content is a block starting at its own column
             column = indent + len(text) - len(rest)
             lines[i] = _Line(number, column, rest)
-            value, i = _block(lines, i, column, flow)
+            value, i = _block(lines, i, column)
         out.append(value)
     if i < len(lines) and lines[i].indent > indent:
         raise SubsetError(f"line {lines[i].number}: unexpected indentation")
@@ -232,12 +230,12 @@ def _strip_comment(text: str) -> str:
     return text[:comment.start()].rstrip() if comment else text
 
 
-def _scalar(text: str, number: int, flow: bool = False):
+def _scalar(text: str, number: int):
     if text[0] in "'\"":
         value, end = _quoted(text, number)
         _after_scalar(text[end:], number)
         return value
-    if flow and text[0] == "[" and text.rstrip() not in ("[]",):
+    if text[0] == "[" and _strip_comment(text) != "[]":
         return _flow_sequence(text, number)
     text = _strip_comment(text)
     if text in ("[]", "{}"):
