@@ -91,8 +91,27 @@ Phases, each of which exits non-zero on failure:
    the failed ``workload`` barrier then holds the DaemonSet at no available
    pod and the ClusterPolicy ``notReady`` across a back-off rerun that
    fails again, and the kubelet's next rerun, with the GPU, restores
-   ``ready``. No hand-written kernel runs in this phase (K1's count under
-   ``operator`` is 0).
+   ``ready``. The operator runs its full client chain (informer cache on);
+   the apiserver's requests to ``ready`` (GET, LIST, WATCH, writes, from
+   the operator and the node agents) are printed. No hand-written kernel
+   runs in this phase (K1's count under ``operator`` is 0).
+13. on that cluster, once ``ready`` again (:func:`gpudriver_phase`): the
+   sample ``GPUDriver`` (empty selector) takes the driver DaemonSet over
+   (the ClusterPolicy's deleted, ``gpu-driver-default-<pool>`` created
+   for the node's GPU model, its installer run by the kubelet on the card,
+   the GPUDriver ``ready`` with one pool of one node); ``gpuop-cfg
+   status``; a second GPUDriver selecting the node puts both in
+   ``ConflictingNodeSelector`` with one Warning Event each, and its
+   deletion restores the first; two invalid GPUDrivers are refused with
+   422 and not stored; deleting the GPUDriver hands the driver back; then
+   two ``gpu-operator --leader-elect`` replicas: one holds the Lease, the
+   other takes over from it stopped (SIGSTOP) within the lease plus a
+   retry period, and the old leader, resumed with a write to make while
+   the new one is stopped and its Lease read is held, has that write
+   refused by the fence (``tpu_operator_fenced_writes_total``) and exits;
+   ``gpuop-cfg status`` and ``validate``; no operator process and no
+   ``gpuop-cfg`` maps torch or libcuda. Seconds to each step are printed.
+   No hand-written kernel (K1's count under ``gpudriver`` is 0).
 
 Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Needs a CUDA device and the rest of the repository beside this file.
@@ -114,6 +133,8 @@ import sys
 import tempfile
 import threading
 import time
+import types
+import urllib.error
 import urllib.request
 import uuid
 import warnings
@@ -131,8 +152,11 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+_T0 = time.monotonic()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.monotonic() - _T0:.1f} s)", flush=True)
 
 
 def cuda_ms(fn, x, reps: int) -> float:
@@ -1471,11 +1495,12 @@ def _report_line(text: str, key: str):
     return None
 
 
-def operator_phase(card) -> dict:
+def operator_phase(card, then=None) -> dict:
     """Phase 12: ``gpu-operator`` reconciles the port's sample ClusterPolicy
     onto this machine as a one-node cluster, and a process kubelet runs the
     DaemonSets it renders, the validation chain and its spawned workload pod
-    on the card."""
+    on the card. ``then(ctx)``, when given, runs on that cluster once it is
+    ``ready`` again (phase 13, :func:`gpudriver_phase`)."""
     import shutil
 
     from tpu_operator_torch import consts, nvml
@@ -1521,6 +1546,9 @@ def operator_phase(card) -> dict:
         cwd=repo, stdout=open(operator_log, "w"), stderr=subprocess.STDOUT,
         start_new_session=True,
         env={k: v for k, v in os.environ.items() if not k.startswith("GPU_")})
+    # the join's apiserver load: the operator's (through its informer cache)
+    # and the node agents'; the kubelet reads the backend in process
+    srv.requests.clear()
     base_env = {k: os.environ[k] for k in ("PATH", "HOME", "TMPDIR", "LD_LIBRARY_PATH",
                                            "CUDA_HOME") if k in os.environ}
     base_env.update(PYTHONPATH=repo, KUBE_API_URL=base)
@@ -1608,7 +1636,12 @@ def operator_phase(card) -> dict:
         operator_cuda = "libcuda" in maps
         check(not operator_torch and not operator_cuda,
               f"the operator process maps torch ({operator_torch}) or libcuda ({operator_cuda})")
+        requests = srv.request_counts()
         numbers.update({
+            "apiserver_requests_to_ready": {k: requests.get(k, 0) for k in (
+                "GET", "LIST", "WATCH", "write")},
+            "apiserver_requests_by_kind": {f"{verb} {kind}": n for (verb, kind), n in
+                                           sorted(srv.requests.items())},
             "join_s": seen,
             "process_wall_s": processes,
             "workload_pod": {"elapsed_s": sweep.get("elapsed_s"),
@@ -1670,6 +1703,12 @@ def operator_phase(card) -> dict:
                            "reconciles_total": scrape_samples(text).get(
                                "tpu_operator_reconciliation_total")}
         print(json.dumps({"operator_flip": numbers["flip"], "card": card}))
+        if then is not None:
+            then(types.SimpleNamespace(
+                srv=srv, base=base, kubelet=kubelet, namespace=consts.DEFAULT_NAMESPACE,
+                node_name=node_name, repo=repo, work=work, card=card, operator=operator,
+                operator_env={k: v for k, v in os.environ.items() if not k.startswith("GPU_")},
+                driver_env={consts.DRIVER_SRC_ENV: bundle}))
     except SystemExit:
         print(f"-- operator log:\n{open(operator_log).read()[-6000:]}", file=sys.stderr)
         for ds in ("gpu-driver", "gpu-operator-validator", "gpu-device-plugin"):
@@ -1686,6 +1725,334 @@ def operator_phase(card) -> dict:
         operator.wait(timeout=60)
         srv.stop()
         shutil.rmtree(work, ignore_errors=True)
+    return numbers
+
+
+class _Operator:
+    """``gpu-operator`` in its own process group, logging to a file."""
+
+    def __init__(self, ctx, log_path: str, extra: tuple = ()):
+        self.metrics_port, self.health_port = free_port(), free_port()
+        self.log_path = log_path
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "tpu_operator_torch.cmd.operator", f"--api-server={ctx.base}",
+             f"--namespace={ctx.namespace}", f"--metrics-port={self.metrics_port}",
+             f"--health-port={self.health_port}", *extra],
+            cwd=ctx.repo, stdout=open(log_path, "w"), stderr=subprocess.STDOUT,
+            start_new_session=True, env=ctx.operator_env)
+
+    def readyz(self) -> dict:
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{self.health_port}/readyz",
+                                        timeout=2) as r:
+                return json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return json.loads(e.read())
+        except (OSError, ValueError):
+            return {}
+
+    def is_leader(self) -> bool:
+        return bool((self.readyz().get("leader") or {}).get("is_leader"))
+
+    def maps(self) -> tuple:
+        return _maps(self.proc.pid)
+
+    def log(self) -> str:
+        with open(self.log_path) as f:
+            return f.read()
+
+    def stop(self) -> None:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(self.proc.pid, signal.SIGCONT)
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        self.proc.wait(timeout=60)
+
+
+def _maps(pid: int) -> tuple:
+    """Whether a process maps torch's and the CUDA driver's libraries."""
+    with open(f"/proc/{pid}/maps") as f:
+        text = f.read()
+    return "libtorch" in text, "libcuda" in text
+
+
+def _gpuop_cfg(ctx, *argv) -> dict:
+    """``gpuop-cfg`` in a fresh process that reports, as it exits, whether
+    it maps torch or libcuda."""
+    script = ("import sys\n"
+              "from tpu_operator_torch.cmd.cfg import main\n"
+              "rc = main(sys.argv[1:])\n"
+              "maps = open('/proc/self/maps').read()\n"
+              "print('MAPS', 'libtorch' in maps, 'libcuda' in maps)\n"
+              "sys.exit(rc)\n")
+    out = subprocess.run([sys.executable, "-c", script, *argv], cwd=ctx.repo,
+                         env=ctx.operator_env, capture_output=True, text=True, timeout=120)
+    last = out.stdout.strip().splitlines()[-1] if out.stdout.strip() else ""
+    return {"rc": out.returncode, "out": out.stdout, "err": out.stderr, "maps_line": last}
+
+
+def gpudriver_phase(ctx) -> dict:
+    """Phase 13, on phase 12's cluster once it is ``ready`` again: the
+    sample GPUDriver takes the driver DaemonSet over from the ClusterPolicy
+    (one DaemonSet for the node's GPU-model pool, its installer run by the
+    kubelet), a second GPUDriver selecting the same node conflicts, two
+    invalid GPUDrivers are refused with 422, deleting the GPUDriver hands
+    the driver back, then two ``gpu-operator --leader-elect`` replicas: the
+    standby takes over from a stopped leader, and the old leader, resumed,
+    has its writes refused by the fence and exits. ``gpuop-cfg status``
+    and ``validate``; no operator process and no ``gpuop-cfg`` maps torch
+    or libcuda.
+
+    ``ctx``: the running cluster (``srv``, ``base``, ``kubelet``,
+    ``namespace``, ``node_name``, ``repo``, ``work``, ``card``), phase 12's
+    operator process (``operator``, stopped here), the env operator
+    processes run with (``operator_env``) and the env the driver image
+    gives its installer (``driver_env``)."""
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.client.errors import NotFoundError
+    from tpu_operator_torch.conditions import ERROR, get_condition
+    from tpu_operator_torch.controllers.gpudriver_controller import pool_app_name
+    from tpu_operator_torch.state.nodepool import get_node_pools
+    from tpu_operator_torch.testing.kubelet import RUN
+
+    srv, kubelet, ns, backend = ctx.srv, ctx.kubelet, ctx.namespace, ctx.srv.backend
+    numbers = {"card": ctx.card}
+    started = time.monotonic()
+
+    def get(api_version, kind, name, namespace=None):
+        try:
+            return backend.get(api_version, kind, name, namespace)
+        except NotFoundError:
+            return None
+
+    def cp_state():
+        return ((get("tpu.ai/v1", "ClusterPolicy", "cluster-policy") or {}).get("status")
+                or {}).get("state")
+
+    def driver_status(name):
+        return (get("tpu.ai/v1alpha1", "GPUDriver", name) or {}).get("status") or {}
+
+    def ds(name):
+        return get("apps/v1", "DaemonSet", name, ns)
+
+    def available(name):
+        return ((ds(name) or {}).get("status") or {}).get("numberAvailable") == 1
+
+    def since(t0, predicate, timeout, what) -> float:
+        _wait_for(predicate, timeout, what)
+        return round(time.time() - t0, 3)
+
+    sample = json.load(open(os.path.join(ctx.repo, "tpu_operator_torch", "manifests", "samples",
+                                         "v1alpha1_gpudriver.json")))
+    name = sample["metadata"]["name"]
+    check(sample["spec"].get("nodeSelector") == {}, "the sample GPUDriver selects every GPU node")
+    pools = get_node_pools([backend.get("v1", "Node", ctx.node_name)])
+    check(len(pools) == 1 and pools[0].node_names == [ctx.node_name], f"pools {pools}")
+    pool = pools[0].name
+    app = pool_app_name(name, pool)
+    kubelet.modes[app] = RUN
+    kubelet.image_env[app] = ctx.driver_env
+    check(cp_state() == "ready", f"phase 13 starts from ready, not {cp_state()}")
+
+    # 1. hand-over
+    t0 = time.time()
+    backend.create(sample)
+    hand = {
+        "clusterpolicy_driver_deleted_s": since(t0, lambda: ds("gpu-driver") is None, 120,
+                                                "the ClusterPolicy's driver DaemonSet deleted"),
+        "pool_daemonset_created_s": since(t0, lambda: ds(app) is not None, 120,
+                                          f"DaemonSet {app}"),
+    }
+    labels = ds(app)["metadata"].get("labels") or {}
+    check(labels.get(consts.DRIVER_INSTANCE_LABEL) == name
+          and labels.get(consts.NODE_POOL_LABEL) == pool, f"{app} labels {labels}")
+    args = ds(app)["spec"]["template"]["spec"]["containers"][0]["args"]
+    check(args[:2] == ["-c", "driver-daemon"], f"{app} runs {args}")
+    hand["installer_probe_passed_s"] = since(
+        t0, lambda: kubelet.first("startup-probe-passed", after=t0, ds=app), 180,
+        f"{app}'s installer passing its startup probe")
+    check(kubelet.first("pod-stop", after=t0, ds="gpu-driver"),
+          "the ClusterPolicy's driver pod was not stopped")
+    hand["gpudriver_ready_s"] = since(t0, lambda: driver_status(name).get("state") == "ready",
+                                      180, f"GPUDriver {name} ready")
+    check(driver_status(name).get("pools") == {pool: 1},
+          f"GPUDriver pools {driver_status(name).get('pools')}")
+    hand["clusterpolicy_ready_s"] = since(t0, lambda: cp_state() == "ready", 180,
+                                          "the ClusterPolicy ready with the GPUDriver")
+    numbers["handover"] = dict(hand, pool=pool, daemonset=app)
+    print(json.dumps({"gpudriver_handover": numbers["handover"], "card": ctx.card}))
+    cfg_status = _gpuop_cfg(ctx, "status", "--base-url", ctx.base)
+    check(cfg_status["rc"] == 0, f"gpuop-cfg status exited {cfg_status['rc']}: "
+                                 f"{cfg_status['out']}{cfg_status['err'][-2000:]}")
+    for want in ("ClusterPolicy/cluster-policy: ready",
+                 f"GPUDriver/{name}: ready pools={{'{pool}': 1}}", ctx.node_name):
+        check(want in cfg_status["out"], f"gpuop-cfg status lacks {want!r}: {cfg_status['out']}")
+    print(cfg_status["out"])
+
+    # 2. a second instance selecting the same node
+    other = copy.deepcopy(sample)
+    other["metadata"]["name"] = "conflicting"
+    other["spec"]["nodeSelector"] = {consts.GPU_PRESENT_LABEL: "true"}
+    t1 = time.time()
+    backend.create(other)
+
+    def conflicted(n):
+        cond = get_condition(get("tpu.ai/v1alpha1", "GPUDriver", n) or {}, ERROR) or {}
+        return (driver_status(n).get("state") == "notReady"
+                and cond.get("reason") == "ConflictingNodeSelector")
+
+    conflict = {"both_conflicted_s": since(t1, lambda: conflicted(name) and conflicted("conflicting"),
+                                           60, "both GPUDrivers ConflictingNodeSelector")}
+    time.sleep(6.0)  # past one requeue of each (5 s): no second Event
+    warnings = {}
+    for event in backend.list("v1", "Event", ns):
+        if event.get("reason") == "ConflictingNodeSelector" and event.get("type") == "Warning":
+            involved = event["involvedObject"]["name"]
+            warnings[involved] = warnings.get(involved, 0) + int(event.get("count") or 1)
+    check(warnings == {name: 1, "conflicting": 1}, f"conflict Events {warnings}")
+    t2 = time.time()
+    backend.delete("tpu.ai/v1alpha1", "GPUDriver", "conflicting")
+    conflict["ready_again_s"] = since(t2, lambda: driver_status(name).get("state") == "ready", 60,
+                                      f"GPUDriver {name} ready after the conflict")
+    numbers["conflict"] = dict(conflict, warning_events=warnings)
+    print(json.dumps({"gpudriver_conflict": numbers["conflict"]}))
+
+    # 3. the schema, over HTTP
+    refused = {}
+    for label, spec in (("typo", {"nodeSelectr": {}}), ("driverType", {"driverType": "vgpu"})):
+        body = json.dumps({"apiVersion": "tpu.ai/v1alpha1", "kind": "GPUDriver",
+                           "metadata": {"name": f"invalid-{label.lower()}"}, "spec": spec})
+        request = urllib.request.Request(f"{ctx.base}/apis/tpu.ai/v1alpha1/gpudrivers",
+                                         data=body.encode(), method="POST",
+                                         headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(request, timeout=10) as r:
+                refused[label] = r.status
+        except urllib.error.HTTPError as e:
+            refused[label] = e.code
+    stored = sorted(d["metadata"]["name"] for d in backend.list("tpu.ai/v1alpha1", "GPUDriver"))
+    check(refused == {"typo": 422, "driverType": 422} and stored == [name],
+          f"invalid GPUDrivers: {refused}, stored {stored}")
+    numbers["schema"] = refused
+
+    # 4. hand-back
+    t3 = time.time()
+    backend.delete("tpu.ai/v1alpha1", "GPUDriver", name)
+    back = {"pool_daemonset_gone_s": since(t3, lambda: ds(app) is None, 60,
+                                           f"{app} deleted by owner reference"),
+            "clusterpolicy_driver_back_s": since(t3, lambda: ds("gpu-driver") is not None, 120,
+                                                 "the ClusterPolicy's driver DaemonSet back")}
+    back["clusterpolicy_ready_s"] = since(
+        t3, lambda: available("gpu-driver") and cp_state() == "ready", 180,
+        "the ClusterPolicy ready with its driver DaemonSet")
+    check(kubelet.first("pod-stop", after=t3, ds=app), f"{app}'s pod was not stopped")
+    numbers["handback"] = back
+    print(json.dumps({"gpudriver_handback": back}))
+
+    # 5. two replicas under leader election
+    maps = {"phase12_operator": _maps(ctx.operator.pid)}
+    with contextlib.suppress(ProcessLookupError):
+        os.killpg(ctx.operator.pid, signal.SIGKILL)
+    ctx.operator.wait(timeout=60)
+    replicas = [_Operator(ctx, os.path.join(ctx.work, f"operator-{i}.log"), ("--leader-elect",))
+                for i in range(2)]
+    held = threading.Event()
+    release = threading.Event()
+    real_get = backend.get
+
+    def get_holding_leases(api_version, kind, name_, namespace=None):
+        # a slow apiserver for Lease reads while ``held`` is set
+        if kind == "Lease" and held.is_set():
+            release.wait(30)
+        return real_get(api_version, kind, name_, namespace)
+
+    leader_numbers = {}
+    try:
+        t4 = time.time()
+        _wait_for(lambda: sum(r.is_leader() for r in replicas) == 1, 120, "one leader")
+        leader_numbers["first_leader_s"] = round(time.time() - t4, 3)
+        time.sleep(1.0)
+        check(sum(r.is_leader() for r in replicas) == 1, "two leaders")
+        old = next(r for r in replicas if r.is_leader())
+        new = next(r for r in replicas if r is not old)
+        lease = real_get("coordination.k8s.io/v1", "Lease", "gpu-operator-leader", ns)
+        check(lease["spec"]["holderIdentity"] == old.readyz()["leader"]["identity"],
+              f"lease {lease['spec']}")
+        for i, r in enumerate(replicas):
+            maps[f"replica_{i}"] = r.maps()
+        _wait_for(lambda: cp_state() == "ready", 60, "ready under the elected leader")
+        t5 = time.time()
+        os.killpg(old.proc.pid, signal.SIGSTOP)
+        leader_numbers["takeover_s"] = since(t5, new.is_leader, 60, "the standby taking over")
+        check(leader_numbers["takeover_s"] <= 15.0 + 2.0 + 1.0,
+              f"takeover {leader_numbers['takeover_s']} s, past the lease plus a retry period")
+        check(cp_state() == "ready", f"the CR {cp_state()} after the takeover")
+        # the old leader resumes with a write to make: the new one is stopped,
+        # the node lost its presence label, and Lease reads are slow
+        os.killpg(new.proc.pid, signal.SIGSTOP)
+        backend.get = get_holding_leases
+        held.set()
+        backend.patch("v1", "Node", ctx.node_name,
+                      {"metadata": {"labels": {consts.GPU_PRESENT_LABEL: None}}})
+        t6 = time.time()
+        os.killpg(old.proc.pid, signal.SIGCONT)
+
+        def fenced_writes():
+            text = _try_scrape(old.metrics_port) or ""
+            return sum(v for k, v in scrape_samples(text).items()
+                       if k.startswith("tpu_operator_fenced_writes_total{"))
+
+        leader_numbers["fenced_writes"] = _wait_for(fenced_writes, 8, "a fenced write")
+        leader_numbers["first_fenced_s"] = round(time.time() - t6, 3)
+        held.clear()
+        release.set()
+        backend.get = real_get
+        rc = old.proc.wait(timeout=60)
+        leader_numbers["old_leader_exit"] = rc
+        leader_numbers["old_leader_exit_s"] = round(time.time() - t6, 3)
+        log_text = old.log()
+        check(rc == 1 and "fenced write rejected" in log_text
+              and "leadership lost" in log_text,
+              f"the deposed leader exited {rc}: {log_text[-3000:]}")
+        os.killpg(new.proc.pid, signal.SIGCONT)
+        leader_numbers["relabelled_s"] = since(
+            t6, lambda: backend.get("v1", "Node", ctx.node_name)["metadata"]["labels"].get(
+                consts.GPU_PRESENT_LABEL) == "true", 60, "the new leader relabelling the node")
+        check(new.is_leader() and cp_state() == "ready",
+              f"after the fence: leader {new.is_leader()}, CR {cp_state()}")
+        numbers["leader"] = leader_numbers
+        print(json.dumps({"leader_election": leader_numbers}))
+
+        # 6. gpuop-cfg
+        final = _gpuop_cfg(ctx, "status", "--base-url", ctx.base)
+        check(final["rc"] == 0 and ctx.node_name in final["out"],
+              f"gpuop-cfg status exited {final['rc']}: {final['out']}{final['err'][-2000:]}")
+        samples = sorted(glob.glob(os.path.join(ctx.repo, "tpu_operator_torch", "manifests",
+                                                "samples", "*.json")))
+        validated = _gpuop_cfg(ctx, "validate", *samples)
+        check(validated["rc"] == 0 and validated["out"].count(": OK") == len(samples),
+              f"gpuop-cfg validate: {validated['out']}{validated['err'][-2000:]}")
+
+        # 7. neither torch nor libcuda in any operator process or gpuop-cfg
+        for run_ in (cfg_status, final, validated):
+            check(run_["maps_line"] == "MAPS False False", f"gpuop-cfg {run_['maps_line']}")
+        maps["gpuop_cfg"] = (False, False)
+        check(not any(a or b for a, b in maps.values()), f"maps torch/libcuda: {maps}")
+        numbers["maps_torch_or_libcuda"] = maps
+        numbers["gpuop_cfg"] = {"status_rc": [cfg_status["rc"], final["rc"]],
+                                "validate_rc": validated["rc"]}
+        numbers["phase_s"] = round(time.monotonic() - started, 3)
+        print(json.dumps({"gpudriver_phase": {k: numbers[k] for k in (
+            "handover", "conflict", "schema", "handback", "leader", "gpuop_cfg", "phase_s")},
+            "card": ctx.card}))
+    except SystemExit:
+        for r in replicas:
+            print(f"-- {r.log_path}:\n{r.log()[-4000:]}", file=sys.stderr)
+        raise
+    finally:
+        backend.get = real_get
+        release.set()
+        for r in replicas:
+            r.stop()
     return numbers
 
 
@@ -1906,10 +2273,21 @@ def main() -> int:
 
     phase("the operator's join on the card: gpu-operator, a process kubelet, the chain")
     k1.launches = 0
-    operator_phase(card)
-    operator_launches = k1.launches
-    check(operator_launches == 0, f"the operator path launched K1 {operator_launches} times")
+    counts = {}
 
+    def phase13(ctx):
+        counts["operator"] = k1.launches
+        phase("GPUDriver hand-over and back, the CRD schema, leader election and the fence")
+        k1.launches = 0
+        gpudriver_phase(ctx)
+        counts["gpudriver"] = k1.launches
+
+    operator_phase(card, then=phase13)
+    operator_launches, gpudriver_launches = counts["operator"], counts["gpudriver"]
+    check(operator_launches == 0, f"the operator path launched K1 {operator_launches} times")
+    check(gpudriver_launches == 0, f"phase 13 launched K1 {gpudriver_launches} times")
+
+    print(json.dumps({"smoke_s": round(time.monotonic() - _T0, 1), "card": card}))
     print(json.dumps({"kernels": [{
         "name": "stream_copy",
         "route": "cuda",
@@ -1923,13 +2301,15 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": timing["library"],
         # the paths without K1 launch it no time: serving (7), the steady
-        # state (9), the device plumbing (10), the last components (11) and
-        # the operator (12) are checked at 0 above
+        # state (9), the device plumbing (10), the last components (11), the
+        # operator (12) and the GPUDriver and leader phase (13) are checked
+        # at 0 above
         "launches_by_phase": {"perf": k1_main_launches, "serving": serving_launches,
                               "steady_state": steady_state_launches,
                               "device_plumbing": plumbing_launches,
                               "last_components": last_launches,
-                              "operator": operator_launches},
+                              "operator": operator_launches,
+                              "gpudriver": gpudriver_launches},
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

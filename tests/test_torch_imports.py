@@ -80,7 +80,11 @@ def test_port_module_list_is_complete():
                      "state.operands", "controllers", "controllers.runtime",
                      "controllers.predicates", "controllers.metrics",
                      "controllers.clusterpolicy_controller", "controllers.manager",
-                     "cmd.operator", "testing.apiserver", "testing.kubelet"):
+                     "cmd.operator", "testing.apiserver", "testing.kubelet",
+                     "api.gpudriver", "api.schema_gen", "api.schema_validate",
+                     "controllers.gpudriver_controller", "controllers.leader",
+                     "client.resilience", "client.fenced", "client.cache",
+                     "cfgtool", "cfgtool.main", "cmd.cfg"):
         assert f"tpu_operator_torch.{expected}" in names
 
 
@@ -182,7 +186,12 @@ DAEMON_MODULES = ("tpu_operator_torch.cmd.operator", "tpu_operator_torch.control
                   "tpu_operator_torch.validator.driver", "tpu_operator_torch.validator.native",
                   "tpu_operator_torch.validator.metrics", "tpu_operator_torch.migrate.agent",
                   "tpu_operator_torch.migrate.checkpoint", "tpu_operator_torch.events",
-                  "tpu_operator_torch.validator.main")
+                  "tpu_operator_torch.validator.main",
+                  "tpu_operator_torch.controllers.gpudriver_controller",
+                  "tpu_operator_torch.controllers.leader", "tpu_operator_torch.client.resilience",
+                  "tpu_operator_torch.client.fenced", "tpu_operator_torch.client.cache",
+                  "tpu_operator_torch.api.schema_gen", "tpu_operator_torch.api.schema_validate",
+                  "tpu_operator_torch.cfgtool.main", "tpu_operator_torch.cmd.cfg")
 
 
 def test_the_node_daemons_import_no_torch(tmp_path):

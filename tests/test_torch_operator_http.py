@@ -34,9 +34,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SAMPLE = os.path.join(REPO, "tpu_operator_torch", "manifests", "samples", "v1_clusterpolicy.json")
 NS = "tpu-operator"
 JOIN_TIMEOUT_S = 120
-LEFT_OUT = {"--leader-elect", "--api-qps", "--api-burst", "--breaker-threshold",
-            "--no-cache-reads", "--trace-buffer-size", "--debug-endpoints",
-            "--no-debug-endpoints"}
+LEFT_OUT = {"--trace-buffer-size", "--debug-endpoints", "--no-debug-endpoints"}
 
 
 def _flags(parser):

@@ -1,10 +1,18 @@
 """The one mapping from the reference (TPU) operator's inputs and outputs to
 the port's (GPU) ones, shared by every operator parity test
-(tests/test_torch_operator_*.py): a ClusterPolicy spec, a Node, a rendered
-or applied object. Each deliberate difference of the port is written here
-once; a parity test maps the reference's side and requires equality. The
-tests at the end hold the mapping itself: it changes nothing the port
-already renders, and it leaves no TPU name behind in what it maps.
+(tests/test_torch_operator_*.py, tests/test_torch_gpudriver_controller.py,
+tests/test_torch_schema.py, tests/test_torch_cfgtool.py): a ClusterPolicy
+spec, a Node, a rendered or applied object, the per-pool driver CR and its
+objects, a CRD, ``gpuop-cfg``'s output. Each deliberate difference of the
+port is written here once; a parity test maps the reference's side and
+requires equality. The per-pool driver's renames: the kind ``TPUDriver``
+is ``GPUDriver`` (group and version kept), ``libtpuVersion`` is
+``driverVersion``, pools are keyed on the GPU model (:func:`map_pool_name`)
+and a pool's DaemonSet is ``gpu-driver-<instance>-<pool>``
+(:func:`map_driver_object`); ``validate-partitions`` takes a link class
+and a GPU count (:data:`PARTITION_NODES`). The tests at the end hold the
+mapping itself: it changes nothing the port already renders, and it leaves
+no TPU name behind in what it maps.
 """
 
 import copy
@@ -52,6 +60,8 @@ STRING_RULES = [
     (r"/etc/tpu-", "/etc/gpu-"),
     (r"^Priority class for tpu-operator ", "Priority class for gpu-operator "),
     (r'job="tpu-', 'job="gpu-'),
+    # the per-pool driver kind, in kinds and in messages
+    (r"TPUDriver", "GPUDriver"),
 ]
 
 #: fields whose values keep the reference's (the operator's namespace)
@@ -134,10 +144,10 @@ def map_spec(spec: dict) -> dict:
     return out
 
 
-def map_node(node: dict) -> dict:
-    """A reference TPU Node as the same node with GPUs."""
-    out = copy.deepcopy(node)
-    labels = out.setdefault("metadata", {}).get("labels") or {}
+def map_labels(labels: dict) -> dict:
+    """A reference node's labels (or a selector over them) as the port's:
+    the accelerator label names the GPU model, there is no slice topology
+    label, and the presence and deploy labels are renamed."""
     mapped = {}
     for key, value in labels.items():
         if key == "cloud.google.com/gke-tpu-accelerator":
@@ -148,13 +158,216 @@ def map_node(node: dict) -> dict:
             mapped[key] = ACCELERATORS.get(value, value)
         else:
             mapped[_map_string(key)] = value
+    return mapped
+
+
+def map_node(node: dict) -> dict:
+    """A reference TPU Node as the same node with GPUs."""
+    out = copy.deepcopy(node)
+    labels = out.setdefault("metadata", {}).get("labels") or {}
     if "labels" in out["metadata"]:
-        out["metadata"]["labels"] = mapped
+        out["metadata"]["labels"] = map_labels(labels)
     for field in ("capacity", "allocatable"):
         section = (out.get("status") or {}).get(field)
         if section and "google.com/tpu" in section:
             section[consts.GPU_RESOURCE_NAME] = section.pop("google.com/tpu")
     return out
+
+
+# -- the per-pool driver (TPUDriver -> GPUDriver) ---------------------------------
+
+#: the reference samples' libtpu build -> the driver version the port's
+#: samples name (``gpuop-cfg sample``)
+SAMPLE_DRIVER_VERSIONS = {"2025.1.0": "580.95.05"}
+#: the reference samples' TPUDriver instance -> the port's
+SAMPLE_INSTANCES = {"v5e-pool": "h100-pool"}
+
+
+#: ``validate-partitions``' node: the reference checks a table against a TPU
+#: generation's chip grid (``--accelerator``, ``--chips``); the port has no
+#: chip grid and checks it on N GPUs of one link class (``--link``,
+#: ``--gpus``): (accelerator, chips) -> (link class, GPUs)
+PARTITION_NODES = {("tpu-v5-lite-podslice", 8): ("nvlink", 8),
+                   ("tpu-v4-podslice", 4): ("pcie-switch", 4)}
+
+
+def map_partition_args(argv: list) -> list:
+    """``tpuop-cfg validate-partitions`` arguments as ``gpuop-cfg``'s."""
+    args = list(argv)
+    accelerator, chips = "tpu-v5-lite-podslice", 8
+    if "--accelerator" in args:
+        i = args.index("--accelerator")
+        accelerator = args.pop(i + 1)
+        args.pop(i)
+    if "--chips" in args:
+        i = args.index("--chips")
+        chips = int(args.pop(i + 1))
+        args.pop(i)
+    link, gpus = PARTITION_NODES[(accelerator, chips)]
+    if (link, gpus) == ("nvlink", 8):
+        return args  # gpuop-cfg's defaults
+    return args + ["--link", link, "--gpus", str(gpus)]
+
+
+def map_pool_name(name: str) -> str:
+    """A reference pool name (the accelerator without ``tpu-``, then the
+    slice topology) as the port's: pools are keyed on the GPU model alone,
+    so two reference pools of one accelerator are one port pool (the tests
+    give each accelerator one topology)."""
+    from tpu_operator_torch.state.nodepool import sanitize_name
+
+    for accelerator, gpu in ACCELERATORS.items():
+        stem = accelerator.removeprefix("tpu-")
+        if name == stem or name.startswith(stem + "-"):
+            return sanitize_name(gpu)
+    raise KeyError(f"no accelerator for pool {name!r}")
+
+
+def map_driver_spec(spec: dict) -> dict:
+    """A TPUDriver spec as the GPUDriver's: ``driverVersion`` for
+    ``libtpuVersion``, the node selector over the port's labels, names and
+    paths through the string rules."""
+    out = _map_value(copy.deepcopy(spec))
+    if "libtpuVersion" in out:
+        out["driverVersion"] = out.pop("libtpuVersion")
+    if "nodeSelector" in spec:
+        out["nodeSelector"] = map_labels(spec["nodeSelector"])
+    return out
+
+
+def map_driver(obj: dict) -> dict:
+    """A TPUDriver CR as the GPUDriver the port is given."""
+    out = copy.deepcopy(obj)
+    out["kind"] = _map_string(obj["kind"])
+    out["spec"] = map_driver_spec(obj.get("spec") or {})
+    if "status" in obj:
+        out["status"] = map_driver_status(obj["status"])
+    return out
+
+
+def map_driver_status(status: dict) -> dict:
+    out = _map_value(copy.deepcopy(status))
+    if "pools" in status:
+        out["pools"] = {map_pool_name(k): v for k, v in status["pools"].items()}
+    return out
+
+
+def map_driver_object(obj: dict, instance: str) -> dict:
+    """An object the TPUDriver controller applied for ``instance`` as the
+    GPUDriver controller applies it: ``libtpu-driver-<instance>-<pool>``
+    becomes ``gpu-driver-<instance>-<GPU-model pool>``, the owning state
+    ``tpudriver-<instance>`` becomes ``gpudriver-<instance>``, and the pool
+    label and the pool's node selector name the GPU model."""
+    prefix = f"libtpu-driver-{instance}-"
+
+    def rename(value):
+        if isinstance(value, dict):
+            return {k: rename(v) for k, v in value.items()}
+        if isinstance(value, list):
+            return [rename(v) for v in value]
+        if isinstance(value, str) and value.startswith(prefix):
+            return f"gpu-driver-{instance}-{map_pool_name(value[len(prefix):])}"
+        if value == f"tpudriver-{instance}":
+            return f"gpudriver-{instance}"
+        return value
+
+    out = map_object(rename(copy.deepcopy(obj)))
+    labels = out["metadata"].get("labels") or {}
+    if consts.NODE_POOL_LABEL in labels:
+        labels[consts.NODE_POOL_LABEL] = map_pool_name(labels[consts.NODE_POOL_LABEL])
+    pod = (out.get("spec") or {}).get("template", {}).get("spec")
+    if pod and "nodeSelector" in pod:
+        ref_selector = obj["spec"]["template"]["spec"]["nodeSelector"]
+        pod["nodeSelector"] = map_labels(ref_selector)
+    tpl = (out.get("spec") or {}).get("template")
+    tpl_labels = (tpl or {}).get("metadata", {}).get("labels") or {}
+    if consts.TEMPLATE_HASH_LABEL in tpl_labels:
+        tpl_labels[consts.TEMPLATE_HASH_LABEL] = template_fingerprint(tpl)
+    return out
+
+
+def map_crd(crd: dict) -> dict:
+    """A reference CRD as the port generates it, descriptions aside: the
+    driver kind and its names, ``driverVersion`` and the port's driver
+    defaults through the string rules, and the autoscale and migrate
+    sub-specs free-form objects until their controllers are ported.
+    Descriptions are prose, rewritten for GPUs; :func:`strip_descriptions`
+    drops them from both sides."""
+    out = _map_value(copy.deepcopy(crd))
+    names = out["spec"]["names"]
+    for key in ("plural", "singular", "listKind"):
+        names[key] = names[key].replace("tpudriver", "gpudriver")
+    if names.get("shortNames") == ["tpudrv"]:
+        names["shortNames"] = ["gpudrv"]
+    out["metadata"]["name"] = out["metadata"]["name"].replace("tpudrivers", "gpudrivers")
+    for version in out["spec"]["versions"]:
+        for column in version.get("additionalPrinterColumns") or []:
+            if column["jsonPath"] == ".spec.libtpuVersion":
+                column["jsonPath"] = ".spec.driverVersion"
+        props = version["schema"]["openAPIV3Schema"]["properties"]
+
+        def rename_keys(node):
+            if isinstance(node, dict):
+                return {{"libtpuVersion": "driverVersion",
+                         "libtpuInstallDir": "driverInstallDir"}.get(k, k): rename_keys(v)
+                        for k, v in node.items()}
+            if isinstance(node, list):
+                return [rename_keys(v) for v in node]
+            return node
+
+        props["spec"] = rename_keys(props["spec"])
+        spec_props = props["spec"].get("properties") or {}
+        for free_form in ("autoscale", "migrate"):
+            if free_form in spec_props:
+                spec_props[free_form] = {"type": "object",
+                                         "x-kubernetes-preserve-unknown-fields": True}
+        devglobs = (spec_props.get("hostPaths") or {}).get("properties", {}).get("devGlobs")
+        if devglobs and "default" in devglobs:
+            devglobs["default"] = list(consts.GPU_DEV_GLOBS)
+    return out
+
+
+def map_sample(obj: dict) -> dict:
+    """A reference ``tpuop-cfg sample`` CR as the port's ``gpuop-cfg``
+    prints it: the mapped CR, with the samples' driver version and
+    instance name."""
+    if obj["kind"] == "TPUDriver":
+        out = map_driver(obj)
+        out["metadata"]["name"] = SAMPLE_INSTANCES[obj["metadata"]["name"]]
+        spec = out["spec"]
+    else:
+        out = copy.deepcopy(obj)
+        out["spec"] = map_spec(obj["spec"])
+        out["spec"] = _map_value(out["spec"])
+        spec = out["spec"]["driver"]
+    spec["driverVersion"] = SAMPLE_DRIVER_VERSIONS[spec["driverVersion"]]
+    return out
+
+
+def map_status_text(text: str) -> str:
+    """``tpuop-cfg status`` output as ``gpuop-cfg status`` prints it for the
+    mapped cluster: the driver kind, the GPU count column, and each
+    instance's pools by GPU model."""
+    import ast
+
+    lines = []
+    for line in text.splitlines():
+        line = line.replace("TPUDriver/", "GPUDriver/").replace(
+            "NODE            CHIPS     ", "NODE            GPUS      ")
+        head, sep, pools = line.partition(" pools=")
+        if sep:
+            mapped = {map_pool_name(k): v for k, v in ast.literal_eval(pools).items()}
+            line = f"{head}{sep}{mapped}"
+        lines.append(line)
+    return "\n".join(lines) + ("\n" if text.endswith("\n") else "")
+
+
+def strip_descriptions(value):
+    if isinstance(value, dict):
+        return {k: strip_descriptions(v) for k, v in value.items() if k != "description"}
+    if isinstance(value, list):
+        return [strip_descriptions(v) for v in value]
+    return value
 
 
 def map_patch(patch: dict) -> dict:

@@ -6,9 +6,10 @@ API. The defaults name NVIDIA's: the device plugin advertises
 ``nvidia.com/gpu``; the driver installer places the user-space driver
 libraries (``libcuda.so.1``, ``libnvidia-ml.so.1``) in the driver library
 directory and records ``driver.driverVersion``; the device globs are the
-GPUs' ``/dev/nvidia<minor>``. The health, autoscale and migrate sub-specs
-of the reference wait for their controllers' slices; a CR that carries
-them keeps them (unknown keys round-trip).
+GPUs' ``/dev/nvidia<minor>``. The autoscale and migrate sub-specs of the
+reference wait for their controllers' slices: until then ``autoscale`` and
+``migrate`` are free-form objects, which a CR keeps as it gave them and the
+CRD schema does not check.
 """
 
 from __future__ import annotations
@@ -414,6 +415,13 @@ class ClusterPolicySpec(SpecBase):
     host_paths: HostPathsSpec = spec_field(HostPathsSpec)
     psa: PSASpec = spec_field(PSASpec)
     health: HealthSpec = spec_field(HealthSpec)
+    autoscale: Optional[Dict[str, Any]] = spec_field(
+        None, doc="The fleet autoscaler's settings, kept as given until its "
+                  "controller is ported (gpuop-cfg status reads minNodes, "
+                  "maxNodes and enabled).")
+    migrate: Optional[Dict[str, Any]] = spec_field(
+        None, doc="The migration controller's settings, kept as given until "
+                  "its controller is ported.")
     extra: Dict[str, Any] = spec_field(dict)
 
     def driver_dir(self) -> str:

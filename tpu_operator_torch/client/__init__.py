@@ -6,19 +6,26 @@ error hierarchy for the validator's components and the operator.
 - :class:`FakeClient`, the in-memory apiserver of the tests and of
   :class:`~tpu_operator_torch.testing.apiserver.MiniApiServer`;
 - :class:`WriteBatcher` and :func:`preconditioned_patch`, the operator's
-  write coalescing and the agents' resourceVersion-preconditioned writes.
+  write coalescing and the agents' resourceVersion-preconditioned writes;
+- the operator's other layers, in their modules: ``cache.CachedClient``
+  (informer reads), ``resilience.RetryingClient`` (retries, token bucket,
+  circuit breaker) and ``fenced.FencedClient`` (the leader write fence).
 """
 
 from .errors import (
     AlreadyExistsError,
     ApiError,
+    BreakerOpenError,
     ConflictError,
+    DeadlineExceededError,
+    FencedError,
     InvalidError,
     KindNotServedError,
     NotFoundError,
     TooManyRequestsError,
     is_conflict,
     is_not_found,
+    is_transient,
 )
 from .interface import Client, WatchEvent, WatchHandle
 from .fake import FakeClient
@@ -28,9 +35,10 @@ from .rest import ApiClient, RestClient
 from .scheme import Scheme, default_scheme
 
 __all__ = [
-    "AlreadyExistsError", "ApiError", "ConflictError", "InvalidError",
+    "AlreadyExistsError", "ApiError", "BreakerOpenError", "ConflictError",
+    "DeadlineExceededError", "FencedError", "InvalidError",
     "KindNotServedError", "NotFoundError", "TooManyRequestsError",
-    "is_conflict", "is_not_found",
+    "is_conflict", "is_not_found", "is_transient",
     "Client", "WatchEvent", "WatchHandle", "FakeClient",
     "WriteBatcher", "batch_window", "coalesced_patch", "find_batcher",
     "preconditioned_patch", "ApiClient", "RestClient", "Scheme", "default_scheme",

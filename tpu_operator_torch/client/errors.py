@@ -52,12 +52,64 @@ class TooManyRequestsError(ApiError):
         self.retry_after = retry_after
 
 
+class DeadlineExceededError(ApiError):
+    """A client-side deadline expired before the request could go out (the
+    rate limiter's wait would overrun the call's deadline). Not transient,
+    and not the apiserver's failure: 504 by analogy only."""
+
+    code = 504
+
+
 class ConflictError(ApiError):
     code = 409
 
 
 class AlreadyExistsError(ConflictError):
     code = 409
+
+
+class BreakerOpenError(ApiError):
+    """The client-side circuit breaker is open: calls short-circuit locally
+    instead of piling onto a failing apiserver. Not transient (retrying at
+    once is what the breaker prevents); ``retry_in`` is the seconds until it
+    half-opens, which reconcilers requeue for without counting an error."""
+
+    code = 503
+
+    def __init__(self, message: str, retry_in: float | None = None):
+        super().__init__(message, 503)
+        self.retry_in = retry_in
+
+
+class FencedError(ApiError):
+    """This replica is not the leader: the write fence
+    (``client/fenced.py``) refused the write before it reached the wire.
+    Not transient; reconcilers requeue without counting an error. ``epoch``
+    is the last leader epoch this replica held (None if it never led)."""
+
+    code = 403
+
+    def __init__(self, message: str, epoch: int | None = None,
+                 current_epoch: int | None = None):
+        super().__init__(message, 403)
+        self.epoch = epoch
+        self.current_epoch = current_epoch
+
+
+def is_transient(exc: BaseException) -> bool:
+    """Would a retry plausibly succeed? True for overload (429), a 5xx and a
+    transport failure (``OSError``, ``http.client.HTTPException``, what the
+    port's ``http.client`` transport raises); False for 4xx answers and for
+    the client's own refusals (breaker, deadline, fence)."""
+    import http.client
+
+    if isinstance(exc, (BreakerOpenError, DeadlineExceededError, FencedError)):
+        return False
+    if isinstance(exc, TooManyRequestsError):
+        return True
+    if isinstance(exc, ApiError):
+        return exc.code >= 500
+    return isinstance(exc, (OSError, http.client.HTTPException))
 
 
 def is_not_found(error: BaseException) -> bool:

@@ -1,7 +1,9 @@
 """In-memory fake Kubernetes API for tests (copy of
-tpu_operator/client/fake.py). It does not validate custom resources against
-a generated CRD schema, as the reference's does: that comes with the
-schema generator.
+tpu_operator/client/fake.py). Like a real apiserver it validates the
+operator's custom resources (ClusterPolicy, GPUDriver) against the CRDs the
+spec dataclasses generate (``api/schema_gen.py``): a create with an unknown
+field or a bad value is refused with :class:`~.errors.InvalidError` (422),
+and an update is pruned to the schema, then validated.
 
 The reference's entire unit-test strategy is built on controller-runtime's
 fake client (SURVEY.md section 4.1; e.g. controllers/object_controls_test.go:241).
@@ -20,11 +22,31 @@ import uuid
 from typing import Callable, Dict, List, Optional, Tuple
 
 from ..utils import deep_get, json_merge_patch, rfc3339_now
-from .errors import AlreadyExistsError, ConflictError, NotFoundError
+from .errors import AlreadyExistsError, ConflictError, InvalidError, NotFoundError
 from .interface import Client, WatchEvent, WatchHandle
 from .scheme import Scheme, default_scheme
 
 Key = Tuple[str, str, str, str]
+
+_crd_schemas_cache: Optional[Dict[Tuple[str, str], dict]] = None
+
+
+def _default_crd_schemas() -> Dict[Tuple[str, str], dict]:
+    """(apiVersion, kind) -> served openAPIV3Schema of the operator's CRDs,
+    compiled once per process (schema_gen walks the spec dataclasses)."""
+    global _crd_schemas_cache
+    if _crd_schemas_cache is None:
+        from ..api import schema_gen
+        schemas: Dict[Tuple[str, str], dict] = {}
+        for crd in schema_gen.generate_crds().values():
+            group = crd["spec"]["group"]
+            kind = crd["spec"]["names"]["kind"]
+            for v in crd["spec"]["versions"]:
+                if v.get("served"):
+                    schemas[(f"{group}/{v['name']}", kind)] = \
+                        v["schema"]["openAPIV3Schema"]
+        _crd_schemas_cache = schemas
+    return _crd_schemas_cache
 
 def match_label_selector(labels: Optional[dict], selector: Optional[dict]) -> bool:
     """Equality-based selector; a value of None means 'key exists'."""
@@ -96,8 +118,29 @@ class FakeClient(Client):
         #: uids of deleted objects — creates carrying a controller ownerRef
         #: to one of these are garbage-collected immediately (see create())
         self._deleted_uids: set = set()
+        #: the CRD schemas every write of a tpu.ai CR is held to, as a real
+        #: apiserver holds them
+        self._crd_schemas: Dict[Tuple[str, str], dict] = dict(_default_crd_schemas())
         for obj in objects or []:
             self.create(obj)
+
+    def _admit(self, obj: dict, prune: bool = False) -> None:
+        """CRD schema admission. ``prune=True`` (updates) first drops the
+        fields the schema does not know, as a real apiserver does on a write
+        to a stored object, so a CR stored under an older schema does not
+        wedge every later status write. Creates are strict: a typo'd new CR
+        is a 422."""
+        schema = self._crd_schemas.get((obj.get("apiVersion"), obj.get("kind")))
+        if schema is None:
+            return
+        from ..api import schema_validate
+        if prune:
+            schema_validate.prune(obj, schema)
+        errors = schema_validate.validate(obj, schema, obj.get("kind", "object"))
+        if errors:
+            raise InvalidError(
+                f"{obj.get('kind')}/{obj.get('metadata', {}).get('name', '?')} "
+                f"is invalid: " + "; ".join(errors))
 
     # -- helpers -------------------------------------------------------------
     def _key(self, api_version: str, kind: str, name: str, namespace: Optional[str]) -> Key:
@@ -166,6 +209,7 @@ class FakeClient(Client):
     def create(self, obj: dict) -> dict:
         obj = copy.deepcopy(obj)
         meta = obj.setdefault("metadata", {})
+        self._admit(obj)
         with self._lock:
             namespaced = self.scheme.is_namespaced(obj["apiVersion"], obj["kind"])
             if namespaced:
@@ -186,6 +230,7 @@ class FakeClient(Client):
     def update(self, obj: dict) -> dict:
         obj = copy.deepcopy(obj)
         meta = obj.get("metadata", {})
+        self._admit(obj, prune=True)
         with self._lock:
             key = self._key(obj["apiVersion"], obj["kind"], meta["name"], meta.get("namespace"))
             current = self._store.get(key)

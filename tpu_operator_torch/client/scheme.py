@@ -1,6 +1,6 @@
 """Kind registry: maps (apiVersion, kind) -> REST resource metadata (copy
-of tpu_operator/client/scheme.py, without the TPUDriver kind, which comes
-with its CRD).
+of tpu_operator/client/scheme.py, with the per-pool driver kind named
+``GPUDriver``).
 
 The reference gets this from client-go's scheme + RESTMapper; we keep a small
 explicit table covering every GVK the operator touches (the reference's new
@@ -82,6 +82,8 @@ def default_scheme() -> Scheme:
     s.register("monitoring.coreos.com/v1", "PrometheusRule", "prometheusrules")
 
     # the operator's own API group: tpu.ai/v1 ClusterPolicy names the
-    # operator, not the accelerator, so the port keeps it
+    # operator, not the accelerator, so the port keeps it; the per-pool
+    # driver kind names the accelerator
     s.register("tpu.ai/v1", "ClusterPolicy", "clusterpolicies", namespaced=False)
+    s.register("tpu.ai/v1alpha1", "GPUDriver", "gpudrivers", namespaced=False)
     return s

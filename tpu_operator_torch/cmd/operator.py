@@ -1,12 +1,10 @@
 """``gpu-operator`` entry point (counterpart of tpu_operator/cmd/operator.py;
 NVIDIA's cmd/gpu-operator/main.go:74-233).
 
-The parser keeps every flag of the reference whose machinery the port has.
-It leaves out, rather than accepting and ignoring, ``--leader-elect``,
-``--api-qps``, ``--api-burst``, ``--breaker-threshold``,
-``--no-cache-reads``, ``--trace-buffer-size`` and ``--debug-endpoints``:
-their leader election, client layers and flight recorder wait for their
-slices.
+The parser keeps every flag of the reference whose machinery the port has,
+with the reference's defaults. It leaves out, rather than accepting and
+ignoring, ``--trace-buffer-size`` and ``--debug-endpoints``: the flight
+recorder and the ``/debug`` routes wait for their slice.
 """
 
 from __future__ import annotations
@@ -27,9 +25,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--metrics-port", type=int, default=8080, help="Prometheus metrics port (0 disables)")
     p.add_argument("--health-port", type=int, default=8081, help="healthz port (0 disables)")
     p.add_argument("--log-level", default="info", choices=["debug", "info", "warning", "error"])
+    p.add_argument("--leader-elect", action="store_true",
+                   help="enable Lease-based leader election (multi-replica deployments)")
     p.add_argument("--api-timeout", type=float, default=30.0,
                    help="per-request apiserver deadline in seconds (the watch "
                         "stream keeps its own 330s read timeout)")
+    p.add_argument("--api-qps", type=float, default=20.0,
+                   help="client-side steady-state apiserver request rate "
+                        "(token bucket; 0 disables rate limiting)")
+    p.add_argument("--api-burst", type=int, default=40,
+                   help="client-side rate limiter burst size")
+    p.add_argument("--breaker-threshold", type=int, default=5,
+                   help="consecutive hard apiserver failures (5xx/transport) "
+                        "before the circuit breaker opens and the operator "
+                        "enters degraded mode")
+    p.add_argument("--no-cache-reads", dest="cache_reads", action="store_false",
+                   help="serve reconcile reads directly from the apiserver "
+                        "instead of informer caches")
     p.add_argument("--version", action="version", version=f"gpu-operator {__version__}")
     return p
 

@@ -36,6 +36,20 @@ PLUGIN_STACK_LABEL = "tpu.ai/tpu.device-plugin.stack"
 #: unix seconds the labeller first saw the node: kubelets start pulling
 #: operand images then
 IMAGE_PREPULL_ANNOTATION = "tpu.ai/image-prepull"
+#: DaemonSet labels tying a per-pool driver DaemonSet to its GPUDriver
+#: instance and to the node pool it was rendered for
+DRIVER_INSTANCE_LABEL = "tpu.ai/driver-instance"
+NODE_POOL_LABEL = "tpu.ai/node-pool"
+#: the monotonic leader epoch on the operator's Lease, bumped at every
+#: acquisition; the write fence checks against it
+LEADER_EPOCH_ANNOTATION = "tpu.ai/leader-epoch"
+#: read by ``gpuop-cfg status``: the upgrade machine's per-node state, its
+#: remediation attempts, and the autoscale and migration controllers'
+#: durable state (their controllers wait for their slices)
+UPGRADE_STATE_LABEL = "tpu.ai/tpu-driver-upgrade-state"
+HEALTH_ATTEMPTS_ANNOTATION = "tpu.ai/health-remediation-attempts"
+AUTOSCALE_STATE_ANNOTATION = "tpu.ai/autoscale-state"
+MIGRATION_STATE_ANNOTATION = "tpu.ai/migration-state"
 
 # -- multi-node validation -------------------------------------------------------
 #: nodes carrying the same value form one multi-node slice

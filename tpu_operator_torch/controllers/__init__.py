@@ -1,5 +1,6 @@
 from .runtime import ControllerManager, Reconciler, Request, Result
 from .clusterpolicy_controller import ClusterPolicyReconciler
+from .gpudriver_controller import GPUDriverReconciler
 
 __all__ = [
     "ControllerManager",
@@ -7,4 +8,5 @@ __all__ = [
     "Request",
     "Result",
     "ClusterPolicyReconciler",
+    "GPUDriverReconciler",
 ]

@@ -411,6 +411,11 @@ def setup_clusterpolicy_controller(client: Client,
             return _all_policy_requests(client)
         return []
 
+    def map_gpudriver(event: WatchEvent) -> List[Request]:
+        # GPUDriver instances appearing or disappearing move the driver
+        # state's ownership (hand-over, hand-back): re-reconcile at once
+        return _all_policy_requests(client)
+
     def map_validation_pod(event: WatchEvent) -> List[Request]:
         # multihost rendezvous / serving probe pods completing must
         # re-trigger promptly rather than waiting out the 5s NotReady requeue
@@ -436,10 +441,11 @@ def setup_clusterpolicy_controller(client: Client,
                        namespace=reconciler.namespace)
     controller.watches("v1", "ServiceAccount", map_owned,
                        namespace=reconciler.namespace)
+    controller.watches("tpu.ai/v1alpha1", "GPUDriver", map_gpudriver)
     controller.watches("v1", "Pod", map_validation_pod,
                        namespace=reconciler.namespace)
     # demoted to a safety net: watch events (nodes, owned DaemonSets,
-    # validation pods) drive reconciles; the jittered LIST
+    # GPUDriver CRs, validation pods) drive reconciles; the jittered LIST
     # only recovers mappings lost to a watch-stream gap
     controller.resyncs(lambda: _all_policy_requests(client),
                        period=RESYNC_PERIOD_S)

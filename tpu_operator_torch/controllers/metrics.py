@@ -250,6 +250,28 @@ class OperatorMetrics:
             "tpu_operator_rest_client_requests_total",
             "HTTP requests issued to the apiserver, by method and code",
             ["method", "code"]))
+        # the client's resilience layer and write fence
+        self.api_retries = add(Counter(
+            "tpu_operator_api_retries_total",
+            "Transient apiserver failures retried by the client resilience "
+            "layer, by verb and reason (429 / 5xx code / transport)",
+            ["verb", "reason"]))
+        self.api_breaker_state = add(Gauge(
+            "tpu_operator_api_breaker_state",
+            "Apiserver circuit breaker state: 0=closed, 1=half-open, 2=open "
+            "(open = degraded mode: calls short-circuit, reconcilers requeue)"))
+        self.api_breaker_transitions = add(Counter(
+            "tpu_operator_api_breaker_transitions_total",
+            "Circuit breaker state transitions, by state entered", ["state"]))
+        self.api_throttle_seconds = add(Counter(
+            "tpu_operator_api_client_throttle_seconds_total",
+            "Cumulative time requests waited on the client-side token-bucket "
+            "rate limiter"))
+        self.fenced_writes = add(Counter(
+            "tpu_operator_fenced_writes_total",
+            "Mutating apiserver calls rejected by the leader write fence "
+            "(this replica attempted a write after losing, or before "
+            "holding, leadership), by verb", ["verb"]))
         self.batched_writes = add(Counter(
             "tpu_operator_batched_writes_total",
             "Per-object writes deferred into the write coalescer instead of "
@@ -272,6 +294,30 @@ class OperatorMetrics:
     def observe_rest_response(self, method: str, code: int) -> None:
         """RestClient.on_response hook target."""
         self.rest_requests.labels(method=method, code=str(code)).inc()
+
+    def wire_resilience(self, resilience) -> None:
+        """The RetryingClient's hooks: retries, throttle waits, and the
+        breaker's state gauge and transitions."""
+        from ..client.resilience import STATE_VALUES
+
+        resilience.on_retry = (
+            lambda verb, reason:
+            self.api_retries.labels(verb=verb, reason=reason).inc())
+        resilience.on_throttle = self.api_throttle_seconds.inc
+        self.api_breaker_state.set_function(
+            lambda: STATE_VALUES.get(resilience.breaker.state, 0))
+
+        def on_state_change(old: str, new: str) -> None:
+            self.api_breaker_transitions.labels(state=new).inc()
+
+        resilience.breaker.on_state_change = on_state_change
+
+    def wire_fencing(self, fenced) -> None:
+        """The FencedClient's rejection hook: a nonzero
+        ``tpu_operator_fenced_writes_total`` is a deposed replica caught
+        writing."""
+        fenced.on_fenced = (
+            lambda verb: self.fenced_writes.labels(verb=verb).inc())
 
     def wire_batching(self, batcher) -> None:
         """The WriteBatcher's hooks: deferred writes and batch sizes."""

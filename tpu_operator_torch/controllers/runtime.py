@@ -1,6 +1,10 @@
 """Minimal controller-runtime: workqueue + watches + single-flight workers
-(copy of tpu_operator/controllers/runtime.py, without the degraded-mode
-branches of the resilience and fencing layers, which are not ported yet).
+(copy of tpu_operator/controllers/runtime.py, without the tracer and the
+``/debug`` introspection, which wait for the flight recorder's slice).
+
+An open circuit breaker (:class:`~..client.errors.BreakerOpenError`) and
+the write fence (:class:`~..client.errors.FencedError`) are not reconcile
+errors: the request is requeued with no error count and no back-off growth.
 
 The scheduling model copies what the reference actually relies on from
 controller-runtime (SURVEY.md 5.2/5.3): one worker per controller
@@ -19,6 +23,7 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
+from ..client.errors import BreakerOpenError, FencedError
 from ..client.interface import Client, WatchEvent
 
 log = logging.getLogger(__name__)
@@ -197,6 +202,16 @@ class Controller:
                 try:
                     for request in _spec.mapper(event):
                         self.queue.add(request)
+                except BreakerOpenError as e:
+                    # a mapper's cached read met an open breaker: degraded
+                    # mode, not a mapper bug; the resync re-derives it
+                    log.warning("%s: watch mapper skipped (apiserver "
+                                "circuit open, retry in %.1fs); resync "
+                                "will recover", self.reconciler.name,
+                                e.retry_in or 0.0)
+                except FencedError:
+                    log.warning("%s: watch mapper skipped (not leader)",
+                                self.reconciler.name)
                 except Exception:
                     log.exception("%s: watch mapper failed", self.reconciler.name)
             self._handles.append(client.watch(spec.api_version, spec.kind, spec.namespace, handler))
@@ -218,6 +233,13 @@ class Controller:
             try:
                 for request in self._resync_fn():
                     self.queue.add(request)
+            except BreakerOpenError as e:
+                log.warning("%s: resync skipped (apiserver circuit open, "
+                            "retry in %.1fs)", self.reconciler.name,
+                            e.retry_in or 0.0)
+            except FencedError:
+                log.warning("%s: resync skipped (not leader)",
+                            self.reconciler.name)
             except Exception:
                 log.exception("%s: resync failed", self.reconciler.name)
 
@@ -234,6 +256,22 @@ class Controller:
             started = time.monotonic()
             try:
                 result = self.reconciler.reconcile(request)
+            except BreakerOpenError as e:
+                # degraded mode: nothing this reconcile does can land now;
+                # wait out the breaker's cooldown, with no error count and
+                # no back-off growth on top of it
+                delay = max(0.5, e.retry_in or 0.0)
+                log.warning("%s: apiserver circuit open; requeueing %s in "
+                            "%.1fs", self.reconciler.name, request, delay)
+                self.queue.add(request, delay)
+                continue
+            except FencedError:
+                # deposed mid-sweep: split-brain protection working, not an
+                # error; the request waits in case leadership comes back
+                log.warning("%s: write fenced (no longer leader); "
+                            "requeueing %s", self.reconciler.name, request)
+                self.queue.add(request, 1.0)
+                continue
             except Exception:
                 log.exception("%s: reconcile %s failed", self.reconciler.name, request)
                 if self._metrics is not None:

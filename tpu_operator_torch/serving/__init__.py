@@ -6,4 +6,14 @@ The reference's ``traffic`` module, a host-side traffic simulator, is not
 ported yet.
 """
 
-from .probe import ServingReport, run_probe  # noqa: F401
+
+
+def __getattr__(name):
+    # the probe imports torch: load it only when asked for, so the frontier
+    # schema stays importable by torch-free processes (gpuop-cfg, feature
+    # discovery)
+    if name in ("ServingReport", "run_probe"):
+        from . import probe
+
+        return getattr(probe, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

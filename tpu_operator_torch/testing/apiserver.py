@@ -11,6 +11,7 @@ process as the card's cluster.
 
 from __future__ import annotations
 
+import collections
 import json
 import queue
 import threading
@@ -80,8 +81,32 @@ class MiniApiServer:
         # end soon after it
         self.watch_idle_timeout_s = watch_idle_timeout_s
         self._router = _Router(self.scheme)
+        #: requests served, by (verb, kind): GET, LIST, WATCH, POST, PUT
+        #: (``PUT/status`` for the status subresource), PATCH, DELETE
+        self.requests: "collections.Counter[Tuple[str, str]]" = collections.Counter()
+        self._count_lock = threading.Lock()
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
+
+    def _count(self, verb: str, kind: str) -> None:
+        with self._count_lock:
+            self.requests[(verb, kind)] += 1
+
+    @property
+    def request_count(self) -> int:
+        """Requests served so far, of every verb."""
+        with self._count_lock:
+            return sum(self.requests.values())
+
+    def request_counts(self) -> dict:
+        """verb -> requests served so far, writes (POST, PUT, PATCH,
+        DELETE) also summed under ``write``."""
+        with self._count_lock:
+            counts = collections.Counter()
+            for (verb, _), n in self.requests.items():
+                counts[verb.split("/")[0]] += n
+        counts["write"] = sum(counts[v] for v in ("POST", "PUT", "PATCH", "DELETE"))
+        return dict(counts)
 
     # -- lifecycle -----------------------------------------------------------
     def start(self, port: int = 0) -> str:
@@ -123,13 +148,16 @@ class MiniApiServer:
                     params = parse_qs(url.query)
                     api_version, kind, ns, name, _ = server._router.resolve(url.path)
                     if name:
+                        server._count("GET", kind)
                         self._send(200, server.backend.get(api_version, kind, name, ns))
                         return
                     label_selector = _parse_selector(params["labelSelector"][0]) if "labelSelector" in params else None
                     field_selector = _parse_selector(params["fieldSelector"][0]) if "fieldSelector" in params else None
                     if params.get("watch", ["false"])[0] == "true":
+                        server._count("WATCH", kind)
                         self._watch(api_version, kind, ns, params)
                         return
+                    server._count("LIST", kind)
                     # the List envelope carries the store-wide rv — the only
                     # safe watch-resume point (item rvs can be arbitrarily
                     # old). Read it BEFORE snapshotting items: a write landing
@@ -207,6 +235,7 @@ class MiniApiServer:
             def do_POST(self):
                 try:
                     api_version, kind, ns, _, _ = server._router.resolve(urlparse(self.path).path)
+                    server._count("POST", kind)
                     obj = self._body()
                     obj.setdefault("apiVersion", api_version)
                     obj.setdefault("kind", kind)
@@ -219,6 +248,7 @@ class MiniApiServer:
             def do_PUT(self):
                 try:
                     api_version, kind, ns, name, sub = server._router.resolve(urlparse(self.path).path)
+                    server._count("PUT/status" if sub == "status" else "PUT", kind)
                     obj = self._body()
                     if sub == "status":
                         self._send(200, server.backend.update_status(obj))
@@ -230,6 +260,7 @@ class MiniApiServer:
             def do_PATCH(self):
                 try:
                     api_version, kind, ns, name, _ = server._router.resolve(urlparse(self.path).path)
+                    server._count("PATCH", kind)
                     self._send(200, server.backend.patch(api_version, kind, name, self._body(), ns))
                 except ApiError as e:
                     self._fail(e)
@@ -237,6 +268,7 @@ class MiniApiServer:
             def do_DELETE(self):
                 try:
                     api_version, kind, ns, name, _ = server._router.resolve(urlparse(self.path).path)
+                    server._count("DELETE", kind)
                     server.backend.delete(api_version, kind, name, ns)
                     self._send(200, {"kind": "Status", "status": "Success"})
                 except ApiError as e:

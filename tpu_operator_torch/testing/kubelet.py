@@ -23,7 +23,8 @@ DaemonSet a mode decides what runs:
 - ``simulate`` (an app ``modes`` does not name): nothing, the DaemonSet
   is marked available at once.
 
-A DaemonSet counts as available only once its pod is ready; its status
+A DaemonSet counts as available only once its pod is ready; a deleted
+DaemonSet's pod is killed. Its status
 (desired, available, updated, observedGeneration) is written back as the
 DaemonSet controller would. ``capacity_app``'s pod, once its init
 containers passed, gives the Node ``gpu_count`` of ``nvidia.com/gpu`` as
@@ -302,8 +303,16 @@ class ProcessKubelet:
     def sync_once(self) -> None:
         node = self.client.get("v1", "Node", self.node_name)
         labels = deep_get(node, "metadata", "labels", default={}) or {}
+        present = set()
         for ds in self.client.list("apps/v1", "DaemonSet", self.namespace):
+            present.add(ds["metadata"]["name"])
             self._sync_daemonset(ds, labels)
+        # a deleted DaemonSet's pod goes (the garbage collector's part)
+        with self._lock:
+            gone = [(n, self._pods.pop(n)) for n in list(self._pods) if n not in present]
+        for name, run in gone:
+            run.stop()
+            self.record("pod-stop", ds=name)
         for pod in self.client.list("v1", "Pod", self.namespace):
             if deep_get(pod, "spec", "nodeName") == self.node_name:
                 self._sync_pod(pod)

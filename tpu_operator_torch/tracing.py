@@ -193,6 +193,11 @@ class _NoopSpan:
 NOOP_SPAN = _NoopSpan()
 
 
+def current_span() -> Optional[Span]:
+    """The active span on this thread, or None outside a trace."""
+    return _current_span.get()
+
+
 @contextlib.contextmanager
 def span(name: str, kind: str = "internal", **attributes):
     """A child span of the active span; a counted no-op outside a trace."""

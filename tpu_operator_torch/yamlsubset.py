@@ -298,6 +298,7 @@ def _plain(text: str, number: int):
 # -- writing ----------------------------------------------------------------------
 
 _PLAIN_KEY = re.compile(r"[A-Za-z_][A-Za-z0-9_./-]*")
+_ESCAPED = re.compile(r'"(?:[^\\]|\\[\\"nt/])*"')
 
 
 def dump(value, indent: int = 0) -> str:
@@ -360,6 +361,8 @@ def _scalar_text(value) -> str:
     if isinstance(value, list):
         return "[]"
     text = json.dumps(str(value), ensure_ascii=False)
-    if re.search(r"\\[^\\\"nt/]", text):
+    # every escape must be one the reader reads back: an escaped backslash
+    # or quote, \n, \t and \/ are; \u0001, \r, \b and \f are not
+    if not _ESCAPED.fullmatch(text):
         raise SubsetError(f"{value!r} holds a character the subset cannot escape")
     return text
