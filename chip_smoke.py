@@ -93,8 +93,14 @@ Phases, each of which exits non-zero on failure:
    fails again, and the kubelet's next rerun, with the GPU, restores
    ``ready``. The operator runs its full client chain (informer cache on);
    the apiserver's requests to ``ready`` (GET, LIST, WATCH, writes, from
-   the operator and the node agents) are printed. No hand-written kernel
-   runs in this phase (K1's count under ``operator`` is 0).
+   the operator and the node agents) are printed, and so is the join's
+   critical path as the operator's join profiler attributes it
+   (``/debug/join-traces`` on its health port: seconds per phase, coverage,
+   window), which must cover the smoke's CR-to-``ready`` interval within a
+   sweep and sum to at most it, with a ``tpu_operator_join_phase_seconds``
+   sample on ``/metrics``. The ClusterPolicy keeps its health machine off
+   (phase 14 turns it on). No hand-written kernel runs in this phase (K1's
+   count under ``operator`` is 0).
 13. on that cluster, once ``ready`` again (:func:`gpudriver_phase`): the
    sample ``GPUDriver`` (empty selector) takes the driver DaemonSet over
    (the ClusterPolicy's deleted, ``gpu-driver-default-<pool>`` created
@@ -112,6 +118,22 @@ Phases, each of which exits non-zero on failure:
    ``gpuop-cfg status`` and ``validate``; no operator process and no
    ``gpuop-cfg`` maps torch or libcuda. Seconds to each step are printed.
    No hand-written kernel (K1's count under ``gpudriver`` is 0).
+14. on that cluster (:func:`health_phase`): a fresh ``gpu-operator`` with
+   the ClusterPolicy's health machine turned on (cordon on quarantine, two
+   attempts 30 s apart, a 5 s drain window) and feature discovery's
+   interval at 2 s. Episode A: the workload pod gets no GPU, the node goes
+   degraded, quarantined and cordoned, the drain plan expires unacked
+   (``RetileDeadlineExpired``), the operator recycles the validator pod and
+   the cleared fault lets the kubelet's rerun pass on the card: recovered,
+   healthy. Episode B: the fault stays through attempt 1 and attempt 2
+   (the driver pod too, its installer rerun) to sticky ``failed``, with
+   ``NodeHealthDegraded`` on the ClusterPolicy; then the fault and the
+   health label are cleared. ``gpuop-cfg explain node`` prints the two
+   episodes (4 and 5 decision records), ``/debug/timeline`` the same
+   records, one ``prov-*`` ConfigMap each, no orphan in the causality audit
+   of the operator's writes, the metric families' counts; seconds from each
+   fault to each state are printed. No hand-written kernel (K1's count
+   under ``health`` is 0).
 
 Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Needs a CUDA device and the rest of the repository beside this file.
@@ -1529,6 +1551,12 @@ def operator_phase(card, then=None) -> dict:
         "devGlobs": os.environ["GPU_DEV_GLOBS"].split(","),
     }
     cp["spec"]["validator"]["revalidateIntervalS"] = 0
+    # the health machine stays off until phase 14: the flip below measures
+    # the barrier's own path, with no health writes mixed in
+    cp["spec"]["health"] = {"enabled": False}
+    # feature discovery mirrors the node's spans on its interval: 5 s in
+    # place of 60, so the operator's join trace holds them soon after ready
+    cp["spec"]["featureDiscovery"]["sleepInterval"] = "5s"
     cp["spec"]["telemetry"]["metricsPort"] = free_port()
     cp["spec"]["nodeStatusExporter"]["metricsPort"] = free_port()
 
@@ -1537,12 +1565,12 @@ def operator_phase(card, then=None) -> dict:
     srv.backend.create({"apiVersion": "v1", "kind": "Node", "metadata": {
         "name": node_name, "labels": {consts.NFD_NVIDIA_PCI_LABEL: "true",
                                       "kubernetes.io/hostname": node_name}}})
-    metrics_port = free_port()
+    metrics_port, health_port = free_port(), free_port()
     operator_log = os.path.join(work, "operator.log")
     operator = subprocess.Popen(
         [sys.executable, "-m", "tpu_operator_torch.cmd.operator", f"--api-server={base}",
          f"--namespace={consts.DEFAULT_NAMESPACE}", f"--metrics-port={metrics_port}",
-         "--health-port=0"],
+         f"--health-port={health_port}"],
         cwd=repo, stdout=open(operator_log, "w"), stderr=subprocess.STDOUT,
         start_new_session=True,
         env={k: v for k, v in os.environ.items() if not k.startswith("GPU_")})
@@ -1654,6 +1682,8 @@ def operator_phase(card, then=None) -> dict:
             "simulated": simulated,
         })
         print(json.dumps({"operator_join": numbers}))
+        numbers["critical_path"] = join_critical_path(
+            health_port, metrics_port, node_name, t0, seen["ClusterPolicy ready"], card)
 
         # a failing workload barrier holds the CR notReady; a passing rerun
         # restores it. The recycle alone makes the validator DaemonSet
@@ -2056,6 +2086,416 @@ def gpudriver_phase(ctx) -> dict:
     return numbers
 
 
+def _debug_json(port: int, path: str):
+    """A ``/debug`` page of an operator's health port, or None."""
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=5) as r:
+            return json.loads(r.read())
+    except (OSError, ValueError):
+        return None
+
+
+def join_critical_path(health_port: int, metrics_port: int, node_name: str, t0: float,
+                       ready_s: float, card: str) -> dict:
+    """Phase 12's join as the operator's join profiler attributes it
+    (``/debug/join-traces``): seconds per phase of the critical path, its
+    coverage and its window, beside the smoke's own clock. The window must
+    cover the CR-to-``ready`` interval the smoke measured, give or take one
+    sweep (5 s), the phases must sum to at most the window, and
+    ``tpu_operator_join_phase_seconds`` must have a sample."""
+
+    def complete():
+        # complete, with the workload barrier's closed span mirrored in
+        # (feature discovery mirrors the node's span log every 5 s)
+        body = _debug_json(health_port, f"/debug/join-traces?node={node_name}") or {}
+        traces = [t for t in body.get("traces") or [] if t["window"]["complete"]
+                  and any(s["n"] == "operand.workload" and s.get("d") is not None
+                          for s in t["node_spans"])]
+        return traces[0] if traces else None
+
+    trace = _wait_for(complete, 40, "a complete join trace with the workload's closed span")
+    window, att = trace["window"], trace["attribution"]
+    out = {
+        "window_from_cr_s": [round(window["start_unix"] - t0, 3),
+                             round(window["end_unix"] - t0, 3)],
+        "window_s": att["window_s"], "coverage": att["coverage"],
+        "phases_s": att["phases"], "unattributed_s": att["unattributed_s"],
+        "operator_sweeps": trace["operator_sweeps"], "node_spans": len(trace["node_spans"]),
+        "orphan_spans": len(trace["orphan_spans"]), "smoke_ready_s": ready_s,
+        "node_span_s": {s["n"]: None if s.get("d") is None else round(s["d"], 3)
+                        for s in trace["node_spans"]},
+    }
+    check(window["start_unix"] <= t0 + NOT_READY_SWEEP_S
+          and window["end_unix"] >= t0 + ready_s - NOT_READY_SWEEP_S,
+          f"the join window {out['window_from_cr_s']} does not cover the CR to ready "
+          f"(0, {ready_s}) within a sweep")
+    check(sum(att["phases"].values()) <= att["window_s"] + 1e-3,
+          f"the phases sum past the window: {att}")
+
+    def sampled():
+        return any(k.startswith("tpu_operator_join_phase_seconds_count{")
+                   for k in scrape_samples(_try_scrape(metrics_port) or ""))
+
+    _wait_for(sampled, 30, "a tpu_operator_join_phase_seconds sample")
+    print(json.dumps({"join_critical_path": out, "card": card}))
+    return out
+
+
+#: the operator's requeue while a ClusterPolicy is not ready, its sweep
+#: cadence during a join
+NOT_READY_SWEEP_S = 5.0
+
+#: phase 14's ClusterPolicy health settings: the schema's shortest
+#: remediation wait, two attempts, a 5 s drain window, cordon on quarantine
+HEALTH_SPEC = {"enabled": True, "cordonOnQuarantine": True, "maxRemediationAttempts": 2,
+               "remediationWaitS": 30, "drainDeadlineS": 5}
+#: what each health episode's decision chain holds, in order
+EPISODE_A = ["drain-plan", "drain-force", "remediate", "health-recover"]
+EPISODE_B = ["drain-plan", "drain-force", "remediate", "remediate", "health-failed"]
+
+
+class NodeTrail:
+    """Every change of a node's health label, cordon, plan annotation and
+    published verdict, timed, from the apiserver backend's own watch: a
+    state the next sweep leaves at once lasts less than any poll.
+    ``on_change(entry)`` runs on the writer's thread and must not block."""
+
+    def __init__(self, backend, node_name: str, on_change=None):
+        self.node_name = node_name
+        self.on_change = on_change
+        self.changes: list = []
+        self._lock = threading.Lock()
+        self._handle = backend.watch("v1", "Node", None, handler=self._on)
+        self._on(types.SimpleNamespace(object=backend.get("v1", "Node", node_name)))
+
+    def _on(self, event) -> None:
+        from tpu_operator_torch import consts
+
+        meta = event.object.get("metadata") or {}
+        if meta.get("name") != self.node_name:
+            return
+        anns = meta.get("annotations") or {}
+        entry = {"state": (meta.get("labels") or {}).get(consts.HEALTH_STATE_LABEL) or "healthy",
+                 "cordoned": bool((event.object.get("spec") or {}).get("unschedulable")),
+                 "plan": consts.RETILE_PLAN_ANNOTATION in anns,
+                 "verdict": anns.get(consts.WORKLOAD_HEALTH_ANNOTATION)}
+        with self._lock:
+            if self.changes and all(self.changes[-1][k] == v for k, v in entry.items()):
+                return
+            self.changes.append(dict(entry, t=time.time()))
+        if self.on_change is not None:
+            self.on_change(entry)
+
+    def first(self, after: float, **match):
+        with self._lock:
+            return next((c for c in self.changes if c["t"] > after
+                         and all(c[k] == v for k, v in match.items())), None)
+
+    def states(self, after: float) -> list:
+        """The distinct health states after ``after``, in order."""
+        out = []
+        with self._lock:
+            for c in self.changes:
+                if c["t"] > after and (not out or out[-1] != c["state"]):
+                    out.append(c["state"])
+        return out
+
+    def stop(self) -> None:
+        self._handle.stop()
+
+
+def _node_events(backend, namespace: str, name: str) -> dict:
+    """Each reason's Event count on an object."""
+    out: dict = {}
+    for e in backend.list("v1", "Event", namespace):
+        if e["involvedObject"]["name"] == name:
+            out[e["reason"]] = out.get(e["reason"], 0) + int(e.get("count") or 1)
+    return out
+
+
+def _events_since(before: dict, after: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items() if v != before.get(k, 0)}
+
+
+def _explain_episodes(text: str) -> list:
+    """``gpuop-cfg explain``'s episodes: (id, [subsystem/kind, ...]) in order."""
+    episodes = []
+    for line in text.splitlines():
+        head = re.match(r"episode (ep-[0-9a-f]+) ", line)
+        if head:
+            episodes.append((head.group(1), []))
+            continue
+        step = re.match(r"  \[\d+\] (\S+)  trigger=", line)
+        if step and episodes:
+            episodes[-1][1].append(step.group(1))
+    return episodes
+
+
+def health_phase(ctx) -> dict:
+    """Phase 14, on phases 12-13's cluster: a fresh ``gpu-operator`` with a
+    health port, the ClusterPolicy's health machine turned on, and two
+    episodes on the node. Episode A, a transient fault: the workload pod
+    gets no GPU (``ctx.fault_env``), the node walks degraded and
+    quarantined (cordoned), the drain plan waits out its 5 s deadline with
+    no ack, the operator recycles the validator pod, and the fault, cleared
+    at once, lets the kubelet's rerun pass: recovered, then healthy. Episode
+    B, a persistent fault: attempt 1, attempt 2 (the driver pod too) 30 s
+    later, sticky ``failed`` 30 s after that, with ``NodeHealthDegraded``
+    on the ClusterPolicy; then the fault and the health label are cleared,
+    as an admin would. Checked: the states, cordon, plans and Events of
+    each episode; ``gpuop-cfg explain`` and ``/debug/timeline`` with two
+    episodes of 4 and 5 records; one ``prov-*`` ConfigMap per record; no
+    orphan in the causality audit of every write the operator made over
+    HTTP (an ``ActuationObserver`` on the apiserver's backend); the metric
+    families; neither torch nor libcuda in the operator or ``gpuop-cfg``.
+
+    ``ctx``: as :func:`gpudriver_phase` has it, and ``fault_env``, the env
+    that fails the workload pod (default: no visible GPU)."""
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.provenance import ActuationObserver, DecisionJournal, causality_audit
+
+    raw, kubelet, ns, node_name = ctx.srv.backend, ctx.kubelet, ctx.namespace, ctx.node_name
+    fault = dict(getattr(ctx, "fault_env", None) or {"CUDA_VISIBLE_DEVICES": ""})
+    observer = ctx.srv.backend = ActuationObserver(raw)  # the HTTP handlers write through it
+    numbers = {"card": ctx.card}
+    started = time.monotonic()
+
+    def policy():
+        return raw.get("tpu.ai/v1", "ClusterPolicy", "cluster-policy")
+
+    def cp_state():
+        return (policy().get("status") or {}).get("state")
+
+    def condition():
+        return next((c for c in (policy().get("status") or {}).get("conditions") or []
+                     if c.get("type") == "NodeHealthDegraded"), {})
+
+    def verdict():
+        return (raw.get("v1", "Node", node_name)["metadata"].get("annotations") or {}).get(
+            consts.WORKLOAD_HEALTH_ANNOTATION)
+
+    def since(t, predicate, timeout, what):
+        found = _wait_for(predicate, timeout, what)
+        return round((found["t"] if isinstance(found, dict) else time.time()) - t, 3)
+
+    op = _Operator(ctx, os.path.join(ctx.work, "operator-health.log"))
+    episode = {"name": None}
+
+    def on_change(entry):
+        # episode A's fault is transient: it clears as the remediation
+        # recycles the validator, before the kubelet's rerun starts
+        if episode["name"] == "A" and entry["state"] == "remediating":
+            kubelet.pod_env = None
+
+    trail = None
+    try:
+        _wait_for(lambda: op.readyz().get("status") == "ok", 120, "the phase-14 operator ready")
+        _wait_for(lambda: cp_state() == "ready", 120, "the ClusterPolicy ready under it")
+        t_patch = time.time()
+        body = json.dumps({"spec": {"health": HEALTH_SPEC,
+                                    "featureDiscovery": {"sleepInterval": "2s"}}}).encode()
+        request = urllib.request.Request(
+            f"{ctx.base}/apis/tpu.ai/v1/clusterpolicies/cluster-policy", data=body,
+            method="PATCH", headers={"Content-Type": "application/merge-patch+json"})
+        with urllib.request.urlopen(request, timeout=10) as r:
+            check(r.status == 200, f"the health patch: {r.status}")
+        check(policy()["spec"]["health"]["drainDeadlineS"] == 5, "the health patch not stored")
+        _wait_for(lambda: kubelet.first("pod-start", after=t_patch, ds="gpu-feature-discovery"),
+                  60, "feature discovery restarted with its 2 s interval")
+        _wait_for(lambda: cp_state() == "ready" and verdict() == "passed", 120,
+                  "ready, with a passing verdict published")
+        trail = NodeTrail(raw, node_name, on_change)
+
+        # -- episode A: a transient fault ----------------------------------------
+        before = _node_events(raw, ns, node_name)
+        episode["name"] = "A"
+        t_a = time.time()
+        kubelet.pod_env = dict(fault)
+        kubelet.restart("gpu-operator-validator")
+        a = {"verdict_failed_s": since(t_a, lambda: trail.first(t_a, verdict="failed"), 120,
+                                       "the failed verdict published (A)"),
+             "degraded_s": since(t_a, lambda: trail.first(t_a, state="degraded"), 60,
+                                 "degraded (A)"),
+             "quarantined_s": since(t_a, lambda: trail.first(t_a, state="quarantined"), 60,
+                                    "quarantined (A)"),
+             "cordoned_s": since(t_a, lambda: trail.first(t_a, state="quarantined",
+                                                         cordoned=True), 60, "cordoned (A)"),
+             "plan_s": since(t_a, lambda: trail.first(t_a, state="quarantined", plan=True), 60,
+                             "the drain plan (A)"),
+             "remediating_s": since(t_a, lambda: trail.first(t_a, state="remediating"), 60,
+                                    "remediating (A)")}
+        t_rem = t_a + a["remediating_s"]
+        a["validator_pod_deleted_s"] = since(
+            t_a, lambda: kubelet.first("pod-deleted", after=t_rem - 1.0,
+                                       ds="gpu-operator-validator"), 30,
+            "the validator pod deleted by the operator (A)")
+        a["recovered_s"] = since(t_a, lambda: trail.first(t_a, state="recovered"), 120,
+                                 "recovered (A)")
+        a["healthy_s"] = since(t_a, lambda: trail.first(t_a + a["recovered_s"], state="healthy"),
+                               60, "healthy (A)")
+        check(trail.states(t_a) == ["healthy", "degraded", "quarantined", "remediating",
+                                    "recovered", "healthy"], f"episode A walked {trail.states(t_a)}")
+        recovered = trail.first(t_a, state="recovered")
+        check(not recovered["cordoned"] and not recovered["plan"],
+              f"recovered still cordoned or planned: {recovered}")
+        rerun = _wait_for(lambda: kubelet.first("init-exit", after=t_rem,
+                                                ds="gpu-operator-validator",
+                                                container="workload-validation"), 60,
+                          "the validator's rerun after the recycle (A)")
+        check(rerun["rc"] == 0, f"the rerun after the recycle: {rerun}")
+        a["rerun_passed_s"] = round(rerun["t"] - t_a, 3)
+        a["events"] = _events_since(before, _node_events(raw, ns, node_name))
+        for reason in ("NodeHealthDegraded", "NodeHealthQuarantined", "RetilePlanned",
+                       "RetileDeadlineExpired", "NodeHealthRemediating",
+                       "NodeHealthRecovered"):
+            check(a["events"].get(reason) == 1, f"episode A's {reason} Events: {a['events']}")
+        numbers["episode_a"] = a
+        print(json.dumps({"health_episode_a": a, "card": ctx.card}))
+
+        # -- episode B: a persistent fault ----------------------------------------
+        episode["name"] = "B"
+        _wait_for(lambda: verdict() == "passed", 60, "a passing verdict before episode B")
+        before = _node_events(raw, ns, node_name)
+        cp_before = _node_events(raw, ns, "cluster-policy")
+        t_b = time.time()
+        kubelet.pod_env = dict(fault)
+        kubelet.restart("gpu-operator-validator")
+        b = {"verdict_failed_s": since(t_b, lambda: trail.first(t_b, verdict="failed"), 120,
+                                       "the failed verdict published (B)"),
+             "quarantined_s": since(t_b, lambda: trail.first(t_b, state="quarantined"), 60,
+                                    "quarantined (B)"),
+             "remediating_s": since(t_b, lambda: trail.first(t_b, state="remediating"), 60,
+                                    "remediating (B)")}
+        t_rem = t_b + b["remediating_s"]
+        b["attempt_2_s"] = since(t_b, lambda: kubelet.first("pod-deleted", after=t_rem + 1.0,
+                                                            ds="gpu-driver"), 90,
+                                 "attempt 2 restarting the driver pod (B)")
+        t_two = t_b + b["attempt_2_s"]
+        b["driver_reinstalled_s"] = since(
+            t_b, lambda: kubelet.first("startup-probe-passed", after=t_two, ds="gpu-driver"), 60,
+            "the driver installer past its probe again (B)")
+        b["failed_s"] = since(t_b, lambda: trail.first(t_b, state="failed"), 90, "failed (B)")
+        check(trail.states(t_b) == ["healthy", "degraded", "quarantined", "remediating",
+                                    "failed"], f"episode B walked {trail.states(t_b)}")
+        message = "node GPU health: 1 failed"
+        b["condition_s"] = since(t_b, lambda: condition().get("status") == "True"
+                                 and condition().get("message") == message, 30,
+                                 "NodeHealthDegraded True on the ClusterPolicy")
+        warnings = [e for e in raw.list("v1", "Event", ns)
+                    if e["involvedObject"]["name"] == "cluster-policy"
+                    and e["reason"] == "NodeHealthDegraded" and e["message"] == message]
+        check(len(warnings) == 1 and int(warnings[0].get("count") or 1) == 1
+              and warnings[0]["type"] == "Warning", f"the condition's Warning Events {warnings}")
+        b["events"] = _events_since(before, _node_events(raw, ns, node_name))
+        for reason, n in (("NodeHealthQuarantined", 1), ("RetilePlanned", 1),
+                          ("RetileDeadlineExpired", 1), ("NodeHealthRemediating", 2),
+                          ("NodeHealthFailed", 1)):
+            check(b["events"].get(reason) == n, f"episode B's {reason} Events: {b['events']}")
+        b["policy_events"] = _events_since(cp_before, _node_events(raw, ns, "cluster-policy"))
+
+        # the admin's way out: the fault cleared, a passing verdict, the label removed
+        t_c = time.time()
+        kubelet.pod_env = None
+        b["passing_again_s"] = since(t_c, lambda: trail.first(t_c, verdict="passed"), 120,
+                                     "a passing verdict after the fault cleared")
+        check(trail.states(t_c) == ["failed"], f"sticky failed left: {trail.states(t_c)}")
+        t_d = time.time()
+        raw.patch("v1", "Node", node_name, {"metadata": {"labels": {
+            consts.HEALTH_STATE_LABEL: None}}})
+        health_keys = (consts.HEALTH_STATE_SINCE_ANNOTATION, consts.HEALTH_ATTEMPTS_ANNOTATION,
+                       consts.HEALTH_FLAP_HISTORY_ANNOTATION, consts.HEALTH_FLAP_STICKY_ANNOTATION,
+                       consts.HEALTH_FAILED_TEMPLATE_ANNOTATION, consts.RETILE_PLAN_ANNOTATION,
+                       consts.PROVENANCE_EPISODE_ANNOTATION)
+
+        def wiped():
+            anns = raw.get("v1", "Node", node_name)["metadata"].get("annotations") or {}
+            return not any(k in anns for k in health_keys)
+
+        b["wiped_s"] = since(t_d, wiped, 30, "every health annotation wiped after the clear")
+        b["condition_false_s"] = since(t_d, lambda: condition().get("status") == "False", 30,
+                                       "NodeHealthDegraded False")
+        check(trail.states(t_d) == ["healthy"], f"after the clear: {trail.states(t_d)}")
+        b["cordoned_after_clear"] = bool(raw.get("v1", "Node", node_name).get(
+            "spec", {}).get("unschedulable"))
+        numbers["episode_b"] = b
+        print(json.dumps({"health_episode_b": b, "card": ctx.card}))
+
+        # -- the records ------------------------------------------------------------
+        explain = _gpuop_cfg(ctx, "explain", "node", node_name, "--base-url", ctx.base)
+        check(explain["rc"] == 0, f"gpuop-cfg explain exited {explain['rc']}: "
+                                  f"{explain['out']}{explain['err'][-2000:]}")
+        print(explain["out"])
+        episodes = _explain_episodes(explain["out"])
+        check([kinds for _, kinds in episodes] == [[f"health/{k}" for k in EPISODE_A],
+                                                   [f"health/{k}" for k in EPISODE_B]]
+              and episodes[0][0] != episodes[1][0], f"explain's episodes {episodes}")
+        timeline = _debug_json(op.health_port, f"/debug/timeline?node={node_name}&limit=1000")
+        mirrors = [json.loads(cm["data"]["record"]) for cm in raw.list("v1", "ConfigMap", ns)
+                   if consts.PROVENANCE_LABEL in (cm["metadata"].get("labels") or {})]
+        check(sorted(r["record_id"] for r in timeline["records"])
+              == sorted(r["record_id"] for r in mirrors)
+              and len(mirrors) == timeline["stats"]["records"]
+              == sum(len(k) for _, k in episodes) == 9,
+              f"timeline {timeline['count']}, journal {timeline['stats']}, "
+              f"ConfigMaps {len(mirrors)}, explain {episodes}")
+        journal_path = os.path.join(ctx.work, "journal-from-configmaps.jsonl")
+        with open(journal_path, "w") as f:
+            for r in mirrors:
+                f.write(json.dumps(r, sort_keys=True) + "\n")
+        audit = causality_audit(DecisionJournal(path=journal_path), observer.observed)
+        check(audit["ok"] and not audit["orphans"] and audit["observed"] >= 2,
+              f"causality audit {audit}")
+        numbers["records"] = {"episodes": [[e, len(k)] for e, k in episodes],
+                              "configmaps": len(mirrors), "journal": timeline["stats"],
+                              "audit": {k: audit[k] for k in ("observed", "covered",
+                                                              "episodes", "complete_episodes",
+                                                              "ok")}}
+
+        # -- the metric families ------------------------------------------------------
+        samples = scrape_samples(_try_scrape(op.metrics_port) or "")
+        states = {k.split('"')[1]: v for k, v in samples.items()
+                  if k.startswith("tpu_operator_node_health_state{")}
+        durations = sum(v for k, v in samples.items()
+                        if k.startswith("tpu_operator_episode_duration_seconds_count{"))
+        metrics = {
+            "remediation_attempts_total": samples.get("tpu_operator_remediation_attempts_total"),
+            "drain_deadline_missed_total": samples.get(
+                "tpu_operator_drain_deadline_missed_total"),
+            "decision_records_total_health": samples.get(
+                'tpu_operator_decision_records_total{subsystem="health"}'),
+            "episode_durations": durations, "node_health_state": states,
+        }
+        check(metrics["remediation_attempts_total"] == 3
+              and metrics["drain_deadline_missed_total"] == 2
+              and metrics["decision_records_total_health"] == 9 and durations == 2
+              and states.get("healthy") == 1
+              and not any(v for k, v in states.items() if k != "healthy"),
+              f"the health metrics {metrics}")
+        numbers["metrics"] = metrics
+
+        # -- isolation ------------------------------------------------------------------
+        maps = {"operator": op.maps(), "gpuop_cfg": explain["maps_line"]}
+        check(maps["operator"] == (False, False) and explain["maps_line"] == "MAPS False False",
+              f"maps torch/libcuda: {maps}")
+        numbers["maps_torch_or_libcuda"] = maps
+        _wait_for(lambda: cp_state() == "ready", 120, "the ClusterPolicy ready at the end")
+        numbers["phase_s"] = round(time.monotonic() - started, 3)
+        print(json.dumps({"health_phase": {k: numbers[k] for k in (
+            "records", "metrics", "phase_s")}, "card": ctx.card}))
+    except SystemExit:
+        print(f"-- {op.log_path}:\n{op.log()[-6000:]}", file=sys.stderr)
+        if trail is not None:
+            print(f"-- node trail: {trail.changes}", file=sys.stderr)
+        raise
+    finally:
+        kubelet.pod_env = None
+        if trail is not None:
+            trail.stop()
+        ctx.srv.backend = raw
+        op.stop()
+    return numbers
+
+
 def _try_scrape(port: int):
     try:
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=2) as r:
@@ -2275,17 +2715,23 @@ def main() -> int:
     k1.launches = 0
     counts = {}
 
-    def phase13(ctx):
+    def phases_13_14(ctx):
         counts["operator"] = k1.launches
         phase("GPUDriver hand-over and back, the CRD schema, leader election and the fence")
         k1.launches = 0
         gpudriver_phase(ctx)
         counts["gpudriver"] = k1.launches
+        phase("the GPU-health loop and its black box: two episodes, explain, the audit")
+        k1.launches = 0
+        health_phase(ctx)
+        counts["health"] = k1.launches
 
-    operator_phase(card, then=phase13)
+    operator_phase(card, then=phases_13_14)
     operator_launches, gpudriver_launches = counts["operator"], counts["gpudriver"]
+    health_launches = counts["health"]
     check(operator_launches == 0, f"the operator path launched K1 {operator_launches} times")
     check(gpudriver_launches == 0, f"phase 13 launched K1 {gpudriver_launches} times")
+    check(health_launches == 0, f"phase 14 launched K1 {health_launches} times")
 
     print(json.dumps({"smoke_s": round(time.monotonic() - _T0, 1), "card": card}))
     print(json.dumps({"kernels": [{
@@ -2302,14 +2748,15 @@ def main() -> int:
         "library_ms": timing["library"],
         # the paths without K1 launch it no time: serving (7), the steady
         # state (9), the device plumbing (10), the last components (11), the
-        # operator (12) and the GPUDriver and leader phase (13) are checked
-        # at 0 above
+        # operator (12), the GPUDriver and leader phase (13) and the health
+        # loop (14) are checked at 0 above
         "launches_by_phase": {"perf": k1_main_launches, "serving": serving_launches,
                               "steady_state": steady_state_launches,
                               "device_plumbing": plumbing_launches,
                               "last_components": last_launches,
                               "operator": operator_launches,
-                              "gpudriver": gpudriver_launches},
+                              "gpudriver": gpudriver_launches,
+                              "health": health_launches},
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

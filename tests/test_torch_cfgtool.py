@@ -367,3 +367,54 @@ def test_the_console_script_is_declared():
     text = open(os.path.join(REPO, "pyproject.toml")).read()
     assert 'gpuop-cfg = "tpu_operator_torch.cmd.cfg:main"' in text
     assert '"api/crds/*.yaml"' in text
+
+
+# -- explain ------------------------------------------------------------------------------
+
+def _journal(journal_cls, **kwargs):
+    j = journal_cls(now=lambda: 100.0, **kwargs)
+    j.record_decision(
+        "health", "drain-plan", "ep-disk", {"type": "verdict", "plan": "7c1e"},
+        inputs={"deadline_s": 5}, decision={"node": "node-a", "plan": "7c1e"},
+        alternatives=[{"option": "force-immediate", "rejected": "drain window"}],
+        actuations=[{"verb": "plan", "kind": "Node", "name": "node-a"}], node="node-a")
+    j.record_decision(
+        "health", "health-recover", "ep-disk", {"type": "verdict", "value": "passed"},
+        decision={"node": "node-a"}, outcome="recovered", node="node-a")
+    return j
+
+
+def test_explain_renders_the_chain_from_a_disk_journal(tmp_path, capsys):
+    from tpu_operator.provenance import DecisionJournal as RefJournal
+    from tpu_operator_torch.provenance import DecisionJournal
+
+    paths = {"ref": str(tmp_path / "ref.jsonl"), "port": str(tmp_path / "port.jsonl")}
+    _journal(RefJournal, path=paths["ref"])
+    _journal(DecisionJournal, path=paths["port"])
+    assert ref_run(["explain", "node", "node-a", "--journal-path", paths["ref"]]) == 0
+    want = capsys.readouterr().out
+    assert run(["explain", "node", "node-a", "--journal-path", paths["port"]]) == 0
+    got = capsys.readouterr().out
+    assert got == want and "episode ep-disk  drain-plan  node=node-a  CLOSED" in got
+    for runner, path in ((ref_run, paths["ref"]), (run, paths["port"])):
+        assert runner(["explain", "node", "ghost", "--journal-path", path]) == 1
+        assert "no decision records" in capsys.readouterr().out
+
+
+def test_explain_reads_the_mirror_configmaps(capsys):
+    from tpu_operator_torch.provenance import DecisionJournal
+
+    srv = MiniApiServer()
+    base = srv.start()
+    try:
+        _journal(DecisionJournal, client=RestClient(base), namespace="tpu-operator")
+        assert run(["explain", "episode", "ep-disk", "--base-url", base]) == 0
+        got = capsys.readouterr().out
+        # the reference's tpuop-cfg reads the same ConfigMaps the same way
+        assert ref_run(["explain", "episode", "ep-disk", "--base-url", base]) == 0
+        assert got == capsys.readouterr().out
+        assert "health/drain-plan" in got and "outcome: recovered" in got
+    finally:
+        srv.stop()
+    assert run(["explain", "node", "node-a", "--base-url", "http://127.0.0.1:1"]) == 2
+    assert "cannot reach the cluster" in capsys.readouterr().err

@@ -15,6 +15,7 @@ import copy
 import pytest
 
 from test_torch_operator_mapping import (
+    add_driver_own_settings,
     map_driver,
     map_driver_object,
     map_driver_status,
@@ -396,3 +397,45 @@ def test_an_event_on_one_instance_reconciles_every_instance():
     # a deleted instance's event reaches the survivors
     twin.delete_driver("two")
     assert [r.name for r in port_map(WatchEvent("DELETED", map_driver(event)))] == ["two", "one"]
+
+
+def test_a_gpudriver_s_own_settings_reach_its_daemonset():
+    """A GPUDriver's own toleration, label, annotation, node affinity and
+    priority class, none of which the ClusterPolicy has, reach its pool's
+    DaemonSet; the reference renders the same DaemonSet without them (the
+    difference :func:`add_driver_own_settings` states)."""
+    own = {
+        "labels": {"example.com/team": "ml"},
+        "annotations": {"example.com/owner": "infra"},
+        "tolerations": [{"key": "example.com/dedicated", "operator": "Equal",
+                         "value": "gpu", "effect": "NoSchedule"}],
+        "nodeAffinity": {"requiredDuringSchedulingIgnoredDuringExecution": {
+            "nodeSelectorTerms": [{"matchExpressions": [{
+                "key": "example.com/zone", "operator": "In", "values": ["a"]}]}]}},
+        "priorityClassName": "gpu-critical",
+    }
+    twin = Twin()
+    setup_cluster(twin, n_a=1, n_b=0)
+    twin.driver("main", {"image": "img", "nodeSelector": {GROUP: "a"}, **own})
+    twin.ref_r.reconcile(RefRequest("main"))
+    twin.port_r.reconcile(Request("main"))
+    name = "gpu-driver-main-nvidia-h100-80gb"
+    port = _normal(twin.port.get("apps/v1", "DaemonSet", name, NS))
+    (ref,) = twin.ref.list("apps/v1", "DaemonSet", NS)
+    mapped = _normal(map_object(map_driver_object(ref, "main")))
+    pod = port["spec"]["template"]["spec"]
+    assert port["metadata"]["labels"]["example.com/team"] == "ml"
+    assert port["spec"]["template"]["metadata"]["annotations"]["example.com/owner"] == "infra"
+    assert own["tolerations"][0] in pod["tolerations"]
+    assert pod["affinity"] == {"nodeAffinity": own["nodeAffinity"]}
+    assert pod["priorityClassName"] == "gpu-critical"
+    # the reference's DaemonSet has none of the five (its fault) ...
+    ref_pod = mapped["spec"]["template"]["spec"]
+    assert "example.com/team" not in mapped["metadata"]["labels"]
+    assert own["tolerations"][0] not in ref_pod["tolerations"]
+    assert "affinity" not in ref_pod and ref_pod["priorityClassName"] != "gpu-critical"
+    # ... and is the port's in every other field
+    want = add_driver_own_settings(mapped, own)
+    want["metadata"]["annotations"][consts.SPEC_HASH_ANNOTATION] = \
+        port["metadata"]["annotations"][consts.SPEC_HASH_ANNOTATION]
+    assert port == want

@@ -84,7 +84,10 @@ def test_port_module_list_is_complete():
                      "api.gpudriver", "api.schema_gen", "api.schema_validate",
                      "controllers.gpudriver_controller", "controllers.leader",
                      "client.resilience", "client.fenced", "client.cache",
-                     "cfgtool", "cfgtool.main", "cmd.cfg"):
+                     "cfgtool", "cfgtool.main", "cmd.cfg",
+                     "health.machine", "provenance", "provenance.journal",
+                     "provenance.audit", "provenance.explain", "joinprofile.critical_path",
+                     "joinprofile.collector"):
         assert f"tpu_operator_torch.{expected}" in names
 
 
@@ -191,7 +194,10 @@ DAEMON_MODULES = ("tpu_operator_torch.cmd.operator", "tpu_operator_torch.control
                   "tpu_operator_torch.controllers.leader", "tpu_operator_torch.client.resilience",
                   "tpu_operator_torch.client.fenced", "tpu_operator_torch.client.cache",
                   "tpu_operator_torch.api.schema_gen", "tpu_operator_torch.api.schema_validate",
-                  "tpu_operator_torch.cfgtool.main", "tpu_operator_torch.cmd.cfg")
+                  "tpu_operator_torch.cfgtool.main", "tpu_operator_torch.cmd.cfg",
+                  "tpu_operator_torch.health.machine", "tpu_operator_torch.provenance",
+                  "tpu_operator_torch.joinprofile.collector",
+                  "tpu_operator_torch.joinprofile.critical_path")
 
 
 def test_the_node_daemons_import_no_torch(tmp_path):

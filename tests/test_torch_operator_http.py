@@ -34,7 +34,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SAMPLE = os.path.join(REPO, "tpu_operator_torch", "manifests", "samples", "v1_clusterpolicy.json")
 NS = "tpu-operator"
 JOIN_TIMEOUT_S = 120
-LEFT_OUT = {"--trace-buffer-size", "--debug-endpoints", "--no-debug-endpoints"}
+LEFT_OUT: set = set()
 
 
 def _flags(parser):

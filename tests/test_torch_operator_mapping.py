@@ -1,7 +1,8 @@
 """The one mapping from the reference (TPU) operator's inputs and outputs to
 the port's (GPU) ones, shared by every operator parity test
 (tests/test_torch_operator_*.py, tests/test_torch_gpudriver_controller.py,
-tests/test_torch_schema.py, tests/test_torch_cfgtool.py): a ClusterPolicy
+tests/test_torch_schema.py, tests/test_torch_cfgtool.py and the health,
+provenance and ``/debug`` twins): a ClusterPolicy
 spec, a Node, a rendered or applied object, the per-pool driver CR and its
 objects, a CRD, ``gpuop-cfg``'s output. Each deliberate difference of the
 port is written here once; a parity test maps the reference's side and
@@ -10,9 +11,12 @@ is ``GPUDriver`` (group and version kept), ``libtpuVersion`` is
 ``driverVersion``, pools are keyed on the GPU model (:func:`map_pool_name`)
 and a pool's DaemonSet is ``gpu-driver-<instance>-<pool>``
 (:func:`map_driver_object`); ``validate-partitions`` takes a link class
-and a GPU count (:data:`PARTITION_NODES`). The tests at the end hold the
-mapping itself: it changes nothing the port already renders, and it leaves
-no TPU name behind in what it maps.
+and a GPU count (:data:`PARTITION_NODES`). The health section states the
+GPU-health machine's renames (the pods it recycles, the texts naming GPUs)
+and its one deliberate difference, each episode's own id;
+:data:`DEBUG_ROUTES_LEFT_OUT` the ``/debug`` routes the port does not
+serve. The tests at the end hold the mapping itself: it changes nothing the
+port already renders, and it leaves no TPU name behind in what it maps.
 """
 
 import copy
@@ -284,6 +288,94 @@ def map_driver_object(obj: dict, instance: str) -> dict:
     if consts.TEMPLATE_HASH_LABEL in tpl_labels:
         tpl_labels[consts.TEMPLATE_HASH_LABEL] = template_fingerprint(tpl)
     return out
+
+
+def add_driver_own_settings(ds: dict, spec: dict) -> dict:
+    """A reference pool DaemonSet (already mapped) as the port renders it
+    for a GPUDriver whose spec has its own ``labels``, ``annotations``,
+    ``tolerations``, ``nodeAffinity`` and ``priorityClassName``: the
+    reference's TPUDriverReconciler drops all five
+    (tpu_operator/controllers/tpudriver_controller.py), the port's
+    DaemonSet carries them (the labels on the DaemonSet, the rest on its
+    pod template; tolerations and annotations beside the ClusterPolicy's,
+    the priority class in place of it)."""
+    out = copy.deepcopy(ds)
+    out["metadata"].setdefault("labels", {}).update(spec.get("labels") or {})
+    tpl = out["spec"]["template"]
+    if spec.get("annotations"):
+        tpl["metadata"].setdefault("annotations", {}).update(spec["annotations"])
+    pod = tpl["spec"]
+    pod["tolerations"] = pod.get("tolerations", []) + [
+        t for t in spec.get("tolerations") or [] if t not in pod.get("tolerations", [])]
+    if spec.get("nodeAffinity"):
+        pod["affinity"] = {"nodeAffinity": spec["nodeAffinity"]}
+    if spec.get("priorityClassName"):
+        pod["priorityClassName"] = spec["priorityClassName"]
+    labels = tpl["metadata"].get("labels") or {}
+    if consts.TEMPLATE_HASH_LABEL in labels:
+        labels[consts.TEMPLATE_HASH_LABEL] = template_fingerprint(tpl)
+    return out
+
+
+# -- the GPU-health machine and its journal ---------------------------------------
+
+#: the pods the health machine recycles, by component label: the
+#: reference's validator and libtpu driver pods -> the port's validator
+#: (manifests/state-operator-validation) and driver (manifests/state-driver)
+HEALTH_COMPONENTS = {"tpu-operator-validator": "gpu-operator-validator",
+                     "tpu-driver": "gpu-driver"}
+
+#: the health machine's Event and condition texts name GPUs where the
+#: reference's name chips (a decision record's ``blocked_chips`` input is
+#: ``blocked_gpus``)
+HEALTH_TEXT_RULES = [
+    ("chip failure confirmed", "GPU failure confirmed"),
+    ("(chips [", "(GPUs ["),
+    (", chips [", ", GPUs ["),
+    ("node chip-health: ", "node GPU health: "),
+    ("blocked_chips", "blocked_gpus"),
+]
+
+
+def map_health_text(text: str) -> str:
+    """A reference health Event message, condition message or rendered
+    decision record as the port writes it."""
+    for old, new in HEALTH_TEXT_RULES:
+        text = text.replace(old, new)
+    return text
+
+
+# The health machine's one deliberate difference in behaviour: each
+# episode has its own id. The reference mints ``episode_id("health",
+# node, verdict)`` (tpu_operator/health/machine.py:
+# HealthStateMachine._episode_for), so a node's second episode with the
+# same verdict string rejoins its first, closed one: the journal drops the
+# new episode's records as crash replays, and the protocol Events'
+# exactly-once tokens (the plan fingerprint, ``attempt-N``) collide with
+# the first episode's, so the second's RetilePlanned,
+# RetileDeadlineExpired and first NodeHealthRemediating are never
+# announced. The port's id also holds the node's
+# ``tpu.ai/health-state-since`` as read when it is first minted, and its
+# tokens are ``<episode>:<token>``. Episode ids therefore differ between
+# the packages; the twin tests compare them by order of appearance. An
+# admin's label clear out of sticky ``failed`` leaves the reference's
+# stamped id behind, so the next episode would adopt the closed one
+# (:func:`map_health_node_annotations`); the port wipes it with the rest.
+
+
+def map_health_node_annotations(state: str, annotations: dict) -> dict:
+    """A reference node's annotations after a health sweep as the port
+    leaves them: a healthy node (no health label) carries no episode id."""
+    if state:
+        return dict(annotations)
+    return {k: v for k, v in annotations.items() if k != consts.PROVENANCE_EPISODE_ANNOTATION}
+
+
+#: the reference's /debug routes the port's health server does not answer:
+#: /debug/capacity is the fleet capacity observatory's (ROADMAP Queue 1,
+#: item 7), /debug/opsan the reference's race sanitizer's, which the port
+#: does not have (tpu_operator/controllers/manager.py:DEBUG_ROUTES)
+DEBUG_ROUTES_LEFT_OUT = {"/debug/capacity", "/debug/opsan"}
 
 
 def map_crd(crd: dict) -> dict:

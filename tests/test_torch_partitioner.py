@@ -544,3 +544,38 @@ def test_consumers_are_counted_over_http_as_in_the_fake(fake_client):
         assert part.gpu_consumers_on(ApiClient(base), "n3") == 0
     finally:
         srv.stop()
+
+
+def test_the_journal_hook_records_the_reference_s_decisions(fake_client, tmp_path):
+    """With a decision journal wired in, a plain apply opens and closes its
+    own episode, and a re-tile chains onto the episode the node is stamped
+    with (the health machine's): the same canonical records, ids included,
+    as the reference's hook writes."""
+    from tpu_operator.provenance import DecisionJournal as RefJournal
+    from tpu_operator_torch.provenance import DecisionJournal
+
+    t = Twins(fake_client, tmp_path, config="pairs")
+    journals = {"ref": RefJournal(now=lambda: 1000.0), "port": DecisionJournal(now=lambda: 1000.0)}
+
+    def sync():
+        ref = ref_part.sync_once(t.clients["ref"], "n1", t.config, t.handoff["ref"],
+                                 status_dir=t.status, journal=journals["ref"])
+        port = part.sync_once(t.clients["port"], "n1", t.config, t.handoff["port"],
+                              status_dir=t.status, nvml_lib=t.nvml, journal=journals["port"])
+        assert port == ref
+        return port
+
+    assert sync() == "success"
+    assert sync() == "success"  # already applied: no second record
+    for client in t.clients.values():
+        client.patch("v1", "Node", "n1", {"metadata": {"annotations": {
+            consts.PROVENANCE_EPISODE_ANNOTATION: "ep-health"}}})
+    write_barrier(t.status, passed=False, failed_chips=[2])
+    assert sync() == "retiled"
+    port = journals["port"].canonical_export()
+    assert port == journals["ref"].canonical_export()
+    by_kind = {r["kind"]: r for r in port}
+    assert sorted(by_kind) == ["partition-apply", "re-tile"]
+    assert by_kind["partition-apply"]["outcome"] == "applied"
+    assert by_kind["re-tile"]["outcome"] is None
+    assert by_kind["re-tile"]["episode"] == "ep-health"

@@ -275,9 +275,8 @@ class ServingSpec(ComponentSpec):
 @dataclasses.dataclass
 class HealthSpec(SpecBase):
     """Continuous health remediation: the per-node degraded-state machine
-    driven from the ClusterPolicy reconcile sweep (its controller side
-    waits for its slice; the partitioner reads ``drainDeadlineS`` from
-    here today)."""
+    driven from the ClusterPolicy reconcile sweep (``health/machine.py``);
+    the partitioner reads ``drainDeadlineS`` from here too."""
 
     enabled: bool = spec_field(
         True, doc="Drive the per-node chip-health state machine from the "

@@ -10,10 +10,13 @@ Subcommands:
                             node whose every pair of GPUs has one link class
   sample [clusterpolicy|gpudriver]   print a complete sample CR
   status [--base-url URL]   live-cluster triage summary (exit 0 iff ready)
+  explain node <X> | episode <id> [--base-url URL]
+                            render a node's (or an episode's) decision
+                            chains from the provenance journal
 
 Files are JSON or YAML, read and written with
-:mod:`~tpu_operator_torch.yamlsubset`, not PyYAML. The reference's ``validate-csv`` (the OLM bundle) and ``explain``
-(the provenance journal) wait for the port's bundle and provenance.
+:mod:`~tpu_operator_torch.yamlsubset`, not PyYAML. The reference's
+``validate-csv`` (the OLM bundle) waits for the port's bundle.
 """
 
 from __future__ import annotations
@@ -160,6 +163,58 @@ def status(base_url=None, namespace="tpu-operator", out=None,
     except (OSError, http.client.HTTPException, RuntimeError) as e:
         print(f"status: cannot reach the cluster: {e}", file=sys.stderr)
         return 2
+
+
+def explain(kind, name, base_url=None, token=None, namespace="tpu-operator",
+            journal_path=None, out=None) -> int:
+    """``gpuop-cfg explain node <X>`` / ``explain episode <id>``: the causal
+    chain each decision episode followed (trigger, inputs, decision,
+    rejected alternatives, actuations with trace ids and leader epoch,
+    outcome), from the on-disk journal where one is reachable, else from
+    the cluster's ``prov-*`` mirror ConfigMaps. Exit 0 with records, 1
+    without, 2 when the cluster cannot be read."""
+    import http.client
+    import json
+    import os
+
+    from .. import consts
+    from ..provenance import DecisionJournal, render_explain
+
+    out = out or sys.stdout
+    journal_path = journal_path or os.environ.get(consts.JOURNAL_PATH_ENV)
+    records = []
+    if journal_path and os.path.isfile(journal_path):
+        records = DecisionJournal(path=journal_path).timeline()
+    else:
+        from ..client.errors import ApiError
+        from ..client.rest import RestClient
+
+        try:
+            client = (RestClient(base_url=base_url, token=token) if base_url
+                      else RestClient.from_env())
+            for cm in client.list("v1", "ConfigMap", namespace):
+                if consts.PROVENANCE_LABEL not in (cm.get("metadata", {}).get("labels") or {}):
+                    continue
+                raw = (cm.get("data") or {}).get("record")
+                if not raw:
+                    continue
+                try:
+                    records.append(json.loads(raw))
+                except ValueError:
+                    continue
+        except ApiError as e:
+            print(f"explain: apiserver returned {e.code}: {e}", file=sys.stderr)
+            return 2
+        except (OSError, http.client.HTTPException, RuntimeError) as e:
+            print(f"explain: cannot reach the cluster: {e}", file=sys.stderr)
+            return 2
+    rendered = render_explain(records, node=name if kind == "node" else None,
+                              episode=name if kind == "episode" else None)
+    if not rendered:
+        print(f"no decision records for {kind} {name!r}", file=out)
+        return 1
+    print(rendered, file=out)
+    return 0
 
 
 def _serving_cell(labels: dict, annotations: dict) -> str:
@@ -397,11 +452,29 @@ def run(argv=None) -> int:
     st.add_argument("--token", default=None,
                     help="bearer token for --base-url (off-cluster use)")
     st.add_argument("--namespace", default="tpu-operator")
+    ex = sub.add_parser("explain",
+                        help="render a node's (or episode's) decision-"
+                             "provenance chain from the journal")
+    ex.add_argument("kind", choices=["node", "episode"])
+    ex.add_argument("name", help="node name or episode id")
+    ex.add_argument("--base-url", default=None,
+                    help="API server URL (default: $KUBE_API_URL, else in-cluster config)")
+    ex.add_argument("--token", default=None)
+    ex.add_argument("--namespace", default="tpu-operator")
+    ex.add_argument("--journal-path", default=None,
+                    help="on-disk journal JSONL (default: "
+                         "$GPU_OPERATOR_JOURNAL_PATH, else the cluster's "
+                         "mirror ConfigMaps)")
     args = p.parse_args(argv)
 
     if args.cmd == "status":
         return status(base_url=args.base_url, namespace=args.namespace,
                       token=args.token)
+
+    if args.cmd == "explain":
+        return explain(args.kind, args.name, base_url=args.base_url,
+                       token=args.token, namespace=args.namespace,
+                       journal_path=args.journal_path)
 
     if args.cmd == "validate-partitions":
         return validate_partitions(args.table, args.link, args.gpus)

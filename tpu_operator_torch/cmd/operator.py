@@ -1,10 +1,7 @@
 """``gpu-operator`` entry point (counterpart of tpu_operator/cmd/operator.py;
 NVIDIA's cmd/gpu-operator/main.go:74-233).
 
-The parser keeps every flag of the reference whose machinery the port has,
-with the reference's defaults. It leaves out, rather than accepting and
-ignoring, ``--trace-buffer-size`` and ``--debug-endpoints``: the flight
-recorder and the ``/debug`` routes wait for their slice.
+The parser has every flag of the reference, with the reference's defaults.
 """
 
 from __future__ import annotations
@@ -42,6 +39,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-cache-reads", dest="cache_reads", action="store_false",
                    help="serve reconcile reads directly from the apiserver "
                         "instead of informer caches")
+    p.add_argument("--trace-buffer-size", type=int, default=256,
+                   help="reconcile traces kept in the flight recorder behind "
+                        "/debug/traces (error traces pinned in a separate "
+                        "quarter-sized ring)")
+    p.add_argument("--debug-endpoints", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="serve /debug/{traces,join-traces,queue,state,informers,"
+                        "threads,timeline} on the health port "
+                        "(--no-debug-endpoints disables)")
     p.add_argument("--version", action="version", version=f"gpu-operator {__version__}")
     return p
 

@@ -116,6 +116,19 @@ COMPILATION_CACHE_DIR_ENV = "GPU_COMPILATION_CACHE_DIR"
 HEALTH_STATE_LABEL = "tpu.ai/health-state"
 #: pod env that carries the node's health state when the template stamps it
 HEALTH_STATE_ENV = "GPU_HEALTH_STATE"
+#: when the node entered its current health state (RFC3339); drives the
+#: confirmation and remediation-wait budgets across operator restarts
+HEALTH_STATE_SINCE_ANNOTATION = "tpu.ai/health-state-since"
+#: the flap damper: comma-joined epoch seconds of recent healthy->degraded
+#: transitions; N inside the window trip sticky quarantine
+HEALTH_FLAP_HISTORY_ANNOTATION = "tpu.ai/health-flap-history"
+#: set when flap damping tripped: the machine writes nothing for the node
+#: until an admin clears the health label or the driver template changes
+HEALTH_FLAP_STICKY_ANNOTATION = "tpu.ai/health-flap-sticky"
+#: the driver DaemonSet's template fingerprint when remediation ran out:
+#: sticky ``failed`` clears only when it changes (or the admin clears the
+#: health label)
+HEALTH_FAILED_TEMPLATE_ANNOTATION = "tpu.ai/health-failed-template"
 #: pod env that carries the node template hash the serving probe ran under
 TEMPLATE_HASH_ENV = "GPU_TEMPLATE_HASH"
 #: the node's serving-barrier verdict ("passed" | "failed" | "corrupt")
@@ -157,6 +170,19 @@ TRACE_SPANS_ANNOTATION = "tpu.ai/trace-spans"
 TRACE_PARENT_ENV = "GPU_TRACE_PARENT"
 #: an Event's annotation naming the trace it was recorded in
 TRACE_ID_ANNOTATION = "tpu.ai/trace-id"
+
+# -- decision provenance ---------------------------------------------------------
+#: the episode a node's current incident belongs to: stamped by whichever
+#: reconciler opens the episode (the health machine here), read by the
+#: others so their decision records chain into it; cleared when the
+#: episode ends
+PROVENANCE_EPISODE_ANNOTATION = "tpu.ai/episode-id"
+#: label on the journal's mirror ConfigMaps (value: the recording
+#: subsystem), so the cluster-side journal is one label selector away
+PROVENANCE_LABEL = "tpu.ai/provenance"
+#: the operator's on-disk journal (JSONL), which survives its restarts;
+#: unset keeps the journal in memory and in its mirror ConfigMaps
+JOURNAL_PATH_ENV = "GPU_OPERATOR_JOURNAL_PATH"
 
 # -- coordinated drain (planned re-tiles) -----------------------------------------
 #: a published re-tile plan (JSON: layout fingerprint, drain deadline,

@@ -6,9 +6,13 @@ state_manager.go:753-979): each reconcile labels GPU nodes, sweeps the
 ordered state DAG, and gates ``status.state=ready`` on every state's
 readiness, requeueing after 5 s while anything is NotReady. Level-driven
 and idempotent: every sweep re-renders and re-applies everything
-(hash-skips make that cheap). Left out until their slices: the health
-sweep (``_sweep_health``, with the health machine and the provenance
-journal) and the join profiler.
+(hash-skips make that cheap).
+
+After the state sweep, one observation per sweep goes to the join
+profiler, and :meth:`ClusterPolicyReconciler._sweep_health` drives the
+per-node GPU-health machine, each decision of which lands in the shared
+provenance journal before it acts, and rolls its states up into the
+``NodeHealthDegraded`` condition.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ from ..client.batch import batch_window
 from ..client.errors import ConflictError, NotFoundError
 from ..client.interface import Client, WatchEvent
 from ..conditions import (
+    NODE_HEALTH_DEGRADED,
+    REASON_NODE_HEALTH_DEGRADED,
     REASON_OPERAND_NOT_READY,
     REASON_READY,
     REASON_RECONCILE_FAILED,
@@ -42,6 +48,7 @@ from ..conditions import (
     mark_ready,
     set_condition,
 )
+from ..health import HealthCounts, HealthStateMachine
 from ..health import drain as drain_protocol
 from ..nodeinfo import label_gpu_nodes
 from ..state.manager import (
@@ -69,7 +76,7 @@ NOT_READY_REQUEUE = 5.0
 #: event safety net, not the cadence (jittered uniform(period/2, period))
 RESYNC_PERIOD_S = float(os.environ.get("GPU_OPERATOR_RESYNC_S", "300"))
 
-#: parallel workers for the pool-sharded node sweeps (serving):
+#: parallel workers for the pool-sharded node sweeps (health, serving):
 #: pools reconcile independently, so one slow/degraded pool never
 #: serializes the rest of the fleet behind it
 POOL_SWEEP_WORKERS = max(1, int(os.environ.get("GPU_OPERATOR_POOL_WORKERS",
@@ -81,13 +88,37 @@ class ClusterPolicyReconciler(Reconciler):
 
     def __init__(self, client: Client, namespace: Optional[str] = None,
                  metrics: Optional[OperatorMetrics] = None,
-                 cluster_info=None, requeue_after: float = NOT_READY_REQUEUE):
+                 cluster_info=None, requeue_after: float = NOT_READY_REQUEUE,
+                 join_profiler=None, journal=None):
+        from ..provenance import DecisionJournal
+
         self.client = client
         self.namespace = namespace or os.environ.get(consts.NAMESPACE_ENV, consts.DEFAULT_NAMESPACE)
         self.metrics = metrics or OperatorMetrics()
+        #: the shared decision-provenance journal, handed to every health
+        #: machine a sweep builds (one per pool shard, one journal)
+        self.journal = journal or DecisionJournal()
         self.cluster_info = cluster_info
         self.requeue_after = requeue_after
+        #: joinprofile.JoinProfiler (None outside the assembled operator):
+        #: one observation per sweep
+        self.join_profiler = join_profiler
         self.state_manager = Manager(cluster_policy_states(client))
+        #: last-seen tpu.ai/slice.config.state per node: the retile counter
+        #: ticks on a transition INTO "retiled", not on every sweep that
+        #: sees it
+        self._last_slice_state: dict = {}
+        #: the last sweep's health rollup and serving failures (/debug/queue)
+        self._last_health_counts: dict = {}
+        self._last_serving_failing: list = []
+
+    def debug_state(self) -> dict:
+        return {
+            "node_health": dict(self._last_health_counts),
+            "slice_states": {n: s for n, s in
+                             sorted(self._last_slice_state.items()) if s},
+            "serving_failing": list(self._last_serving_failing),
+        }
 
     # -- singleton guard (reference clusterpolicy_controller.go:121-126) ------
     def _resolve_singleton(self, request: Request) -> Optional[ClusterPolicy]:
@@ -256,6 +287,7 @@ class ClusterPolicyReconciler(Reconciler):
                    for name in shard_failing]
         reporting = sum(n for _, n in scans)
         self.metrics.serving_slo_failing_nodes.set(len(failing))
+        self._last_serving_failing = sorted(failing)
         conditions = policy.obj.setdefault("status", {}).setdefault(
             "conditions", [])
         current = get_condition(policy.obj, SERVING_VALIDATED)
@@ -303,6 +335,76 @@ class ClusterPolicyReconciler(Reconciler):
         # keeps a herd of expired plans from busy-looping the worker
         return max(0.25, soonest + 0.1)
 
+    def _sweep_health(self, policy: ClusterPolicy, nodes: List[dict],
+                      pools: Optional[List[NodePool]] = None) -> None:
+        """Drive the per-node GPU-health machine and publish its rollup:
+        per-state gauges, the remediation-attempt, drain-miss and snapshot
+        counters, the retile counter (transitions into
+        ``tpu.ai/slice.config.state=retiled``), and the ClusterPolicy's
+        ``NodeHealthDegraded`` condition with one Warning Event per change
+        of its message. Sharded by node pool: each shard gets its own
+        machine and pools run in parallel workers, so a pool mid-drain never
+        stalls the others."""
+        # retiles are counted whatever health.enabled says: the partitioner
+        # re-tiles from the barrier on its own
+        for node in nodes:
+            name = node["metadata"]["name"]
+            state = deep_get(node, "metadata", "labels", consts.TPU_SLICE_STATE_LABEL)
+            if state == "retiled" and self._last_slice_state.get(name) != "retiled":
+                self.metrics.partition_retile_total.inc()
+            self._last_slice_state[name] = state
+
+        migrate = policy.spec.migrate
+        if not policy.spec.health.enabled:
+            machines = [HealthStateMachine(self.client, self.namespace, policy.spec.health,
+                                           migrate=migrate, journal=self.journal)]
+            machines[0].clear_all(nodes)
+            counts = HealthCounts(healthy=len(nodes))
+        else:
+            shards = shard_by_pools(nodes, pools if pools is not None
+                                    else get_node_pools(nodes))
+            machines = [HealthStateMachine(self.client, self.namespace, policy.spec.health,
+                                           migrate=migrate, journal=self.journal)
+                        for _ in shards]
+            with tracing.phase_span("health-sweep") as sp:
+                shard_counts = self._pool_parallel(
+                    [lambda m=machine, s=shard: m.process(s)
+                     for machine, shard in zip(machines, shards)])
+                counts = HealthCounts()
+                for c in shard_counts:
+                    counts = counts.merged(c)
+                sp.set_attributes(shards=len(machines), **counts.as_dict())
+        self._last_health_counts = counts.as_dict()
+        for state, value in counts.as_dict().items():
+            self.metrics.node_health_state.labels(state=state).set(value)
+        attempts_fired = sum(m.attempts_fired for m in machines)
+        deadline_misses = sum(m.deadline_misses for m in machines)
+        snapshots_taken = sum(m.snapshots_taken for m in machines)
+        if attempts_fired:
+            self.metrics.remediation_attempts.inc(attempts_fired)
+        if deadline_misses:
+            self.metrics.drain_deadline_missed.inc(deadline_misses)
+        if snapshots_taken:
+            self.metrics.migration_snapshots.inc(snapshots_taken)
+        self.metrics.drains_in_progress.set(sum(m.plans_pending for m in machines))
+
+        unhealthy = {s: v for s, v in counts.as_dict().items()
+                     if s not in ("healthy", "recovered") and v}
+        conditions = policy.obj.setdefault("status", {}).setdefault("conditions", [])
+        current = get_condition(policy.obj, NODE_HEALTH_DEGRADED)
+        if unhealthy:
+            message = ("node GPU health: "
+                       + ", ".join(f"{v} {s}" for s, v in sorted(unhealthy.items())))
+            if (current is None or current.get("status") != "True"
+                    or current.get("message") != message):
+                events.record(self.client, self.namespace, policy.obj,
+                              events.WARNING, REASON_NODE_HEALTH_DEGRADED, message)
+            set_condition(conditions, make_condition(
+                NODE_HEALTH_DEGRADED, "True", REASON_NODE_HEALTH_DEGRADED, message))
+        elif current is not None and current.get("status") == "True":
+            set_condition(conditions, make_condition(
+                NODE_HEALTH_DEGRADED, "False", REASON_READY, ""))
+
     def _reconcile(self, request: Request) -> Result:
         start = time.monotonic()
         try:
@@ -336,10 +438,19 @@ class ClusterPolicyReconciler(Reconciler):
         with tracing.phase_span("sync-state") as sp:
             results = self.state_manager.sync_state(catalog)
             sp.set_attribute("ready", results.ready)
+        if self.join_profiler is not None:
+            # one join-profiler observation per sweep: schedulability,
+            # readiness and the mirrored trace-spans annotation per node
+            # (in memory only: no apiserver call can fail here)
+            try:
+                self.join_profiler.observe(policy, label_result.nodes, results)
+            except Exception:
+                log.debug("join profiler observation failed", exc_info=True)
         # after the (crash-prone) state sweep, right before the status
         # writes: an exception between the Warning Event and the condition
         # landing on the CR would re-emit the event every backoff retry
         self._surface_slice_failures(policy, label_result.nodes)
+        self._sweep_health(policy, label_result.nodes, pools)
         self._sweep_serving(policy, label_result.nodes, pools)
         previous_state = deep_get(policy.obj, "status", "state")
 

@@ -8,7 +8,10 @@ by GPU model (``state/nodepool.py``) and one driver DaemonSet,
 ``gpu-driver-<instance>-<pool>``, is rendered per pool. Two instances
 selecting one node are refused with a ConflictingNodeSelector condition;
 the DaemonSets of pools that are gone are deleted. Unlike the reference, an
-event on any GPUDriver re-reconciles every instance (``map_instance``).
+event on any GPUDriver re-reconciles every instance (``map_instance``), and
+an instance's own labels, annotations, tolerations, node affinity and
+priority class reach its DaemonSets (the reference renders them from the
+ClusterPolicy's ``daemonsets`` settings alone).
 """
 
 from __future__ import annotations
@@ -154,13 +157,20 @@ class GPUDriverReconciler(Reconciler):
         for pool in pools:
             app_name = pool_app_name(driver.name, pool.name)
             desired_names.add(app_name)
+            # the instance's own labels, annotations, tolerations, node
+            # affinity and priority class reach its DaemonSets (the
+            # reference's TPUDriverReconciler drops them)
             overrides = DriverRenderOverrides(
                 app_name=app_name,
                 node_selector={**pool.node_selector, **selector},
                 driver_version=driver.spec.driver_version,
                 image=driver.spec.image_path(),
-                extra_labels={INSTANCE_LABEL: driver.name,
+                extra_labels={**driver.spec.labels, INSTANCE_LABEL: driver.name,
                               consts.NODE_POOL_LABEL: pool.name},
+                annotations=driver.spec.annotations,
+                tolerations=driver.spec.tolerations,
+                node_affinity=driver.spec.node_affinity,
+                priority_class_name=driver.spec.priority_class_name,
             )
             with tracing.phase_span("render", pool=pool.name) as sp:
                 objs = self.state_driver.render_objects(policy, self.namespace,

@@ -7,20 +7,31 @@ The client chain, outermost first: ``CachedClient`` (informer reads; off
 with ``--no-cache-reads``) → ``WriteBatcher`` (write coalescing) →
 ``RetryingClient`` (retries, token bucket, circuit breaker) →
 ``FencedClient`` (the leader write fence) → ``RestClient``. The elector
-talks to the ``RestClient`` directly. The reference's flight recorder and
-``/debug`` endpoints, and its upgrade, autoscale and migration controllers,
-wait for their slices.
+talks to the ``RestClient`` directly.
+
+The app also builds the operator's black box: the decision-provenance
+journal (on the client chain, so its mirror writes are fenced), the flight
+recorder (``--trace-buffer-size``) and its tracer, and the join profiler,
+and serves them on the health port under ``/debug`` (:data:`DEBUG_ROUTES`;
+``--no-debug-endpoints`` serves none). The reference's upgrade, autoscale
+and migration controllers, and its ``/debug/capacity`` route, wait for
+their slices; its ``/debug/opsan`` belongs to a race sanitizer the port
+does not have.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 import signal
+import sys
 import threading
+import traceback
+import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from .. import __version__
+from .. import __version__, consts, tracing
 from ..client.batch import WriteBatcher, find_batcher
 from ..client.cache import CachedClient
 from ..client.fenced import FencedClient, find_fenced
@@ -41,14 +52,26 @@ from .runtime import ControllerManager, Request
 
 log = logging.getLogger(__name__)
 
+#: every /debug route the health server answers
+DEBUG_ROUTES = ("/debug/informers", "/debug/traces", "/debug/join-traces",
+                "/debug/queue", "/debug/state", "/debug/threads",
+                "/debug/timeline")
+
+
+def _query_int(query: dict, key: str, default: int) -> int:
+    try:
+        return int((query.get(key) or [str(default)])[0])
+    except ValueError:
+        return default
+
 
 def serve_health_and_metrics(metrics: OperatorMetrics, metrics_port: int,
                              health_port: int, app: "OperatorApp" = None,
                              host: str = "0.0.0.0"):
-    """``/metrics`` on ``metrics_port``; ``/healthz`` (liveness) and
+    """``/metrics`` on ``metrics_port``; ``/healthz`` (liveness),
     ``/readyz`` (503 until leadership, when elected, and every informer's
-    first sync) on ``health_port``. A port of 0 serves nothing. Returns the
-    servers."""
+    first sync) and, unless the app turned them off, the :data:`DEBUG_ROUTES`
+    on ``health_port``. A port of 0 serves nothing. Returns the servers."""
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):
@@ -62,7 +85,7 @@ def serve_health_and_metrics(metrics: OperatorMetrics, metrics_port: int,
             self.wfile.write(body)
 
         def _json(self, payload, code: int = 200) -> None:
-            self._send(code, json.dumps(payload).encode(), "application/json")
+            self._send(code, json.dumps(payload, default=str).encode(), "application/json")
 
     class MetricsHandler(Handler):
         def do_GET(self):
@@ -72,9 +95,65 @@ def serve_health_and_metrics(metrics: OperatorMetrics, metrics_port: int,
                 self._send(404, b"", "text/plain")
 
     class HealthHandler(Handler):
+        def _debug(self, path: str, query: dict):
+            """The ``/debug`` page at ``path``: JSON, or text for threads."""
+            if path == "/debug/informers":
+                # cache introspection: the kinds cached, synced, their sizes
+                client = app.client
+                return client.stats() if hasattr(client, "stats") else []
+            if path == "/debug/traces":
+                # the flight recorder: ?controller=&error=true&trace_id=&limit=
+                errors_only = (query.get("error") or ["false"])[0].lower() in (
+                    "1", "true", "yes")
+                trace_id = (query.get("trace_id") or query.get("trace") or [None])[0]
+                roots = app.recorder.traces(
+                    controller=(query.get("controller") or [None])[0],
+                    errors_only=errors_only, trace_id=trace_id,
+                    limit=_query_int(query, "limit", 50))
+                return {"stats": dict(app.recorder.stats(),
+                                      dropped_spans_total=tracing.dropped_spans_total()),
+                        "count": len(roots),
+                        "traces": [r.to_dict() for r in roots]}
+            if path == "/debug/join-traces":
+                # per-node join traces with their critical path; ?node=&limit=
+                traces = app.join_profiler.join_traces(
+                    limit=_query_int(query, "limit", 20),
+                    node=(query.get("node") or [None])[0])
+                return {"stats": app.join_profiler.stats(),
+                        "reconcile_latency": app.join_profiler.reconcile_latency(),
+                        "count": len(traces), "traces": traces}
+            if path == "/debug/queue":
+                return [c.debug_state() for c in app.manager.controllers]
+            if path == "/debug/state":
+                return app.debug_state()
+            if path == "/debug/timeline":
+                # the provenance journal; ?node=&episode=&limit=
+                records = app.journal.timeline(
+                    node=(query.get("node") or [None])[0],
+                    episode=(query.get("episode") or [None])[0],
+                    limit=_query_int(query, "limit", 100))
+                return {"stats": app.journal.debug_state(), "count": len(records),
+                        "episodes": app.journal.episodes(), "records": records}
+            # /debug/threads: every thread's stack, as a goroutine dump
+            frames = sys._current_frames()
+            lines = []
+            for thread in threading.enumerate():
+                lines.append(f"--- {thread.name} (daemon={thread.daemon}) ---")
+                frame = frames.get(thread.ident)
+                if frame is not None:
+                    lines.extend(line.rstrip() for line in traceback.format_stack(frame))
+            return "\n".join(lines)
+
         def do_GET(self):
-            path = self.path.split("?")[0].rstrip("/")
-            if path == "/healthz":
+            parsed = urllib.parse.urlparse(self.path)
+            path = parsed.path.rstrip("/")
+            if path in DEBUG_ROUTES and app is not None and app.debug_endpoints:
+                page = self._debug(path, urllib.parse.parse_qs(parsed.query))
+                if isinstance(page, str):
+                    self._send(200, page.encode(), "text/plain")
+                else:
+                    self._json(page)
+            elif path == "/healthz":
                 self._json({"status": "ok", "version": __version__})
             elif path == "/readyz":
                 if app is None:
@@ -99,21 +178,47 @@ def serve_health_and_metrics(metrics: OperatorMetrics, metrics_port: int,
 class OperatorApp:
     """The assembled operator: client + controllers + metrics/health servers."""
 
-    def __init__(self, client, namespace=None, metrics_port: int = 0, health_port: int = 0):
+    def __init__(self, client, namespace=None, metrics_port: int = 0, health_port: int = 0,
+                 trace_buffer_size: int = tracing.DEFAULT_BUFFER_SIZE,
+                 debug_endpoints: bool = True):
+        from ..joinprofile import JoinProfiler
+        from ..provenance import DecisionJournal
+
         self.client = client
         self.metrics = OperatorMetrics()
+        # the decision-provenance journal, shared by every actuating
+        # reconciler: its mirror ConfigMaps ride the same batched and fenced
+        # chain as the actuations; the on-disk JSONL, where a path is set,
+        # survives a restart
+        self.journal = DecisionJournal(
+            client=client,
+            namespace=namespace or os.environ.get(consts.NAMESPACE_ENV,
+                                                  consts.DEFAULT_NAMESPACE),
+            path=os.environ.get(consts.JOURNAL_PATH_ENV) or None)
+        self.metrics.wire_provenance(self.journal)
+        # every worker roots its reconciles here; finished traces land in
+        # the flight recorder behind /debug/traces
+        self.recorder = tracing.FlightRecorder(trace_buffer_size)
+        self.tracer = tracing.Tracer(self.recorder, self.metrics)
+        tracing.set_default_tracer(self.tracer)
+        # the join profiler: fed the finished traces and each sweep's nodes,
+        # it stitches per-node join traces behind /debug/join-traces
+        self.join_profiler = JoinProfiler(metrics=self.metrics)
+        self.tracer.on_finalize = self.join_profiler.on_trace
         self.metrics.wire_tracing()
+        self.debug_endpoints = debug_endpoints
         self.elector = None  # set by run_operator under --leader-elect
         self._started = threading.Event()
         self.manager = ControllerManager(client)
         self.clusterpolicy_reconciler = ClusterPolicyReconciler(
-            client, namespace=namespace, metrics=self.metrics)
+            client, namespace=namespace, metrics=self.metrics,
+            join_profiler=self.join_profiler, journal=self.journal)
         self.clusterpolicy_controller = self.manager.add(
             setup_clusterpolicy_controller(client, self.clusterpolicy_reconciler))
         self.manager.add(setup_gpudriver_controller(
             client, GPUDriverReconciler(client, namespace=namespace)))
         for controller in self.manager.controllers:
-            controller.instrument(self.metrics)
+            controller.instrument(self.metrics, self.tracer)
         # rest_client_requests_total rides the innermost RestClient; the
         # resilience layer and the fence feed their families wherever they
         # sit in the chain
@@ -186,6 +291,22 @@ class OperatorApp:
             detail["breaker"] = breaker
         return ready, detail
 
+    def debug_state(self) -> dict:
+        """``/debug/state``: what a "why is it not working yet" question
+        needs on one page: readiness, leadership, informer sync, each
+        controller's queue, the flight recorder, the join profiler and the
+        journal."""
+        ready, detail = self.readiness()
+        return {
+            "ready": ready,
+            "readiness": detail,
+            "informers": self.client.stats() if hasattr(self.client, "stats") else [],
+            "controllers": [c.debug_state() for c in self.manager.controllers],
+            "flight_recorder": self.recorder.stats(),
+            "join_profiler": self.join_profiler.stats(),
+            "journal": self.journal.debug_state(),
+        }
+
     def stop(self) -> None:
         self.manager.stop()
         if self.batcher is not None:
@@ -218,8 +339,12 @@ def build_client(args, direct: RestClient):
 
 
 def run_operator(args) -> int:
+    # every record logged under a reconcile trace carries its id, to match
+    # against an Event's tpu.ai/trace-id and /debug/traces
+    tracing.install_log_correlation()
     logging.basicConfig(level=getattr(logging, args.log_level.upper()),
-                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+                        format="%(asctime)s %(levelname)s %(name)s "
+                               "[trace=%(trace_id)s]: %(message)s")
     log.info("gpu-operator %s starting", __version__)
     if args.api_server:
         direct = RestClient(base_url=args.api_server, token=args.token,
@@ -228,7 +353,9 @@ def run_operator(args) -> int:
         direct = RestClient.from_env(default_timeout=args.api_timeout)
     client, fenced = build_client(args, direct)
     app = OperatorApp(client, namespace=args.namespace,
-                      metrics_port=args.metrics_port, health_port=args.health_port)
+                      metrics_port=args.metrics_port, health_port=args.health_port,
+                      trace_buffer_size=args.trace_buffer_size,
+                      debug_endpoints=args.debug_endpoints)
     stop = threading.Event()
     exit_code = [0]
     for sig in (signal.SIGINT, signal.SIGTERM):

@@ -207,6 +207,33 @@ class OperatorMetrics:
             "tpu_operator_slice_partition_failed_nodes",
             "Nodes whose slice partitioner rejected the desired partition "
             "(tpu.ai/slice.config.state=failed)"))
+        # the GPU-health machine (the ClusterPolicy sweep's _sweep_health)
+        self.node_health_state = add(Gauge(
+            "tpu_operator_node_health_state",
+            "Nodes in each chip-health state (tpu.ai/health-state label: "
+            "healthy/degraded/quarantined/remediating/recovered/failed)",
+            ["state"]))
+        self.remediation_attempts = add(Counter(
+            "tpu_operator_remediation_attempts_total",
+            "Chip-health remediation actions fired (validator recycle, "
+            "escalating to driver restart)"))
+        self.partition_retile_total = add(Counter(
+            "tpu_operator_partition_retile_total",
+            "Node transitions into a health-aware re-tiled slice layout "
+            "(tpu.ai/slice.config.state=retiled)"))
+        self.drain_deadline_missed = add(Counter(
+            "tpu_operator_drain_deadline_missed_total",
+            "Planned re-tile drain deadlines that expired without a "
+            "workload ack (force path taken)"))
+        self.drains_in_progress = add(Gauge(
+            "tpu_operator_drains_in_progress",
+            "Nodes currently inside an open drain window (tpu.ai/"
+            "planned-retile published, no matching drain-ack yet)"))
+        self.migration_snapshots = add(Counter(
+            "tpu_operator_migration_snapshots_total",
+            "Operator-driven transparent snapshots taken after a drain "
+            "deadline expired without a workload ack (the CRIU-style "
+            "path that replaces a bare force-retile)"))
         self.serving_slo_failing_nodes = add(Gauge(
             "tpu_operator_serving_slo_failing_nodes",
             "Nodes whose serving SLO probe failed or failed closed "
@@ -223,9 +250,47 @@ class OperatorMetrics:
             "tpu_operator_serving_slo_attainment_ratio",
             "Fraction of probed decode steps on the node that met the "
             "per-step latency SLO (min over batch rungs)", ["node"]))
+        # the join profiler (joinprofile.JoinProfiler) and the flight
+        # recorder's reconcile latency summary
+        self.join_phase_seconds = add(Histogram(
+            "tpu_operator_join_phase_seconds",
+            "Critical-path attribution of one node's join wall-clock, per "
+            "phase (reconcile / ds-rollout-wait / image-pull / xla-compile / "
+            "barrier-handshake / validation-run / serving-probe / other); "
+            "observed once per completed join",
+            ["phase"], buckets=(.01, .1, .5, 1, 2, 5, 10, 30, 60, 300)))
+        self.reconcile_latency = add(Gauge(
+            "tpu_operator_reconcile_latency_seconds",
+            "Rolling reconcile root-span latency summary (window of recent "
+            "sweeps across all controllers), by quantile (p50/p99); feeds "
+            "bench.py's control_plane_scale_envelope",
+            ["quantile"]))
         self.trace_dropped = add(Gauge(
             "tpu_operator_trace_dropped_total",
             "Spans dropped because no trace was active on the calling thread"))
+        # the decision-provenance journal (fed through wire_provenance)
+        self.decision_records = add(Counter(
+            "tpu_operator_decision_records_total",
+            "Decision records appended to the provenance journal, by the "
+            "subsystem that recorded them (autoscale / migrate / health / "
+            "upgrade / partitioner)", ["subsystem"]))
+        self.episode_duration = add(Histogram(
+            "tpu_operator_episode_duration_seconds",
+            "End-to-end duration of a closed provenance episode (first "
+            "decision record to terminal outcome record), by the episode's "
+            "root decision kind (scale-down / migrate / drain / remediate / "
+            "upgrade)", ["kind"],
+            buckets=(.1, .5, 1, 5, 15, 60, 300, 900, 3600)))
+        self.provenance_orphans = add(Counter(
+            "tpu_operator_provenance_orphans_total",
+            "Audited actuations (node delete / re-tile plan / snapshot / "
+            "restore) found unclaimed by any decision record — each one is "
+            "an actuation with no recorded 'why'"))
+        self.episode_open_age = add(Gauge(
+            "tpu_operator_episode_open_age_seconds",
+            "Age of the oldest provenance episode still awaiting a terminal "
+            "outcome record (0 when none open) — the TPUEpisodeStuck alert "
+            "signal"))
         self.workqueue_depth = add(Gauge(
             "tpu_operator_workqueue_depth",
             "Current number of pending requests in a controller workqueue", ["name"]))
@@ -243,6 +308,11 @@ class OperatorMetrics:
             "tpu_operator_reconcile_duration_seconds",
             "Wall-clock duration of a single reconcile call", ["name"],
             buckets=(.001, .01, .1, 1, 5, 10, 60)))
+        self.reconcile_phase = add(Histogram(
+            "tpu_operator_reconcile_phase_seconds",
+            "Wall-clock duration of one reconcile phase (render, apply, "
+            "status-update, …), fed by the tracing layer's phase spans",
+            ["controller", "phase"], buckets=(.001, .01, .1, 1, 5, 10, 60)))
         self.reconcile_errors = add(Counter(
             "tpu_operator_reconcile_errors_total",
             "Reconcile calls that raised (and were requeued with backoff)", ["name"]))
@@ -318,6 +388,19 @@ class OperatorMetrics:
         writing."""
         fenced.on_fenced = (
             lambda verb: self.fenced_writes.labels(verb=verb).inc())
+
+    def wire_provenance(self, journal) -> None:
+        """The decision journal's hooks: records per subsystem, closed
+        episodes' durations, the audit's orphans, and the oldest open
+        episode's age (read at scrape time)."""
+        journal.on_record = (
+            lambda subsystem:
+            self.decision_records.labels(subsystem=subsystem).inc())
+        journal.on_episode_closed = (
+            lambda kind, duration_s:
+            self.episode_duration.labels(kind=kind).observe(duration_s))
+        journal.on_orphan = self.provenance_orphans.inc
+        self.episode_open_age.set_function(journal.oldest_open_age)
 
     def wire_batching(self, batcher) -> None:
         """The WriteBatcher's hooks: deferred writes and batch sizes."""

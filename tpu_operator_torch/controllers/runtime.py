@@ -1,6 +1,10 @@
 """Minimal controller-runtime: workqueue + watches + single-flight workers
-(copy of tpu_operator/controllers/runtime.py, without the tracer and the
-``/debug`` introspection, which wait for the flight recorder's slice).
+(copy of tpu_operator/controllers/runtime.py).
+
+Each served request runs under one root trace of the operator's
+:class:`~..tracing.Tracer` (attempt, queue wait and back-off on the root's
+attributes); the queue and the controller describe themselves for
+``/debug/queue`` (:meth:`Controller.debug_state`).
 
 An open circuit breaker (:class:`~..client.errors.BreakerOpenError`) and
 the write fence (:class:`~..client.errors.FencedError`) are not reconcile
@@ -15,6 +19,7 @@ per-item backoff 100ms-3s on error, and explicit requeue-after support
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import heapq
 import logging
@@ -57,11 +62,17 @@ class RateLimitingQueue:
         self._cond = threading.Condition()
         self._heap: List[Tuple[float, int, Request]] = []
         self._due: Dict[Request, float] = {}  # pending requests -> earliest due time
+        self._added: Dict[Request, float] = {}  # pending requests -> first add time
         self._failures: Dict[Request, int] = {}
         self._seq = 0
         self._shutdown = False
         self._metrics = None  # OperatorMetrics, set via instrument()
         self._name = ""
+        # for the worker's root span (one consumer): the ready-but-unserved
+        # wait of the request the last get() returned, and its whole
+        # add-to-get latency, deliberate delay included
+        self.last_wait = 0.0
+        self.last_since_add = 0.0
 
     def instrument(self, metrics, name: str) -> None:
         """Attach workqueue metrics (controller-runtime's workqueue family).
@@ -93,6 +104,7 @@ class RateLimitingQueue:
             if current is not None and current <= due:
                 return
             if request not in self._due:
+                self._added[request] = time.monotonic()
                 if self._metrics is not None:
                     self._metrics.workqueue_adds.labels(name=self._name).inc()
             self._due[request] = due
@@ -110,6 +122,34 @@ class RateLimitingQueue:
     def forget(self, request: Request) -> None:
         self._failures.pop(request, None)
 
+    def failures_for(self, request: Request) -> int:
+        with self._cond:
+            return self._failures.get(request, 0)
+
+    @staticmethod
+    def _request_key(request: Request) -> str:
+        return f"{request.namespace}/{request.name}" if request.namespace else request.name
+
+    def debug_state(self) -> dict:
+        """``/debug/queue``: each pending request's due time, split into
+        the ready backlog and deliberate delays, and the back-off counts."""
+        now = time.monotonic()
+        with self._cond:
+            pending = [
+                {"request": self._request_key(r),
+                 "due_in_s": round(max(0.0, d - now), 3),
+                 "ready": d <= now}
+                for r, d in sorted(self._due.items(), key=lambda item: item[1])
+            ]
+            return {
+                "depth_ready": sum(1 for p in pending if p["ready"]),
+                "delayed": sum(1 for p in pending if not p["ready"]),
+                "pending": pending,
+                "backoff": {self._request_key(r): n for r, n in sorted(
+                    self._failures.items(), key=lambda i: self._request_key(i[0]))},
+                "shutdown": self._shutdown,
+            }
+
     def get(self, timeout: Optional[float] = None) -> Optional[Request]:
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._cond:
@@ -122,13 +162,16 @@ class RateLimitingQueue:
                     if self._due.get(request) != due:
                         continue  # stale entry superseded by an earlier add
                     del self._due[request]
+                    added = self._added.pop(request, due)
+                    self.last_wait = max(0.0, now - due)
+                    self.last_since_add = max(0.0, now - added)
                     if self._metrics is not None:
                         # queue latency = time spent READY but unserved (a
                         # deliberate 120 s requeue delay is scheduling, not
                         # queueing — timing it would peg the histogram at
                         # +Inf on a healthy system)
                         self._metrics.workqueue_queue_duration.labels(
-                            name=self._name).observe(max(0.0, now - due))
+                            name=self._name).observe(self.last_wait)
                     return request
                 wait = self._heap[0][0] - now if self._heap else None
                 if deadline is not None:
@@ -161,6 +204,9 @@ class Controller:
         self.reconciler = reconciler
         self.queue = RateLimitingQueue()
         self._metrics = None  # OperatorMetrics, set via instrument()
+        self._tracer = None  # tracing.Tracer, set via instrument()
+        self._inflight: Optional[Request] = None
+        self._inflight_since: float = 0.0
         self.watch_specs: List[_WatchSpec] = []
         self._handles: list = []
         self._thread: Optional[threading.Thread] = None
@@ -243,19 +289,41 @@ class Controller:
             except Exception:
                 log.exception("%s: resync failed", self.reconciler.name)
 
-    def instrument(self, metrics) -> None:
-        """Attach workqueue + reconcile metrics for this controller."""
+    def instrument(self, metrics, tracer=None) -> None:
+        """Attach workqueue + reconcile metrics (and, optionally, the
+        reconcile tracer) for this controller."""
         self._metrics = metrics
+        self._tracer = tracer
         self.queue.instrument(metrics, self.reconciler.name)
+
+    def _trace_ctx(self, request: Request, attempt: int):
+        """One root span per served request, a fresh trace every attempt
+        (the attempt and back-off attributes tie a request's retries
+        together in ``/debug/traces``)."""
+        if self._tracer is None:
+            return contextlib.nullcontext(None)
+        return self._tracer.trace(
+            "reconcile", controller=self.reconciler.name,
+            request=self.queue._request_key(request),
+            attempt=attempt,
+            queue_wait_s=round(self.queue.last_wait, 6),
+            since_add_s=round(self.queue.last_since_add, 6),
+            backoff_failures=attempt - 1)
 
     def _worker(self) -> None:
         while True:
             request = self.queue.get()
             if request is None:
                 return
+            attempt = self.queue.failures_for(request) + 1
+            self._inflight = request
+            self._inflight_since = time.monotonic()
             started = time.monotonic()
             try:
-                result = self.reconciler.reconcile(request)
+                with self._trace_ctx(request, attempt) as root:
+                    result = self.reconciler.reconcile(request)
+                    if root is not None and result and result.requeue_after is not None:
+                        root.set_attribute("requeue_after_s", result.requeue_after)
             except BreakerOpenError as e:
                 # degraded mode: nothing this reconcile does can land now;
                 # wait out the breaker's cooldown, with no error count and
@@ -280,12 +348,31 @@ class Controller:
                 self.queue.add_rate_limited(request)
                 continue
             finally:
+                self._inflight = None
                 if self._metrics is not None:
                     self._metrics.reconcile_duration.labels(
                         name=self.reconciler.name).observe(time.monotonic() - started)
             self.queue.forget(request)
             if result and result.requeue_after is not None:
                 self.queue.add(request, result.requeue_after)
+
+    def debug_state(self) -> dict:
+        """``/debug/queue``: the queue's state, the request being
+        reconciled and for how long (a large ``inflight_for_s`` is a wedged
+        reconcile), and the reconciler's own page where it has one."""
+        inflight = self._inflight
+        state = {
+            "controller": self.reconciler.name,
+            "inflight": (self.queue._request_key(inflight)
+                         if inflight is not None else None),
+            "inflight_for_s": (round(time.monotonic() - self._inflight_since, 3)
+                               if inflight is not None else None),
+            "worker_alive": self._thread.is_alive() if self._thread else False,
+        }
+        state.update(self.queue.debug_state())
+        if hasattr(self.reconciler, "debug_state"):
+            state.update(self.reconciler.debug_state())
+        return state
 
     def stop(self) -> None:
         self._stop_event.set()

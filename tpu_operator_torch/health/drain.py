@@ -1,6 +1,5 @@
-"""The agent side of the coordinated drain for planned re-tiles
-(counterpart of tpu_operator/health/drain.py; the operator-side publish
-functions wait for the control plane).
+"""The coordinated drain for planned re-tiles, both sides (counterpart of
+tpu_operator/health/drain.py).
 
 1. The operator PUBLISHES a plan: the ``tpu.ai/planned-retile`` node
    annotation (fingerprint of the target layout, drain deadline, reason,
@@ -30,9 +29,12 @@ from ..utils import deep_get, object_hash
 
 log = logging.getLogger(__name__)
 
-#: the default plan reason (the operator also publishes "remediate",
-#: "scale-down" and "migrate"; an agent acks every reason alike)
+#: plan reasons: a re-tile around gated GPUs, or a remediation that
+#: recycles the node's pods (the reference's autoscaler and migration
+#: controller also publish "scale-down" and "migrate"; an agent acks every
+#: reason alike)
 REASON_RETILE = "retile"
+REASON_REMEDIATE = "remediate"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,6 +86,17 @@ def parse_plan(raw: Optional[str]) -> Optional[RetilePlan]:
 def node_plan(node: dict) -> Optional[RetilePlan]:
     return parse_plan(deep_get(node, "metadata", "annotations",
                                consts.RETILE_PLAN_ANNOTATION))
+
+
+def node_acked_plan(node: dict) -> Optional[str]:
+    """The plan fingerprint the node's published drain-ack covers, if any."""
+    raw = deep_get(node, "metadata", "annotations", consts.DRAIN_ACK_ANNOTATION)
+    if not raw:
+        return None
+    try:
+        return json.loads(raw).get("plan") or None
+    except (ValueError, AttributeError):
+        return None
 
 
 # -- drain acks (workload barrier stamps) -------------------------------------

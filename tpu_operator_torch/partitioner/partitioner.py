@@ -208,7 +208,7 @@ def sync_once(client, node_name: str, config_path: Optional[str],
               total_chips: Optional[int] = None,
               status_dir: Optional[str] = None,
               drain_deadline_s: Optional[int] = None,
-              nvml_lib=None) -> Optional[str]:
+              nvml_lib=None, journal=None) -> Optional[str]:
     """One reconcile pass; returns the state written (None: nothing to do).
 
     ``drain_deadline_s`` > 0 turns on the coordinated drain for
@@ -218,8 +218,10 @@ def sync_once(client, node_name: str, config_path: Optional[str],
     plan's deadline to pass, then forces. 0 (the default, also through
     ``$GPU_DRAIN_DEADLINE_S``) re-tiles at once.
 
-    The reference's optional decision-provenance ``journal`` hook is left
-    out: the port has no provenance package."""
+    ``journal`` (a :class:`~..provenance.DecisionJournal`, optional)
+    records the layout write as a decision before it lands: a re-tile
+    chains onto the health machine's episode through the node's
+    ``tpu.ai/episode-id``; a plain apply opens and closes its own."""
     if status_dir is None:
         status_dir = os.environ.get("STATUS_DIR", consts.VALIDATION_STATUS_DIR)
     if drain_deadline_s is None:
@@ -371,6 +373,21 @@ def sync_once(client, node_name: str, config_path: Optional[str],
                         "consumer check unavailable" if busy is None
                         else f"{busy} GPU-consuming pod(s) running")
             return STATE_PENDING
+        if journal is not None:
+            from ..provenance import episode_id
+
+            eid = (deep_get(node, "metadata", "annotations",
+                            consts.PROVENANCE_EPISODE_ANNOTATION)
+                   or episode_id("retile", node_name, desired,
+                                 ",".join(str(c) for c in blocked)))
+            journal.record_decision(
+                "partitioner", "re-tile" if blocked else "partition-apply", eid,
+                trigger={"type": "layout", "partition": desired, "blocked": blocked},
+                decision={"node": node_name, "groups": len(groups), "blocked": blocked},
+                actuations=[{"verb": "force-retile" if blocked else "apply",
+                             "kind": "Node", "name": node_name}],
+                outcome=None if blocked else "applied",
+                node=node_name)
         set_state(STATE_PENDING)
         write_handoff(groups, desired, handoff_dir, blocked=blocked)
         set_state(target_state)

@@ -39,7 +39,11 @@ DEFAULT_APP_NAME = "gpu-driver"
 @dataclasses.dataclass
 class DriverRenderOverrides:
     """Per-pool knobs the GPUDriver controller injects (NVIDIA's
-    internal/state/driver.go:94-104)."""
+    internal/state/driver.go:94-104): the pool's DaemonSet name and node
+    selector, and the instance's own labels, annotations, tolerations,
+    node affinity and priority class, which add to (tolerations,
+    annotations) or take the place of (priority class) the ClusterPolicy's
+    ``daemonsets`` settings."""
 
     app_name: str = DEFAULT_APP_NAME
     node_selector: Optional[Dict[str, str]] = None
@@ -47,6 +51,9 @@ class DriverRenderOverrides:
     driver_version: Optional[str] = None
     image: Optional[str] = None
     extra_labels: Optional[Dict[str, str]] = None
+    annotations: Optional[Dict[str, str]] = None
+    tolerations: Optional[List[dict]] = None
+    priority_class_name: Optional[str] = None
 
 
 class StateDriver:
@@ -66,6 +73,9 @@ class StateDriver:
         DriverSpec field shape)."""
         o = overrides or DriverRenderOverrides()
         driver = driver_spec if driver_spec is not None else policy.spec.driver
+        daemonsets = policy.spec.daemonsets
+        tolerations = list(daemonsets.tolerations)
+        tolerations += [t for t in o.tolerations or [] if t not in tolerations]
         return {
             "app_name": o.app_name,
             "namespace": namespace,
@@ -83,11 +93,11 @@ class StateDriver:
                 # machine: the DS must not replace pods on its own (OnDelete),
                 # matching the reference's driver-manager contract
                 "update_strategy": ("OnDelete" if driver.upgrade_policy.auto_upgrade
-                                    else policy.spec.daemonsets.update_strategy),
-                "rolling_update": policy.spec.daemonsets.rolling_update,
-                "priority_class_name": policy.spec.daemonsets.priority_class_name,
-                "tolerations": policy.spec.daemonsets.tolerations,
-                "annotations": policy.spec.daemonsets.annotations,
+                                    else daemonsets.update_strategy),
+                "rolling_update": daemonsets.rolling_update,
+                "priority_class_name": o.priority_class_name or daemonsets.priority_class_name,
+                "tolerations": tolerations,
+                "annotations": {**daemonsets.annotations, **(o.annotations or {})},
             },
             "driver": {
                 "image": o.image or driver.image_path(),

@@ -23,8 +23,12 @@ DaemonSet a mode decides what runs:
 - ``simulate`` (an app ``modes`` does not name): nothing, the DaemonSet
   is marked available at once.
 
-A DaemonSet counts as available only once its pod is ready; a deleted
-DaemonSet's pod is killed. Its status
+A DaemonSet's pod also exists as a Pod object, ``<ds>-<node>``, owned by
+the DaemonSet and labelled as its template is: deleting that Pod (the
+operator's health machine recycles pods so) kills the processes and runs
+the pod again from its first init container under a new Pod, as the
+DaemonSet controller and a kubelet would. A DaemonSet counts as available
+only once its pod is ready; a deleted DaemonSet's pod is killed. Its status
 (desired, available, updated, observedGeneration) is written back as the
 DaemonSet controller would. ``capacity_app``'s pod, once its init
 containers passed, gives the Node ``gpu_count`` of ``nvidia.com/gpu`` as
@@ -312,10 +316,51 @@ class ProcessKubelet:
             gone = [(n, self._pods.pop(n)) for n in list(self._pods) if n not in present]
         for name, run in gone:
             run.stop()
+            self._delete_pod_object(name)
             self.record("pod-stop", ds=name)
-        for pod in self.client.list("v1", "Pod", self.namespace):
-            if deep_get(pod, "spec", "nodeName") == self.node_name:
+        pods = [p for p in self.client.list("v1", "Pod", self.namespace)
+                if deep_get(p, "spec", "nodeName") == self.node_name]
+        owned = {self._pod_name(ref["name"]) for p in pods
+                 for ref in deep_get(p, "metadata", "ownerReferences", default=[]) or []
+                 if ref.get("kind") == "DaemonSet"}
+        # a DaemonSet pod whose Pod object was deleted: kill it, and let the
+        # next pass run it again under a new Pod
+        with self._lock:
+            deleted = [(n, self._pods.pop(n)) for n in list(self._pods)
+                       if self._pod_name(n) not in owned]
+        for name, run in deleted:
+            run.stop()
+            self.record("pod-deleted", ds=name)
+        for pod in pods:
+            if not any(ref.get("kind") == "DaemonSet" for ref in
+                       deep_get(pod, "metadata", "ownerReferences", default=[]) or []):
                 self._sync_pod(pod)
+
+    def _pod_name(self, ds_name: str) -> str:
+        return f"{ds_name}-{self.node_name}"
+
+    def _create_pod_object(self, ds: dict) -> None:
+        """The Pod object of a DaemonSet's pod on this node, a fresh one
+        (a new uid) for every run."""
+        name = ds["metadata"]["name"]
+        self._delete_pod_object(name)
+        self.client.create({
+            "apiVersion": "v1", "kind": "Pod",
+            "metadata": {
+                "name": self._pod_name(name), "namespace": self.namespace,
+                "labels": dict(deep_get(ds, "spec", "template", "metadata", "labels",
+                                        default={}) or {}),
+                "ownerReferences": [{"apiVersion": "apps/v1", "kind": "DaemonSet",
+                                     "name": name, "uid": ds["metadata"].get("uid", ""),
+                                     "controller": True}]},
+            "spec": {"nodeName": self.node_name},
+            "status": {"phase": "Running"}})
+
+    def _delete_pod_object(self, ds_name: str) -> None:
+        try:
+            self.client.delete("v1", "Pod", self._pod_name(ds_name), self.namespace)
+        except Exception:  # gone already (or collected with its DaemonSet)
+            pass
 
     def _sync_daemonset(self, ds: dict, labels: dict) -> None:
         name = ds["metadata"]["name"]
@@ -329,11 +374,13 @@ class ProcessKubelet:
                 if run is not None:
                     run.stop()
                 mode = self.modes.get(app, SIMULATE)
+                self._create_pod_object(ds)
                 self.record("pod-start", ds=name, mode=mode)
                 run = self._pods[name] = _PodRun(self, ds, mode, self.image_env.get(app, {}))
             elif not matches and run is not None:
                 run.stop()
                 del self._pods[name]
+                self._delete_pod_object(name)
                 run = None
         if (run is not None and app == self.capacity_app and not self._capacity_set
                 and (run.ready or run.state == "running")):
@@ -401,8 +448,9 @@ class ProcessKubelet:
     def restart(self, ds_name: str) -> None:
         """Kill the DaemonSet's pod and run it again from its first init
         container (a pod recycle)."""
-        with self._lock:
+        with self._lock:  # no pass may start the next run in between
             run = self._pods.pop(ds_name, None)
+            self._delete_pod_object(ds_name)
         if run is not None:
             run.stop()
         self.record("pod-recycle", ds=ds_name)

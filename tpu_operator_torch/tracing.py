@@ -1,6 +1,5 @@
-"""Join-trace spans for the validator's components and the operator (the
-part of tpu_operator/tracing.py that the port's agents and reconciler use;
-the operator's flight recorder waits for its slice).
+"""Spans for the validator's components and the operator, and the
+operator's flight recorder (counterpart of tpu_operator/tracing.py).
 
 OTel-style spans with no external dependency. The operator stamps a
 traceparent into every operand pod (``$GPU_TRACE_PARENT``); the component's
@@ -9,6 +8,14 @@ and its work opens child spans (:func:`span`), or attaches an interval it
 measured itself (:func:`record_span`). The root's sink writes the subtree
 to the node's span log (``joinprofile/records.py``), from which feature
 discovery mirrors it to the node for the operator's join profiler.
+
+In the operator, the runtime's worker opens one root span per reconcile
+(:meth:`Tracer.trace`), reconcilers open phase spans and the clients API
+spans. Finished traces land in a bounded :class:`FlightRecorder` (the last
+N traces, error traces pinned in a quarter-sized ring of their own), behind
+``/debug/traces``; phase spans feed
+``tpu_operator_reconcile_phase_seconds``; :func:`install_log_correlation`
+adds the active trace id to every log record.
 
 Propagation rides :mod:`contextvars`: outside an active trace every call is
 a free no-op, and the loss is counted (:func:`dropped_spans_total`).
@@ -22,9 +29,13 @@ import logging
 import threading
 import time
 import uuid
+from collections import deque
 from typing import Dict, Iterator, List, Optional
 
 from .consts import TRACE_ID_ANNOTATION, TRACE_PARENT_ENV  # noqa: F401  (re-exported)
+
+#: the flight recorder's default capacity (``--trace-buffer-size``)
+DEFAULT_BUFFER_SIZE = 256
 
 _current_span: contextvars.ContextVar[Optional["Span"]] = contextvars.ContextVar(
     "tpu_operator_torch_current_span", default=None)
@@ -220,6 +231,19 @@ def span(name: str, kind: str = "internal", **attributes):
         _current_span.reset(token)
 
 
+@contextlib.contextmanager
+def ensure_trace(name: str, controller: str, **attributes):
+    """The active span, or, outside a trace, a fallback root on the default
+    tracer: Events recorded off the runtime's worker (a reconciler driven
+    directly, a timer thread) still carry ``tpu.ai/trace-id``."""
+    current = _current_span.get()
+    if current is not None:
+        yield current
+        return
+    with _default_tracer.trace(name, controller=controller, **attributes) as root:
+        yield root
+
+
 def phase_span(phase: str, **attributes):
     """A reconcile-phase child span (label-nodes, sync-state, status-update)."""
     return span(phase, kind="phase", phase=phase, **attributes)
@@ -302,3 +326,143 @@ def flush_spans() -> None:
     active = _remote_sink.get()
     if active is not None:
         _flush(*active)
+
+
+class FlightRecorder:
+    """Bounded rings of finished traces (root spans): the last ``size``
+    whatever their outcome, and error traces also in a ring of their own
+    (``error_size``, a quarter by default), so a run of healthy reconciles
+    cannot evict the one failure being debugged."""
+
+    def __init__(self, size: int = DEFAULT_BUFFER_SIZE,
+                 error_size: Optional[int] = None):
+        self.size = max(1, int(size))
+        self.error_size = max(1, int(error_size if error_size is not None
+                                     else self.size // 4 or 1))
+        self._lock = threading.Lock()
+        self._traces: deque = deque(maxlen=self.size)
+        self._errors: deque = deque(maxlen=self.error_size)
+        self.recorded_total = 0
+        self.error_total = 0
+
+    def record(self, root: Span) -> None:
+        with self._lock:
+            self.recorded_total += 1
+            self._traces.append(root)
+            if root.has_error:
+                self.error_total += 1
+                self._errors.append(root)
+
+    def traces(self, controller: Optional[str] = None,
+               errors_only: bool = False,
+               trace_id: Optional[str] = None,
+               limit: Optional[int] = None) -> List[Span]:
+        """Both rings merged, newest first, each trace once."""
+        with self._lock:
+            merged: Dict[str, Span] = {}
+            for root in list(self._traces) + list(self._errors):
+                merged[root.trace_id] = root
+        out = sorted(merged.values(), key=lambda r: r.start_unix, reverse=True)
+        if controller:
+            out = [r for r in out if r.attributes.get("controller") == controller]
+        if errors_only:
+            out = [r for r in out if r.has_error]
+        if trace_id:
+            out = [r for r in out if r.trace_id == trace_id]
+        if limit is not None:
+            out = out[:max(0, int(limit))]
+        return out
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "capacity": self.size,
+                "error_capacity": self.error_size,
+                "buffered": len(self._traces),
+                "buffered_errors": len(self._errors),
+                "recorded_total": self.recorded_total,
+                "error_total": self.error_total,
+            }
+
+
+class Tracer:
+    """Opens root spans and hands each finished one to the recorder, the
+    phase histogram and ``on_finalize`` (the join profiler's feed). One per
+    operator process, shared by every controller; a trace itself stays on
+    the thread that opened it."""
+
+    def __init__(self, recorder: Optional[FlightRecorder] = None, metrics=None):
+        self.recorder = recorder or FlightRecorder()
+        self.metrics = metrics
+        #: called with every finished root span; must never raise into a
+        #: reconcile (a failure is logged and dropped)
+        self.on_finalize = None
+
+    @contextlib.contextmanager
+    def trace(self, name: str, controller: str, **attributes):
+        """A ROOT span (a fresh trace); what the body raises is re-raised
+        after the trace is marked failed."""
+        root = Span(name, kind="reconcile",
+                    attributes={"controller": controller, **attributes})
+        token = _current_span.set(root)
+        try:
+            yield root
+        except BaseException as e:
+            root.finish(error=e)
+            raise
+        else:
+            root.finish()
+        finally:
+            _current_span.reset(token)
+            self._finalize(root)
+
+    def _finalize(self, root: Span) -> None:
+        self.recorder.record(root)
+        if self.on_finalize is not None:
+            try:
+                self.on_finalize(root)
+            except Exception:  # telemetry never breaks a reconcile
+                logging.getLogger(__name__).debug("trace finalize hook failed",
+                                                  exc_info=True)
+        if self.metrics is None:
+            return
+        controller = str(root.attributes.get("controller", ""))
+        for sp in root.walk():
+            if sp.kind == "phase" and sp.duration_s is not None:
+                self.metrics.reconcile_phase.labels(
+                    controller=controller,
+                    phase=str(sp.attributes.get("phase", sp.name)),
+                ).observe(sp.duration_s)
+
+
+#: the process's tracer for code with no wiring of its own; the operator
+#: app replaces it with one bound to its metrics and sized recorder
+_default_tracer = Tracer()
+
+
+def default_tracer() -> Tracer:
+    return _default_tracer
+
+
+def set_default_tracer(tracer: Tracer) -> None:
+    global _default_tracer
+    _default_tracer = tracer
+
+
+_orig_record_factory = None
+
+
+def install_log_correlation() -> None:
+    """Stamp ``record.trace_id`` (``-`` outside a trace) on every log
+    record, so a format can hold ``%(trace_id)s``. Idempotent."""
+    global _orig_record_factory
+    if _orig_record_factory is not None:
+        return
+    _orig_record_factory = logging.getLogRecordFactory()
+
+    def factory(*args, **kwargs):
+        record = _orig_record_factory(*args, **kwargs)
+        record.trace_id = current_trace_id() or "-"
+        return record
+
+    logging.setLogRecordFactory(factory)
