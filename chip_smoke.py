@@ -134,6 +134,24 @@ Phases, each of which exits non-zero on failure:
    of the operator's writes, the metric families' counts; seconds from each
    fault to each state are printed. No hand-written kernel (K1's count
    under ``health`` is 0).
+15. on that cluster (:func:`upgrade_phase`): a fresh ``gpu-operator`` with
+   the health machine off and ``driver.upgradePolicy`` on (one node at a
+   time, 10 s forced budgets), so the driver DaemonSet is ``OnDelete``.
+   U1: a user Pod requesting one ``nvidia.com/gpu`` holds 1 GiB on the card
+   and runs GEMMs, a PodDisruptionBudget covers it, the node is cordoned by
+   hand, and an env var added to ``spec.driver.env`` rolls the template:
+   the eviction is refused with 429 and retried on its ``Retry-After``, the
+   Pod force-deleted at the 10 s budget (its memory gone from ``nvidia-smi``
+   when the driver pod is deleted), the installer rerun, the validator
+   recycled and its chain passed on the card, ``upgrade-done`` with the
+   admin's cordon kept. U2: a bundle the installer cannot read crash-loops
+   the new driver to ``upgrade-failed`` (``DriverUpgradeFailed``, the failed
+   gauge at 1); U1's template restored retries it to ``upgrade-done``,
+   uncordoned by the machine. ``gpuop-cfg status`` and ``explain node`` (the
+   two upgrade episodes apart from the health ones), the gauges, the
+   apiserver's evictions and seconds from each template change to each
+   state are printed. No hand-written kernel (K1's count under ``upgrade``
+   is 0).
 
 Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Needs a CUDA device and the rest of the repository beside this file.
@@ -2160,9 +2178,16 @@ class NodeTrail:
     state the next sweep leaves at once lasts less than any poll.
     ``on_change(entry)`` runs on the writer's thread and must not block."""
 
-    def __init__(self, backend, node_name: str, on_change=None):
+    def __init__(self, backend, node_name: str, on_change=None, label: str = None,
+                 empty: str = "healthy"):
+        from tpu_operator_torch import consts
+
         self.node_name = node_name
         self.on_change = on_change
+        #: the state label followed (the health machine's unless given),
+        #: and what its absence reads as
+        self.label = label or consts.HEALTH_STATE_LABEL
+        self.empty = empty
         self.changes: list = []
         self._lock = threading.Lock()
         self._handle = backend.watch("v1", "Node", None, handler=self._on)
@@ -2175,7 +2200,7 @@ class NodeTrail:
         if meta.get("name") != self.node_name:
             return
         anns = meta.get("annotations") or {}
-        entry = {"state": (meta.get("labels") or {}).get(consts.HEALTH_STATE_LABEL) or "healthy",
+        entry = {"state": (meta.get("labels") or {}).get(self.label) or self.empty,
                  "cordoned": bool((event.object.get("spec") or {}).get("unschedulable")),
                  "plan": consts.RETILE_PLAN_ANNOTATION in anns,
                  "verdict": anns.get(consts.WORKLOAD_HEALTH_ANNOTATION)}
@@ -2496,6 +2521,329 @@ def health_phase(ctx) -> dict:
     return numbers
 
 
+#: phase 15's driver upgrade policy on the ClusterPolicy: one node at a
+#: time, 10 s budgets for the GPU-consumer deletion and the drain, forced
+UPGRADE_POLICY = {"autoUpgrade": True, "maxParallelUpgrades": 1,
+                  "podDeletion": {"force": True, "timeoutSeconds": 10},
+                  "drain": {"enable": True, "force": True, "timeoutSeconds": 10}}
+#: U1's driver template: one env var more than the DaemonSet's
+U1_ENV = [{"name": "GPU_UPGRADE_ROUND", "value": "u1"}]
+#: the GPU consumer U1 drains: 1 GiB held on the card and GEMMs until killed
+CONSUMER_SCRIPT = (
+    "import time, torch\n"
+    "hold = torch.empty(1 << 28, device='cuda')\n"
+    "a = torch.randn(2048, 2048, device='cuda')\n"
+    "print('holding', hold.numel() * 4, flush=True)\n"
+    "while True:\n"
+    "    for _ in range(10):\n"
+    "        a = torch.tanh(a @ a)\n"
+    "    torch.cuda.synchronize()\n"
+    "    time.sleep(0.01)\n")
+#: what each upgrade episode's decision chain holds, in order
+EPISODE_U1 = ["upgrade", "drain-force", "upgrade-done"]
+EPISODE_U2 = ["upgrade", "upgrade-failed", "upgrade", "upgrade-done"]
+UPGRADE_GAUGES = ("pending", "in_progress", "done", "failed", "available")
+
+
+def _smi_used_mib():
+    """The card's used memory in MiB as ``nvidia-smi`` reads it, None on a
+    query that fails (called from an apiserver thread: it must not exit).
+    A sandboxed runtime may list no process under ``--query-compute-apps``,
+    so a process's memory is read as the card's used memory around it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    try:
+        return float(out.stdout.splitlines()[0])
+    except (IndexError, ValueError):
+        return None
+
+
+def _upgrade_gauges(port: int) -> dict:
+    samples = scrape_samples(_try_scrape(port) or "")
+    return {g: samples.get(f"tpu_operator_nodes_upgrades_{g}") for g in UPGRADE_GAUGES}
+
+
+def upgrade_phase(ctx) -> dict:
+    """Phase 15, on phases 12-14's cluster: a fresh ``gpu-operator``, its
+    ClusterPolicy with the health machine off and ``driver.upgradePolicy``
+    on (:data:`UPGRADE_POLICY`), and two rolling upgrades of the node.
+
+    U1, a clean upgrade of an admin-cordoned node past a PodDisruptionBudget:
+    a user Pod requesting one ``nvidia.com/gpu`` runs on the card as a
+    process holding 1 GiB and running GEMMs (``ctx.consumer_script``), a
+    budget with ``minAvailable: 1`` selects it, the node is cordoned by hand,
+    and one env var is added to ``spec.driver.env``. The machine's eviction
+    is refused with 429 and retried on its ``Retry-After``; at the 10 s
+    budget the Pod is force-deleted; the consumer's memory is gone from
+    ``nvidia-smi`` when the driver pod is deleted; the installer reruns on
+    the new template, the validator pod is recycled and its init chain
+    passes; ``upgrade-done``, the label cleared, and the node still
+    unschedulable (the admin's cordon), which the smoke then lifts.
+
+    U2, a crash-looping driver: the bundle the installer copies from holds
+    a directory where ``libcuda.so.1`` should be, so the new driver pod
+    crash-loops: ``upgrade-failed``, ``DriverUpgradeFailed``, the failed
+    gauge at 1, the node cordoned. U1's template restored retries the node
+    out of ``upgrade-failed`` to ``upgrade-done``, uncordoned by the machine.
+
+    Printed: seconds from each template change to each state, the Events,
+    the five gauges after each episode, ``gpuop-cfg status`` and ``explain
+    node`` (the upgrade's two episodes apart from the health episodes), the
+    apiserver's eviction requests and their 429s."""
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.utils import deep_get
+
+    raw, kubelet, ns, node_name = ctx.srv.backend, ctx.kubelet, ctx.namespace, ctx.node_name
+    on_gpu = getattr(ctx, "consumer_script", None) is None
+    numbers = {"card": ctx.card}
+    started = time.monotonic()
+
+    def cp_state():
+        return (raw.get("tpu.ai/v1", "ClusterPolicy", "cluster-policy").get("status")
+                or {}).get("state")
+
+    def node():
+        return raw.get("v1", "Node", node_name)
+
+    def cordoned():
+        return bool((node().get("spec") or {}).get("unschedulable"))
+
+    def driver_ds():
+        return next((d for d in raw.list("apps/v1", "DaemonSet", ns)
+                     if (d["spec"]["template"]["metadata"].get("labels") or {}).get(
+                         "app.kubernetes.io/component") == "gpu-driver"), {})
+
+    def patch_policy(spec):
+        body = json.dumps({"spec": spec}).encode()
+        request = urllib.request.Request(
+            f"{ctx.base}/apis/tpu.ai/v1/clusterpolicies/cluster-policy", data=body,
+            method="PATCH", headers={"Content-Type": "application/merge-patch+json"})
+        with urllib.request.urlopen(request, timeout=10) as r:
+            check(r.status == 200, f"the ClusterPolicy patch: {r.status}")
+
+    def since(t, predicate, timeout, what):
+        found = _wait_for(predicate, timeout, what)
+        return round((found["t"] if isinstance(found, dict) else time.time()) - t, 3)
+
+    # the driver pods' deletions as the apiserver takes them, with what
+    # nvidia-smi shows at that instant (the handler runs inside the delete)
+    driver_deleted = []
+
+    def on_pod(event):
+        labels = (event.object.get("metadata") or {}).get("labels") or {}
+        if event.type == "DELETED" and labels.get("app.kubernetes.io/component") == "gpu-driver":
+            driver_deleted.append({"t": time.time(),
+                                   "used_mib": _smi_used_mib() if on_gpu else None})
+
+    op = _Operator(ctx, os.path.join(ctx.work, "operator-upgrade.log"))
+    trail = watch = None
+    try:
+        _wait_for(lambda: op.readyz().get("status") == "ok", 120, "the phase-15 operator ready")
+        t_patch = time.time()
+        patch_policy({"health": {"enabled": False}, "driver": {"upgradePolicy": UPGRADE_POLICY}})
+        _wait_for(lambda: deep_get(driver_ds(), "spec", "updateStrategy", "type") == "OnDelete",
+                  120, "the driver DaemonSet OnDelete")
+        _wait_for(lambda: cp_state() == "ready", 240, "the ClusterPolicy ready with autoUpgrade")
+        check(not (node()["metadata"].get("labels") or {}).get(consts.UPGRADE_STATE_LABEL),
+              f"an upgrade began without a template change: {node()['metadata']}")
+        driver_pod = next(p for p in raw.list("v1", "Pod", ns)
+                          if (p["metadata"].get("labels") or {}).get(
+                              "app.kubernetes.io/component") == "gpu-driver")
+        check(any(c["type"] == "Ready" and c["status"] == "True"
+                  for c in driver_pod["status"].get("conditions") or []),
+              f"the driver pod not Ready: {driver_pod['status']}")
+        numbers["setup_s"] = round(time.time() - t_patch, 3)
+        trail = NodeTrail(raw, node_name, label=consts.UPGRADE_STATE_LABEL, empty="")
+        watch = raw.watch("v1", "Pod", ns, handler=on_pod)
+
+        # -- U1: a clean upgrade of an admin-cordoned node, past a PDB -----------------
+        before = _node_events(raw, ns, node_name)
+        u1 = {}
+        if on_gpu:
+            u1["baseline_used_mib"] = _smi_used_mib()
+        raw.create({"apiVersion": "v1", "kind": "Pod",
+                    "metadata": {"name": "gpu-consumer", "namespace": "default",
+                                 "labels": {"app": "gpu-consumer"}},
+                    "spec": {"nodeName": node_name, "containers": [{
+                        "name": "gemm", "command": [sys.executable, "-c",
+                                                    getattr(ctx, "consumer_script", None)
+                                                    or CONSUMER_SCRIPT],
+                        "resources": {"limits": {consts.GPU_RESOURCE_NAME: "1"}}}]},
+                    "status": {"phase": "Pending"}})
+        uid = raw.get("v1", "Pod", "gpu-consumer", "default")["metadata"]["uid"]
+        _wait_for(lambda: any("holding" in text for name, text in kubelet.spawned_logs().items()
+                              if name.endswith("@" + uid)), 120, "the consumer holding")
+        if on_gpu:
+            held = _wait_for(lambda: (lambda used: used if used and used - u1[
+                "baseline_used_mib"] >= 1024 else None)(_smi_used_mib()), 60,
+                "the consumer's 1 GiB in nvidia-smi")
+            u1["consumer_mib"] = held - u1["baseline_used_mib"]
+        raw.create({"apiVersion": "policy/v1", "kind": "PodDisruptionBudget",
+                    "metadata": {"name": "gpu-consumer", "namespace": "default"},
+                    "spec": {"selector": {"matchLabels": {"app": "gpu-consumer"}},
+                             "minAvailable": 1}})
+        raw.patch("v1", "Node", node_name, {"spec": {"unschedulable": True}})  # the admin
+        evictions_before = len(ctx.srv.evictions)
+        t_u1 = time.time()
+        patch_policy({"driver": {"env": U1_ENV}})
+        for state in ("upgrade-required", "pod-deletion-required", "pod-restart-required",
+                      "validation-required", "upgrade-done"):
+            u1[f"{state}_s"] = since(t_u1, lambda: trail.first(t_u1, state=state), 180,
+                                     f"{state} (U1)")
+        u1["cleared_s"] = since(t_u1, lambda: trail.first(t_u1 + u1["upgrade-done_s"], state=""),
+                                60, "the label cleared (U1)")
+        states = trail.states(t_u1)
+        check(states[0] == "upgrade-required" and states[-2:] == ["upgrade-done", ""]
+              and "pod-deletion-required" in states and "upgrade-failed" not in states,
+              f"U1 walked {states}")
+        u1["states"] = states
+        check(all(c["cordoned"] for c in trail.changes if c["t"] > t_u1),
+              "the admin's cordon lifted during U1")
+        check(cordoned(), "the admin's cordon lifted by the upgrade")
+        evictions = [e for e in ctx.srv.evictions[evictions_before:] if e[2] == "gpu-consumer"]
+        refused = [t for t, _, _, code in evictions if code == 429]
+        u1["evictions"] = [[round(t - t_u1, 3), code] for t, _, _, code in evictions]
+        gaps = [round(b - a, 3) for a, b in zip(refused, refused[1:])]
+        u1["retry_gaps_s"] = gaps
+        check(len(refused) >= 2 and max(gaps) <= 10.0,
+              f"the refused evictions {u1['evictions']}: no retry on the Retry-After hint")
+        killed = _wait_for(lambda: kubelet.first("pod-killed", after=t_u1, pod="gpu-consumer"),
+                           60, "the consumer's process killed")
+        u1["consumer_killed_s"] = round(killed["t"] - t_u1, 3)
+        deleted = [d for d in driver_deleted if d["t"] > t_u1]
+        check(deleted, "the old driver pod never deleted (U1)")
+        u1["driver_pod_deleted_s"] = round(deleted[0]["t"] - t_u1, 3)
+        check(killed["t"] < deleted[0]["t"], "the driver pod deleted before the consumer went")
+        if on_gpu:
+            u1["used_mib_at_driver_deletion"] = deleted[0]["used_mib"]
+            check(deleted[0]["used_mib"] is not None
+                  and deleted[0]["used_mib"] - u1["baseline_used_mib"] < 256,
+                  f"the consumer's memory still held as the driver pod went: "
+                  f"{deleted[0]['used_mib']} MiB used, {u1['baseline_used_mib']} before it")
+        # the budget runs from the state's whole-second since stamp: up to a
+        # second before the trail saw the state
+        force_after = u1["consumer_killed_s"] - u1["pod-deletion-required_s"]
+        check(force_after >= 9.0, f"forced {force_after} s into the 10 s budget")
+        u1["installer_started_s"] = since(t_u1, lambda: kubelet.first(
+            "pod-start", after=t_u1, ds="gpu-driver"), 60, "the installer rerun (U1)")
+        u1["installer_ready_s"] = since(t_u1, lambda: kubelet.first(
+            "startup-probe-passed", after=t_u1, ds="gpu-driver"), 60, "the installer's probe (U1)")
+        t_val = t_u1 + u1["validation-required_s"]
+        recycled = _wait_for(lambda: kubelet.first("pod-deleted", after=t_val - 1.0,
+                                                   ds="gpu-operator-validator"), 30,
+                             "the validator pod recycled (U1)")
+        u1["validator_recycled_s"] = round(recycled["t"] - t_u1, 3)
+        for container in ("driver-validation", "plugin-validation", "workload-validation"):
+            ran = _wait_for(lambda: kubelet.first("init-exit", after=recycled["t"],
+                                                  ds="gpu-operator-validator",
+                                                  container=container), 120,
+                            f"{container} after the recycle (U1)")
+            check(ran["rc"] == 0, f"{container} failed after the upgrade: {ran}")
+            u1[f"{container}_s"] = round(ran["t"] - t_u1, 3)
+        check(len(kubelet.matching("pod-deleted", after=t_u1, ds="gpu-operator-validator")) == 1,
+              "the validator recycled more than once (U1)")
+        u1["events"] = _events_since(before, _node_events(raw, ns, node_name))
+        check(u1["events"].get("UpgradeDrainForced") == 1, f"U1's Events {u1['events']}")
+        u1["gauges"] = _wait_for(lambda: (lambda g: g if g["available"] == 1 else None)(
+            _upgrade_gauges(op.metrics_port)), 30, "the gauges after U1")
+        check(u1["gauges"] == {"pending": 0, "in_progress": 0, "done": 0, "failed": 0,
+                               "available": 1}, f"the gauges after U1: {u1['gauges']}")
+        numbers["u1"] = u1
+        print(json.dumps({"upgrade_u1": u1, "card": ctx.card}))
+        raw.patch("v1", "Node", node_name, {"spec": {"unschedulable": None}})  # the admin again
+        _wait_for(lambda: cp_state() == "ready", 120, "ready after U1")
+
+        # -- U2: a crash-looping driver, then its recovery -------------------------------
+        broken = os.path.join(ctx.work, "broken-bundle")
+        os.makedirs(os.path.join(broken, consts.DRIVER_LIB), exist_ok=True)
+        before = _node_events(raw, ns, node_name)
+        t_u2 = time.time()
+        patch_policy({"driver": {"env": [{"name": consts.DRIVER_SRC_ENV, "value": broken}]}})
+        u2 = {}
+        for state in ("upgrade-required", "pod-restart-required", "upgrade-failed"):
+            u2[f"{state}_s"] = since(t_u2, lambda: trail.first(t_u2, state=state), 180,
+                                     f"{state} (U2)")
+        crashed = kubelet.first("main-failed", after=t_u2, ds="gpu-driver")
+        check(crashed is not None and crashed["t"] < t_u2 + u2["upgrade-failed_s"],
+              f"no crash of the new driver before upgrade-failed: {crashed}")
+        u2["driver_crashed_s"] = round(crashed["t"] - t_u2, 3)
+        check(cordoned(), "the node not cordoned at upgrade-failed")
+        u2["events"] = _events_since(before, _node_events(raw, ns, node_name))
+        check(u2["events"].get("DriverUpgradeFailed") == 1, f"U2's Events {u2['events']}")
+        u2["gauges_failed"] = _wait_for(lambda: (lambda g: g if g["failed"] == 1 else None)(
+            _upgrade_gauges(op.metrics_port)), 30, "tpu_operator_nodes_upgrades_failed 1")
+        status = _gpuop_cfg(ctx, "status", "--base-url", ctx.base)
+        print(status["out"])
+        check("upgrade-failed" in status["out"], "gpuop-cfg status shows no upgrade-failed")
+        # sticky while the pod crash-loops in place, ready between its crashes
+        time.sleep(3.0)
+        check(trail.states(t_u2)[-1] == "upgrade-failed", f"U2 left upgrade-failed: "
+                                                          f"{trail.states(t_u2)}")
+        t_r = time.time()
+        u2["failed_held_s"] = round(t_r - t_u2 - u2["upgrade-failed_s"], 3)
+        patch_policy({"driver": {"env": U1_ENV}})
+        # the retry leaves upgrade-failed and cordons in one sweep: its
+        # upgrade-required may not reach the apiserver as a state of its own
+        for state in ("pod-restart-required", "validation-required", "upgrade-done"):
+            u2[f"retry_{state}_s"] = since(t_r, lambda: trail.first(t_r, state=state), 180,
+                                           f"{state} (U2's retry)")
+        u2["retry_cleared_s"] = since(t_r, lambda: trail.first(
+            t_r + u2["retry_upgrade-done_s"], state=""), 60, "the label cleared (U2)")
+        check(not cordoned(), "the machine left its own cordon after U2's retry")
+        done = trail.first(t_r, state="upgrade-done")
+        check(not done["cordoned"], f"upgrade-done still cordoned: {done}")
+        u2["states"] = trail.states(t_u2)
+        u2["gauges"] = _wait_for(lambda: (lambda g: g if g["available"] == 1 else None)(
+            _upgrade_gauges(op.metrics_port)), 30, "the gauges after U2")
+        check(u2["gauges"]["failed"] == 0, f"the gauges after U2: {u2['gauges']}")
+        numbers["u2"] = u2
+        print(json.dumps({"upgrade_u2": u2, "card": ctx.card}))
+
+        # -- the records ----------------------------------------------------------------
+        status = _gpuop_cfg(ctx, "status", "--base-url", ctx.base)
+        print(status["out"])
+        explain = _gpuop_cfg(ctx, "explain", "node", node_name, "--base-url", ctx.base)
+        check(explain["rc"] == 0, f"gpuop-cfg explain exited {explain['rc']}: "
+                                  f"{explain['out']}{explain['err'][-2000:]}")
+        print(explain["out"])
+        episodes = _explain_episodes(explain["out"])
+        check(all(len({k.split("/")[0] for k in kinds}) == 1 for _, kinds in episodes),
+              f"an episode mixes subsystems: {episodes}")
+        upgrades = [kinds for _, kinds in episodes if kinds[0].startswith("upgrade/")]
+        check(upgrades == [[f"upgrade/{k}" for k in EPISODE_U1],
+                           [f"upgrade/{k}" for k in EPISODE_U2]],
+              f"explain's upgrade episodes {episodes}")
+        numbers["episodes"] = [[e, kinds] for e, kinds in episodes]
+        numbers["evictions"] = {"requests": len(ctx.srv.evictions),
+                                "refused_429": sum(1 for e in ctx.srv.evictions if e[3] == 429)}
+        maps = {"operator": op.maps(), "gpuop_cfg": explain["maps_line"]}
+        check(maps["operator"] == (False, False) and explain["maps_line"] == "MAPS False False",
+              f"maps torch/libcuda: {maps}")
+        _wait_for(lambda: cp_state() == "ready", 120, "the ClusterPolicy ready at the end")
+        numbers["phase_s"] = round(time.monotonic() - started, 3)
+        print(json.dumps({"upgrade_phase": {k: numbers[k] for k in (
+            "setup_s", "episodes", "evictions", "phase_s")}, "card": ctx.card}))
+    except SystemExit:
+        print(f"-- {op.log_path}:\n{op.log()[-6000:]}", file=sys.stderr)
+        if trail is not None:
+            print(f"-- node trail: {trail.changes}", file=sys.stderr)
+        print(f"-- evictions: {ctx.srv.evictions}", file=sys.stderr)
+        for name, text in kubelet.logs("gpu-driver").items():
+            print(f"-- gpu-driver/{name}:\n{text[-3000:]}", file=sys.stderr)
+        raise
+    finally:
+        if watch is not None:
+            watch.stop()
+        if trail is not None:
+            trail.stop()
+        for api_version, kind in (("v1", "Pod"), ("policy/v1", "PodDisruptionBudget")):
+            with contextlib.suppress(Exception):
+                raw.delete(api_version, kind, "gpu-consumer", "default")
+        op.stop()
+    return numbers
+
+
 def _try_scrape(port: int):
     try:
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=2) as r:
@@ -2715,7 +3063,7 @@ def main() -> int:
     k1.launches = 0
     counts = {}
 
-    def phases_13_14(ctx):
+    def phases_13_to_15(ctx):
         counts["operator"] = k1.launches
         phase("GPUDriver hand-over and back, the CRD schema, leader election and the fence")
         k1.launches = 0
@@ -2725,13 +3073,18 @@ def main() -> int:
         k1.launches = 0
         health_phase(ctx)
         counts["health"] = k1.launches
+        phase("the rolling driver upgrade: U1 past a PDB, U2 crash-looping and retried")
+        k1.launches = 0
+        upgrade_phase(ctx)
+        counts["upgrade"] = k1.launches
 
-    operator_phase(card, then=phases_13_14)
+    operator_phase(card, then=phases_13_to_15)
     operator_launches, gpudriver_launches = counts["operator"], counts["gpudriver"]
-    health_launches = counts["health"]
+    health_launches, upgrade_launches = counts["health"], counts["upgrade"]
     check(operator_launches == 0, f"the operator path launched K1 {operator_launches} times")
     check(gpudriver_launches == 0, f"phase 13 launched K1 {gpudriver_launches} times")
     check(health_launches == 0, f"phase 14 launched K1 {health_launches} times")
+    check(upgrade_launches == 0, f"phase 15 launched K1 {upgrade_launches} times")
 
     print(json.dumps({"smoke_s": round(time.monotonic() - _T0, 1), "card": card}))
     print(json.dumps({"kernels": [{
@@ -2748,15 +3101,16 @@ def main() -> int:
         "library_ms": timing["library"],
         # the paths without K1 launch it no time: serving (7), the steady
         # state (9), the device plumbing (10), the last components (11), the
-        # operator (12), the GPUDriver and leader phase (13) and the health
-        # loop (14) are checked at 0 above
+        # operator (12), the GPUDriver and leader phase (13), the health
+        # loop (14) and the rolling upgrade (15) are checked at 0 above
         "launches_by_phase": {"perf": k1_main_launches, "serving": serving_launches,
                               "steady_state": steady_state_launches,
                               "device_plumbing": plumbing_launches,
                               "last_components": last_launches,
                               "operator": operator_launches,
                               "gpudriver": gpudriver_launches,
-                              "health": health_launches},
+                              "health": health_launches,
+                              "upgrade": upgrade_launches},
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

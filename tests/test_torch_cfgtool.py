@@ -295,6 +295,51 @@ def test_status_autoscale_column(capsys):
             assert line.rstrip().endswith("-")
 
 
+def test_status_upgrade_state_column_shows_what_the_machine_writes(capsys):
+    """Each package's upgrade machine sweeps its own cluster between the
+    runs: the UPGRADE-STATE column reads ``-``, ``upgrade-required``, then
+    ``pod-restart-required``, as the reference's does."""
+    from test_torch_operator_mapping import map_object
+    from tpu_operator.api.clusterpolicy import new_cluster_policy
+    from tpu_operator.api.common import UpgradePolicySpec as RefPolicySpec
+    from tpu_operator.upgrade import machine as ref_machine
+    from tpu_operator_torch.api.common import UpgradePolicySpec
+    from tpu_operator_torch.upgrade import machine
+
+    policy = new_cluster_policy()
+    policy["status"] = {"state": "ready"}
+    node = _ref_node("node-0", {ref_consts.TPU_PRESENT_LABEL: "true",
+                                ref_consts.deploy_label("driver"): "true"})
+    ds = {"apiVersion": "apps/v1", "kind": "DaemonSet",
+          "metadata": {"name": "driver", "namespace": "tpu-operator"},
+          "spec": {"template": {
+              "metadata": {"labels": {"app.kubernetes.io/component": "tpu-driver"}},
+              "spec": {"nodeSelector": {ref_consts.deploy_label("driver"): "true"},
+                       "containers": [{"name": "i", "image": "img:2"}]}}},
+          "status": {"desiredNumberScheduled": 1, "numberAvailable": 1,
+                     "updatedNumberScheduled": 1}}
+    pod = {"apiVersion": "v1", "kind": "Pod",
+           "metadata": {"name": "drv-0", "namespace": "tpu-operator",
+                        "labels": {"app.kubernetes.io/component": "tpu-driver"}},
+           "spec": {"nodeName": "node-0", "containers": [{"name": "i", "image": "img:1"}]},
+           "status": {"phase": "Running"}}
+
+    def sweep(m, policy_cls):
+        def edit(client):
+            m.UpgradeStateMachine(client, "tpu-operator", policy_cls.from_dict(
+                {"autoUpgrade": True})).process(client.list("v1", "Node"))
+        return edit
+
+    got = _status_twin(capsys, [policy, node, ds, pod],
+                       [copy.deepcopy(policy), _port_node(node), map_object(ds),
+                        map_object(pod)],
+                       [sweep(ref_machine, RefPolicySpec)] * 2,
+                       [sweep(machine, UpgradePolicySpec)] * 2, rounds=3)
+    columns = [next(line for line in out.splitlines() if line.startswith("node-0")).split()
+               for _, out in got]
+    assert [c[4] for c in columns] == ["-", "upgrade-required", "pod-restart-required"]
+
+
 def test_status_unreachable_cluster_fails_cleanly(capsys):
     assert ref_run(["status", "--base-url", "http://127.0.0.1:1"]) == 2
     want = capsys.readouterr().err

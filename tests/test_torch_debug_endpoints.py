@@ -130,11 +130,13 @@ def test_queue_state_traces_and_join_traces_after_a_sweep(cluster):
     port = app._health_port
     deadline = time.monotonic() + 60
     while time.monotonic() < deadline:
-        if app.recorder.stats()["recorded_total"] >= 1:
+        # the upgrade controller's sweeps are traced too: wait for the
+        # ClusterPolicy's own
+        if app.recorder.traces(controller="clusterpolicy", limit=1):
             break
         time.sleep(0.1)
     _, queues = get(port, "/debug/queue")
-    assert {q["controller"] for q in queues} == {"clusterpolicy", "gpudriver"}
+    assert {q["controller"] for q in queues} == {"clusterpolicy", "gpudriver", "upgrade"}
     for q in queues:
         assert {"depth_ready", "delayed", "pending", "backoff", "inflight",
                 "worker_alive"} <= set(q)

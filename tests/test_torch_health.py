@@ -15,7 +15,9 @@ keep the reference's own assertions, which hold on both sides.
 Episode ids differ between the packages by design (the mapping's
 health section): the logs name episodes by order of
 appearance. The last tests pin that difference on the input that shows the
-reference's fault, and that a crash replay still lands on the same ids.
+reference's fault, and that a crash replay still lands on the same ids;
+and the repaired admin clear, which lifts the machine's own cordon where
+the reference leaves the node unschedulable.
 """
 
 import types
@@ -810,3 +812,63 @@ def test_the_snapshot_gate_matches_reference(answer):
     snapshot_gate(port, answer)
     assert port.record() == ref.record(mapped=True)
     assert port.log[-1][1:] == ([1, 0] if answer and "true" in answer else [0, 1])
+
+
+# -- the admin's clear lifts the machine's own cordon ------------------------------
+
+def _admin_clear(w, sticky):
+    """``cordonOnQuarantine`` on; the node driven to sticky ``failed`` or to
+    flap-damped quarantine, then the admin removes the health label."""
+    spec = {"cordonOnQuarantine": True}
+    if sticky == "failed":
+        w.setup(verdict="failed")
+        for _ in range(3):
+            w.sweep(**spec)
+            w.clock.t += 30
+        for _ in range(3):
+            w.clock.t += 601
+            w.sweep(**spec)
+        assert w.state() == w.s.m.FAILED
+    else:
+        w.setup(verdict="passed")
+        w.flap_once(**spec)
+        w.flap_once(**spec)
+        w.set_verdict("failed")
+        w.sweep(**spec)
+        assert w.state() == w.s.m.QUARANTINED
+    assert w.node()["spec"].get("unschedulable")
+    w.set_verdict("passed")
+    w.patch_node(labels={w.c.HEALTH_STATE_LABEL: None})
+    w.sweep(**spec)
+    assert w.state() == w.s.m.HEALTHY
+    return bool(w.node()["spec"].get("unschedulable"))
+
+
+@pytest.mark.parametrize("sticky", ["failed", "flap-quarantine"])
+def test_the_admin_s_clear_uncordons_a_node_the_machine_cordoned(sticky):
+    """Input: cordonOnQuarantine, a node the machine cordoned and left in
+    sticky ``failed`` (or flap-damped quarantine), the health label removed.
+    The reference wipes the annotations and leaves the node cordoned
+    (tpu_operator/health/machine.py: HealthStateMachine._process_node, the
+    healthy branch); the port lifts the cordon, as its other exits do."""
+    assert _admin_clear(World(REF), sticky) is True
+    assert _admin_clear(World(PORT), sticky) is False
+
+
+def test_the_admin_s_clear_keeps_a_cordon_when_the_machine_cordons_nothing():
+    """Without cordonOnQuarantine the machine set no cordon, and an
+    admin's own cordon stays through the clear."""
+    w = World(PORT)
+    w.setup(verdict="failed")
+    w.client.patch("v1", "Node", NODE, {"spec": {"unschedulable": True}})
+    for _ in range(3):
+        w.sweep()
+        w.clock.t += 30
+    for _ in range(3):
+        w.clock.t += 601
+        w.sweep()
+    assert w.state() == machine.FAILED
+    w.set_verdict("passed")
+    w.patch_node(labels={consts.HEALTH_STATE_LABEL: None})
+    w.sweep()
+    assert w.state() == machine.HEALTHY and w.node()["spec"]["unschedulable"] is True

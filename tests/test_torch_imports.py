@@ -87,7 +87,8 @@ def test_port_module_list_is_complete():
                      "cfgtool", "cfgtool.main", "cmd.cfg",
                      "health.machine", "provenance", "provenance.journal",
                      "provenance.audit", "provenance.explain", "joinprofile.critical_path",
-                     "joinprofile.collector"):
+                     "joinprofile.collector", "upgrade", "upgrade.machine",
+                     "controllers.upgrade_controller"):
         assert f"tpu_operator_torch.{expected}" in names
 
 
@@ -197,7 +198,9 @@ DAEMON_MODULES = ("tpu_operator_torch.cmd.operator", "tpu_operator_torch.control
                   "tpu_operator_torch.cfgtool.main", "tpu_operator_torch.cmd.cfg",
                   "tpu_operator_torch.health.machine", "tpu_operator_torch.provenance",
                   "tpu_operator_torch.joinprofile.collector",
-                  "tpu_operator_torch.joinprofile.critical_path")
+                  "tpu_operator_torch.joinprofile.critical_path",
+                  "tpu_operator_torch.upgrade.machine",
+                  "tpu_operator_torch.controllers.upgrade_controller")
 
 
 def test_the_node_daemons_import_no_torch(tmp_path):

@@ -13,9 +13,10 @@ and a pool's DaemonSet is ``gpu-driver-<instance>-<pool>``
 (:func:`map_driver_object`); ``validate-partitions`` takes a link class
 and a GPU count (:data:`PARTITION_NODES`). The health section states the
 GPU-health machine's renames (the pods it recycles, the texts naming GPUs)
-and its one deliberate difference, each episode's own id;
-:data:`DEBUG_ROUTES_LEFT_OUT` the ``/debug`` routes the port does not
-serve. The tests at the end hold the mapping itself: it changes nothing the
+and its one deliberate difference, each episode's own id; the upgrade
+section its renames, its keys and the three faults of the reference's
+upgrade the port does not copy; :data:`DEBUG_ROUTES_LEFT_OUT` the
+``/debug`` routes the port does not serve. The tests at the end hold the mapping itself: it changes nothing the
 port already renders, and it leaves no TPU name behind in what it maps.
 """
 
@@ -369,6 +370,83 @@ def map_health_node_annotations(state: str, annotations: dict) -> dict:
     if state:
         return dict(annotations)
     return {k: v for k, v in annotations.items() if k != consts.PROVENANCE_EPISODE_ANNOTATION}
+
+
+# -- the rolling driver upgrade ----------------------------------------------------
+#
+# Kept: the protocol keys tpu.ai/tpu-driver-upgrade-state, -drain.skip,
+# -state-since, -failed-template, -force-attempted and -revalidated-for; the
+# five tpu_operator_nodes_upgrades_* gauges; the Event reasons
+# UpgradeDrainForced, UpgradeDrainFailed, UpgradeWaitForJobsTimeout and
+# DriverUpgradeFailed. Renamed: the driver and validator components
+# (:data:`HEALTH_COMPONENTS`), a consumer pod is one requesting
+# nvidia.com/gpu, nodes are picked by ``nodeinfo.is_gpu_node`` and pools by
+# GPUDriver instances, the resync period is $GPU_OPERATOR_RESYNC_S. The
+# machine's and the Events' texts (:func:`map_upgrade_text`).
+#
+# Three faults of the reference the port does not copy, each pinned by its
+# own test in tests/test_torch_upgrade.py:
+# - the upgrade lifts only the cordon it set. The reference uncordons at
+#   uncordon-required and in clear_all whatever cordoned the node
+#   (tpu_operator/upgrade/machine.py: UpgradeStateMachine._process_node,
+#   clear_all). The port records on the node, when its upgrade first cordons
+#   it, whether it was schedulable (:data:`UPGRADE_PORT_KEYS`); a node the
+#   reference's tests set mid-upgrade and cordoned carries that record on the
+#   port's side (:func:`upgrade_cordon_record`);
+# - a crash-looping new driver or validator pod fails the upgrade: a
+#   container waiting in CrashLoopBackOff, or restarted more than
+#   :data:`UPGRADE_CRASH_LOOP_RESTARTS` times, counts as phase Failed does
+#   (the reference: ``_process_node``'s pod-restart-required, which reads the
+#   phase only, and validation-required, which waits on Ready without end),
+#   and a driver pod restarting in place is no way out of upgrade-failed;
+# - the upgrade keeps its own episode id (tpu.ai/upgrade-episode-id) where
+#   the reference adopts and clears the health machine's tpu.ai/episode-id
+#   (``_episode_for``, ``_set_state``): :func:`map_upgrade_node_annotations`.
+
+#: a container restarted more than this many times is crash-looping
+UPGRADE_CRASH_LOOP_RESTARTS = consts.UPGRADE_CRASH_LOOP_RESTARTS
+
+#: the port's additions to the upgrade's keys
+UPGRADE_PORT_KEYS = {consts.UPGRADE_CORDONED_ANNOTATION, consts.UPGRADE_EPISODE_ANNOTATION}
+
+#: the upgrade's texts: (the reference's, the port's)
+UPGRADE_TEXT_RULES = [
+    ("TPU-consumer pod deletion", "GPU-consumer pod deletion"),
+    ("driver pod entered Failed during upgrade on",
+     "driver pod failed or crash-looping during upgrade on"),
+]
+
+
+def map_upgrade_text(text: str) -> str:
+    """A reference upgrade Event message as the port writes it."""
+    for old, new in UPGRADE_TEXT_RULES:
+        text = text.replace(old, new)
+    return text
+
+
+def map_upgrade_node_annotations(annotations: dict) -> dict:
+    """A reference node's annotations after an upgrade sweep as the port
+    leaves them, the cordon record aside: its episode id is the upgrade's
+    own, and the forced drain's name is the port's text."""
+    out = {}
+    for key, value in annotations.items():
+        if key == consts.PROVENANCE_EPISODE_ANNOTATION:
+            key = consts.UPGRADE_EPISODE_ANNOTATION
+        elif key == consts.UPGRADE_FORCE_ATTEMPTED_ANNOTATION:
+            value = map_upgrade_text(value)
+        out[key] = value
+    return out
+
+
+def upgrade_cordon_record(state: str, unschedulable: bool) -> dict:
+    """The cordon record a port node carries where the reference's tests
+    place a node in ``state``: one its upgrade cordoned, while schedulable,
+    from cordon-required on."""
+    from tpu_operator_torch.upgrade import machine
+
+    if unschedulable and state in machine.IN_PROGRESS_STATES + (machine.FAILED,):
+        return {consts.UPGRADE_CORDONED_ANNOTATION: "true"}
+    return {}
 
 
 #: the reference's /debug routes the port's health server does not answer:

@@ -29,7 +29,7 @@ Contracts the batcher must not weaken:
   re-patch — the :mod:`~.preconditions` contract), leaving sibling
   objects' patches untouched.
 * **Ordering.** Any other mutating verb (create/update/update_status/
-  delete) and any direct ``patch()`` call is a barrier: pending
+  delete/evict) and any direct ``patch()`` call is a barrier: pending
   deferred writes flush first. A Normal Event recorded after a label
   patch therefore still lands after that patch, and a direct write can
   never overtake a deferred write to the same object.
@@ -366,6 +366,11 @@ class WriteBatcher(Client):
     def delete(self, api_version, kind, name, namespace=None) -> None:
         self._barrier()
         return self.inner.delete(api_version, kind, name, namespace)
+
+    def evict(self, name: str, namespace: Optional[str] = None) -> None:
+        # a barrier: the cordon a drain's eviction follows lands first
+        self._barrier()
+        return self.inner.evict(name, namespace)
 
     # -- reads / plumbing (pass through) -------------------------------------
     def get(self, api_version, kind, name, namespace=None) -> dict:

@@ -394,6 +394,11 @@ class CachedClient(Client):
         # the one source of truth for removal.
         self.inner.delete(api_version, kind, name, namespace)
 
+    def evict(self, name: str, namespace: Optional[str] = None) -> None:
+        # no optimistic remove either: an eviction starts a graceful
+        # termination, and the DELETED event comes when the pod is gone
+        self.inner.evict(name, namespace)
+
     # -- watches (shared informers) ------------------------------------------
     def watch(self, api_version, kind, namespace=None, handler=None,
               relist_handler=None) -> WatchHandle:

@@ -9,8 +9,9 @@ The reference's entire unit-test strategy is built on controller-runtime's
 fake client (SURVEY.md section 4.1; e.g. controllers/object_controls_test.go:241).
 This fake replicates the parts that matter to an operator: identity + metadata
 bookkeeping (uid/resourceVersion/creationTimestamp), optimistic-concurrency
-conflicts, label/field selectors, watches, and ownerReference garbage
-collection (which real clusters do server-side).
+conflicts, label/field selectors, watches, ownerReference garbage
+collection (which real clusters do server-side), and the Eviction
+subresource's PodDisruptionBudget check.
 """
 
 from __future__ import annotations
@@ -22,11 +23,22 @@ import uuid
 from typing import Callable, Dict, List, Optional, Tuple
 
 from ..utils import deep_get, json_merge_patch, rfc3339_now
-from .errors import AlreadyExistsError, ConflictError, InvalidError, NotFoundError
+from .errors import (
+    AlreadyExistsError,
+    ApiError,
+    ConflictError,
+    InvalidError,
+    NotFoundError,
+    TooManyRequestsError,
+)
 from .interface import Client, WatchEvent, WatchHandle
 from .scheme import Scheme, default_scheme
 
 Key = Tuple[str, str, str, str]
+
+#: the ``Retry-After`` a budget-blocked eviction answers with, in seconds,
+#: which the upgrade machine requeues on
+EVICTION_RETRY_AFTER_S = 2.0
 
 _crd_schemas_cache: Optional[Dict[Tuple[str, str], dict]] = None
 
@@ -327,6 +339,59 @@ class FakeClient(Client):
                 self.delete(api_version, kind, name, ns or None)
             except NotFoundError:
                 pass
+
+    def evict(self, name: str, namespace: Optional[str] = None) -> None:
+        """The Eviction subresource: every PodDisruptionBudget of the pod's
+        namespace whose selector matches it must allow a disruption, else
+        429 with :data:`EVICTION_RETRY_AFTER_S`. A budget's headroom is its
+        ``status.disruptionsAllowed`` when set, else computed from
+        ``minAvailable`` or ``maxUnavailable`` over the matching pods, of
+        which only running ones count as healthy. A selector with
+        ``matchExpressions`` is refused (501) rather than misread."""
+        with self._lock:
+            pod = self.get("v1", "Pod", name, namespace)
+            ns = pod["metadata"].get("namespace")
+            labels = deep_get(pod, "metadata", "labels", default={}) or {}
+            for pdb in self.list("policy/v1", "PodDisruptionBudget", ns):
+                if deep_get(pdb, "spec", "selector", "matchExpressions"):
+                    raise ApiError(
+                        f"PDB {pdb['metadata']['name']}: selector.matchExpressions "
+                        f"is not supported by the simulator; use matchLabels", 501)
+                selector = deep_get(pdb, "spec", "selector", "matchLabels", default={}) or {}
+                # policy/v1: an empty selector matches every pod of the namespace
+                if not all(labels.get(k) == v for k, v in selector.items()):
+                    continue
+                allowed = deep_get(pdb, "status", "disruptionsAllowed")
+                if allowed is None:
+                    allowed = self._disruptions_allowed(pdb, ns, selector)
+                if allowed <= 0:
+                    raise TooManyRequestsError(
+                        f"Cannot evict pod {ns}/{name}: disruption budget "
+                        f"{pdb['metadata']['name']} needs "
+                        f"{deep_get(pdb, 'spec', 'minAvailable')} available",
+                        retry_after=EVICTION_RETRY_AFTER_S)
+            self.delete("v1", "Pod", name, namespace)
+
+    def _disruptions_allowed(self, pdb: dict, namespace: str, selector: dict) -> int:
+        """A budget's headroom as the disruption controller counts it: only
+        running pods are healthy. A ``minAvailable`` percentage rounds up; a
+        ``maxUnavailable`` one rounds down, and unhealthy pods use it up."""
+        matching = [p for p in self.list("v1", "Pod", namespace)
+                    if all(deep_get(p, "metadata", "labels", k) == v
+                           for k, v in selector.items())]
+        healthy = [p for p in matching
+                   if deep_get(p, "status", "phase", default="Running") == "Running"]
+        min_avail = deep_get(pdb, "spec", "minAvailable")
+        max_unavail = deep_get(pdb, "spec", "maxUnavailable")
+        if min_avail is not None:
+            if isinstance(min_avail, str) and min_avail.endswith("%"):
+                min_avail = -(-len(matching) * int(min_avail[:-1]) // 100)
+            return len(healthy) - int(min_avail)
+        if max_unavail is not None:
+            if isinstance(max_unavail, str) and max_unavail.endswith("%"):
+                max_unavail = len(matching) * int(max_unavail[:-1]) // 100
+            return int(max_unavail) - (len(matching) - len(healthy))
+        return 0  # neither bound set: nothing is evictable
 
     def update_status(self, obj: dict) -> dict:
         with self._lock:

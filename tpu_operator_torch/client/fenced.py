@@ -145,6 +145,10 @@ class FencedClient(Client):
         self._admit("PUT", obj=obj)
         return self.inner.update_status(obj)
 
+    def evict(self, name: str, namespace: Optional[str] = None) -> None:
+        self._admit("EVICT", "v1", "Pod")
+        return self.inner.evict(name, namespace)
+
     # -- passthrough -----------------------------------------------------------
     def watch(self, api_version, kind, namespace=None, handler=None,
               relist_handler=None) -> WatchHandle:

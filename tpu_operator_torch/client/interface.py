@@ -64,6 +64,14 @@ class Client:
         """Update only the status subresource."""
         raise NotImplementedError
 
+    def evict(self, name: str, namespace: Optional[str] = None) -> None:
+        """Evict a pod through the Eviction subresource (policy/v1). Unlike
+        :meth:`delete`, it honours PodDisruptionBudgets: a budget that
+        allows no disruption answers 429 (``TooManyRequestsError``, its
+        ``retry_after`` the server's ``Retry-After``). The upgrade's drain
+        goes through it, as ``kubectl drain`` does."""
+        raise NotImplementedError
+
     # -- watches -------------------------------------------------------------
     def watch(
         self,

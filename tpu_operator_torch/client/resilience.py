@@ -276,7 +276,7 @@ class RetryingClient(Client):
             except Exception:
                 pass
 
-    def _call(self, verb: str, fn: Callable):
+    def _call(self, verb: str, fn: Callable, retry_429: bool = True):
         deadline = self._clock() + self.policy.deadline_s
         attempt = 1
         while True:
@@ -328,7 +328,8 @@ class RetryingClient(Client):
                     elif not isinstance(e, (BreakerOpenError, FencedError)):
                         self.breaker.record_success()  # the server answered
                         settled = True
-                    if not transient:
+                    if not transient or (not retry_429
+                                         and isinstance(e, TooManyRequestsError)):
                         raise
                     if attempt >= self.policy.max_attempts:
                         raise
@@ -383,6 +384,13 @@ class RetryingClient(Client):
 
     def update_status(self, obj: dict) -> dict:
         return self._call("PUT", lambda: self.inner.update_status(obj))
+
+    def evict(self, name: str, namespace: Optional[str] = None) -> None:
+        # a 429 here is a disruption budget's verdict, not overload: retried
+        # inside the client it would burn the drain budget the upgrade
+        # machine schedules around. Transport errors and 5xx still retry
+        return self._call("EVICT", lambda: self.inner.evict(name, namespace),
+                          retry_429=False)
 
     def server_version(self) -> str:
         return self._call("GET", self.inner.server_version)

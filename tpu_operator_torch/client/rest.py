@@ -316,6 +316,14 @@ class RestClient(Client):
                                   meta["name"], "status")
         return self._request("PUT", path, obj=obj).json()
 
+    def evict(self, name: str, namespace: Optional[str] = None) -> None:
+        """POST a policy/v1 Eviction to the pod's ``eviction`` subresource;
+        a budget's refusal raises ``TooManyRequestsError`` with the answer's
+        ``Retry-After`` in ``retry_after``."""
+        self._request("POST", self.resource_path("v1", "Pod", namespace, name, "eviction"),
+                      obj={"apiVersion": "policy/v1", "kind": "Eviction",
+                           "metadata": {"name": name, "namespace": namespace}})
+
     def server_version(self) -> str:
         return self._request("GET", "/version").json().get("gitVersion", "unknown")
 

@@ -43,13 +43,42 @@ NODE_POOL_LABEL = "tpu.ai/node-pool"
 #: the monotonic leader epoch on the operator's Lease, bumped at every
 #: acquisition; the write fence checks against it
 LEADER_EPOCH_ANNOTATION = "tpu.ai/leader-epoch"
-#: read by ``gpuop-cfg status``: the upgrade machine's per-node state, its
-#: remediation attempts, and the autoscale and migration controllers'
-#: durable state (their controllers wait for their slices)
-UPGRADE_STATE_LABEL = "tpu.ai/tpu-driver-upgrade-state"
+#: read by ``gpuop-cfg status``: the health machine's remediation attempts,
+#: and the autoscale and migration controllers' durable state (their
+#: controllers wait for their slices)
 HEALTH_ATTEMPTS_ANNOTATION = "tpu.ai/health-remediation-attempts"
 AUTOSCALE_STATE_ANNOTATION = "tpu.ai/autoscale-state"
 MIGRATION_STATE_ANNOTATION = "tpu.ai/migration-state"
+
+# -- the rolling driver upgrade (upgrade/machine.py) ------------------------------
+#: the upgrade machine's per-node state, which ``gpuop-cfg status`` shows
+UPGRADE_STATE_LABEL = "tpu.ai/tpu-driver-upgrade-state"
+#: "true" on a node: the upgrade skips its drain
+UPGRADE_SKIP_DRAIN_LABEL = "tpu.ai/tpu-driver-upgrade-drain.skip"
+#: when the node entered its current upgrade state (RFC3339): the drain,
+#: pod-deletion and wait-for-jobs budgets run from it across restarts
+UPGRADE_STATE_SINCE_ANNOTATION = "tpu.ai/tpu-driver-upgrade-state-since"
+#: the driver template's fingerprint when the node's upgrade failed:
+#: ``upgrade-failed`` is retried only once the template changes
+UPGRADE_FAILED_TEMPLATE_ANNOTATION = "tpu.ai/tpu-driver-upgrade-failed-template"
+#: set once a drain budget expired and force-delete ran (the value names the
+#: drain); pods still there past twice the budget then fail the node
+UPGRADE_FORCE_ATTEMPTED_ANNOTATION = "tpu.ai/tpu-driver-upgrade-force-attempted"
+#: the driver template the node's validator pods were recycled for: the
+#: validation after an upgrade runs once per template against the new driver
+UPGRADE_REVALIDATED_ANNOTATION = "tpu.ai/tpu-driver-upgrade-revalidated-for"
+#: port only: whether the upgrade's own cordon may be lifted ("true": the
+#: node was schedulable when its upgrade first cordoned it; "false": it was
+#: cordoned already, by an admin or the health machine, and stays so).
+#: Written once per stay in the machine, dropped when the node leaves it
+UPGRADE_CORDONED_ANNOTATION = "tpu.ai/tpu-driver-upgrade-cordoned"
+#: port only: the upgrade's own decision episode on the node, apart from
+#: the health machine's :data:`PROVENANCE_EPISODE_ANNOTATION`
+UPGRADE_EPISODE_ANNOTATION = "tpu.ai/upgrade-episode-id"
+#: port only: a container that restarted more than this many times counts
+#: as crash-looping, as one waiting in ``CrashLoopBackOff`` does: a driver
+#: or validator pod of the new template that does so fails the upgrade
+UPGRADE_CRASH_LOOP_RESTARTS = 3
 
 # -- multi-node validation -------------------------------------------------------
 #: nodes carrying the same value form one multi-node slice
@@ -279,3 +308,30 @@ MIGRATION_RESTORE_ANNOTATION = "tpu.ai/migration-restore"
 #: the process-state mirror file the training harness keeps under the
 #: status dir: the stand-in for process memory a snapshot dumps
 MIGRATE_PROCESS_STATE_FILE = "process-state.json"
+
+# -- the operator's own operand pods ---------------------------------------------------
+#: every ``app.kubernetes.io/component`` value the operand DaemonSets stamp
+#: on their pods (manifests/*/0500_daemonset.yaml). An eviction sweep exempts
+#: only these, in the operator's namespace, plus DaemonSet-owned and mirror
+#: pods: the label's presence alone is no ownership, and a user's GPU
+#: workload labelled ``component=web`` is still drained
+OPERAND_COMPONENTS = frozenset({
+    "gpu-driver", "gpu-device-plugin", "gpu-operator-validator",
+    "gpu-telemetry", "gpu-feature-discovery", "gpu-slice-partitioner",
+    "gpu-node-status-exporter", "gpu-serving-validator",
+})
+
+
+def drain_exempt(pod: dict, namespace: str) -> bool:
+    """Whether no eviction sweep may target ``pod``: DaemonSet-owned and
+    static (mirror) pods, as ``kubectl drain`` skips them, and the
+    operator's own operand pods, by namespace and a component of
+    :data:`OPERAND_COMPONENTS`."""
+    meta = pod.get("metadata") or {}
+    for ref in meta.get("ownerReferences") or []:
+        if ref.get("kind") == "DaemonSet" and ref.get("controller"):
+            return True
+    if (meta.get("annotations") or {}).get("kubernetes.io/config.mirror"):
+        return True
+    component = (meta.get("labels") or {}).get("app.kubernetes.io/component")
+    return meta.get("namespace") == namespace and component in OPERAND_COMPONENTS

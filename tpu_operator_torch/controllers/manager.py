@@ -1,7 +1,8 @@
 """Operator process wiring (counterpart of tpu_operator/controllers/manager.py;
 NVIDIA's cmd/gpu-operator/main.go:74-233): build the client chain, register
-the ClusterPolicy and GPUDriver controllers, serve metrics and health, and
-run until signalled, or, under ``--leader-elect``, until leadership is lost.
+the ClusterPolicy, GPUDriver and upgrade controllers, serve metrics and
+health, and run until signalled, or, under ``--leader-elect``, until
+leadership is lost.
 
 The client chain, outermost first: ``CachedClient`` (informer reads; off
 with ``--no-cache-reads``) → ``WriteBatcher`` (write coalescing) →
@@ -13,10 +14,10 @@ The app also builds the operator's black box: the decision-provenance
 journal (on the client chain, so its mirror writes are fenced), the flight
 recorder (``--trace-buffer-size``) and its tracer, and the join profiler,
 and serves them on the health port under ``/debug`` (:data:`DEBUG_ROUTES`;
-``--no-debug-endpoints`` serves none). The reference's upgrade, autoscale
-and migration controllers, and its ``/debug/capacity`` route, wait for
-their slices; its ``/debug/opsan`` belongs to a race sanitizer the port
-does not have.
+``--no-debug-endpoints`` serves none). The reference's autoscale and
+migration controllers, and its ``/debug/capacity`` route, wait for their
+slice; its ``/debug/opsan`` belongs to a race sanitizer the port does not
+have.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ from .clusterpolicy_controller import (
 from .gpudriver_controller import GPUDriverReconciler, setup_gpudriver_controller
 from .metrics import OperatorMetrics
 from .runtime import ControllerManager, Request
+from .upgrade_controller import UpgradeReconciler, setup_upgrade_controller
 
 log = logging.getLogger(__name__)
 
@@ -217,6 +219,11 @@ class OperatorApp:
             setup_clusterpolicy_controller(client, self.clusterpolicy_reconciler))
         self.manager.add(setup_gpudriver_controller(
             client, GPUDriverReconciler(client, namespace=namespace)))
+        # the rolling driver upgrade, journaling into the shared journal
+        self.upgrade_reconciler = UpgradeReconciler(client, namespace=namespace,
+                                                    metrics=self.metrics, journal=self.journal)
+        self.upgrade_controller = self.manager.add(
+            setup_upgrade_controller(client, self.upgrade_reconciler))
         for controller in self.manager.controllers:
             controller.instrument(self.metrics, self.tracer)
         # rest_client_requests_total rides the innermost RestClient; the

@@ -203,6 +203,23 @@ class OperatorMetrics:
             "tpu_operator_tpu_nodes_total",
             "Number of accelerator nodes in the cluster (GPU nodes here; "
             "the name is the reference's)"))
+        # the rolling driver upgrade (the upgrade controller, every sweep);
+        # names and help texts are the reference's
+        self.upgrades_in_progress = add(Gauge(
+            "tpu_operator_nodes_upgrades_in_progress",
+            "Nodes currently upgrading the TPU driver"))
+        self.upgrades_done = add(Gauge(
+            "tpu_operator_nodes_upgrades_done",
+            "Nodes that completed driver upgrade"))
+        self.upgrades_failed = add(Gauge(
+            "tpu_operator_nodes_upgrades_failed",
+            "Nodes with failed driver upgrade"))
+        self.upgrades_pending = add(Gauge(
+            "tpu_operator_nodes_upgrades_pending",
+            "Nodes pending driver upgrade"))
+        self.upgrades_available = add(Gauge(
+            "tpu_operator_nodes_upgrades_available",
+            "Nodes available for driver upgrade"))
         self.slice_partition_failed_nodes = add(Gauge(
             "tpu_operator_slice_partition_failed_nodes",
             "Nodes whose slice partitioner rejected the desired partition "

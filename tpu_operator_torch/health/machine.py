@@ -38,6 +38,10 @@ the id also holds the node's ``tpu.ai/health-state-since`` as read when
 the id is first minted (a value the node keeps across an operator
 restart), the protocol Events' exactly-once tokens carry the episode, and
 an admin's label clear wipes the stamped id with the other annotations.
+
+And one repair: the admin's label clear out of sticky ``failed`` or flap
+quarantine also lifts the cordon the machine set (``cordonOnQuarantine``),
+as its other exits do; the reference leaves such a node unschedulable.
 """
 
 from __future__ import annotations
@@ -722,6 +726,10 @@ class HealthStateMachine:
                     self.client, "v1", "Node", name, build))
                 anns = deep_get(node, "metadata", "annotations",
                                 default={}) or {}
+                # the machine's own cordon goes with the episode, as on its
+                # other exits (the template resets, recovery, clear_all)
+                if self.policy.cordon_on_quarantine:
+                    self._cordon(node, False)
             if verdict is False:
                 if self._record_degraded_entry(node, HEALTHY):
                     if not self._set_state(node, QUARANTINED,

@@ -89,9 +89,9 @@ class StateDriver:
             "extra_labels": o.extra_labels or {},
             "cdi_enabled": policy.spec.cdi.enabled,
             "daemonsets": {
-                # autoUpgrade hands rollout ordering to the upgrade state
-                # machine: the DS must not replace pods on its own (OnDelete),
-                # matching the reference's driver-manager contract
+                # autoUpgrade hands the rollout to the port's upgrade machine
+                # (upgrade/machine.py), which deletes each node's driver pod
+                # in turn: the DS must not replace pods on its own (OnDelete)
                 "update_strategy": ("OnDelete" if driver.upgrade_policy.auto_upgrade
                                     else daemonsets.update_strategy),
                 "rolling_update": daemonsets.rolling_update,

@@ -15,11 +15,12 @@ import collections
 import json
 import queue
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
-from ..client.errors import ApiError
+from ..client.errors import ApiError, TooManyRequestsError
 from ..client.fake import FakeClient
 from ..client.scheme import Scheme, default_scheme
 
@@ -82,8 +83,11 @@ class MiniApiServer:
         self.watch_idle_timeout_s = watch_idle_timeout_s
         self._router = _Router(self.scheme)
         #: requests served, by (verb, kind): GET, LIST, WATCH, POST, PUT
-        #: (``PUT/status`` for the status subresource), PATCH, DELETE
+        #: (``PUT/status`` for the status subresource), PATCH, DELETE,
+        #: EVICT (a POST to a pod's ``eviction`` subresource)
         self.requests: "collections.Counter[Tuple[str, str]]" = collections.Counter()
+        #: every eviction request: (unix time, namespace, pod, HTTP status)
+        self.evictions: list = []
         self._count_lock = threading.Lock()
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
@@ -100,12 +104,12 @@ class MiniApiServer:
 
     def request_counts(self) -> dict:
         """verb -> requests served so far, writes (POST, PUT, PATCH,
-        DELETE) also summed under ``write``."""
+        DELETE, EVICT) also summed under ``write``."""
         with self._count_lock:
             counts = collections.Counter()
             for (verb, _), n in self.requests.items():
                 counts[verb.split("/")[0]] += n
-        counts["write"] = sum(counts[v] for v in ("POST", "PUT", "PATCH", "DELETE"))
+        counts["write"] = sum(counts[v] for v in ("POST", "PUT", "PATCH", "DELETE", "EVICT"))
         return dict(counts)
 
     # -- lifecycle -----------------------------------------------------------
@@ -126,16 +130,22 @@ class MiniApiServer:
                 except ValueError:
                     raise ApiError("malformed JSON request body", 400)
 
-            def _send(self, code: int, obj) -> None:
+            def _send(self, code: int, obj, headers: Optional[dict] = None) -> None:
                 payload = json.dumps(obj).encode()
                 self.send_response(code)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(payload)))
+                for key, value in (headers or {}).items():
+                    self.send_header(key, value)
                 self.end_headers()
                 self.wfile.write(payload)
 
             def _fail(self, err: ApiError) -> None:
-                self._send(err.code, {"kind": "Status", "message": str(err), "code": err.code})
+                headers = {}
+                if isinstance(err, TooManyRequestsError) and err.retry_after is not None:
+                    headers["Retry-After"] = format(err.retry_after, "g")
+                self._send(err.code, {"kind": "Status", "message": str(err), "code": err.code},
+                           headers)
 
             def do_GET(self):
                 try:
@@ -232,9 +242,27 @@ class MiniApiServer:
                 finally:
                     handle.stop()
 
+            def _evict(self, ns, name):
+                server._count("EVICT", "Pod")
+                self._body()  # the Eviction object; the pod is named by the path
+                code = 201
+                try:
+                    server.backend.evict(name, ns)
+                except ApiError as e:
+                    code = e.code
+                    raise
+                finally:
+                    with server._count_lock:
+                        server.evictions.append((time.time(), ns, name, code))
+                self._send(201, {"kind": "Status", "status": "Success"})
+
             def do_POST(self):
                 try:
-                    api_version, kind, ns, _, _ = server._router.resolve(urlparse(self.path).path)
+                    api_version, kind, ns, name, sub = server._router.resolve(
+                        urlparse(self.path).path)
+                    if kind == "Pod" and name and sub == "eviction":
+                        self._evict(ns, name)
+                        return
                     server._count("POST", kind)
                     obj = self._body()
                     obj.setdefault("apiVersion", api_version)

@@ -1,7 +1,7 @@
-"""A process kubelet: runs what the operator schedules onto one node as
-processes on this host (the port's counterpart of the reference's kubelet
-simulator, tpu_operator/testing/kubelet.py, which only marks DaemonSets
-ready).
+"""Kubelets for the port's tests and its smoke: a process kubelet that runs
+what the operator schedules onto one node as processes on this host, and
+:class:`KubeletSimulator`, an in-memory DaemonSet controller and kubelet
+for many nodes (the counterpart of tpu_operator/testing/kubelet.py).
 
 It polls an apiserver client for the DaemonSets of a namespace whose node
 selector matches its Node, and for Pods bound to that Node, and runs their
@@ -25,16 +25,25 @@ DaemonSet a mode decides what runs:
 
 A DaemonSet's pod also exists as a Pod object, ``<ds>-<node>``, owned by
 the DaemonSet and labelled as its template is: deleting that Pod (the
-operator's health machine recycles pods so) kills the processes and runs
-the pod again from its first init container under a new Pod, as the
-DaemonSet controller and a kubelet would. A DaemonSet counts as available
-only once its pod is ready; a deleted DaemonSet's pod is killed. Its status
-(desired, available, updated, observedGeneration) is written back as the
-DaemonSet controller would. ``capacity_app``'s pod, once its init
-containers passed, gives the Node ``gpu_count`` of ``nvidia.com/gpu`` as
-capacity and allocatable, as a device plugin's registration would. A Pod
-bound to the Node (the ``workload`` component's spawned pod) runs once;
-its phase is set from its containers' exit codes.
+operator's health machine recycles pods so, the upgrade restarts its
+driver) kills the processes and runs the pod again from its first init
+container under a new Pod, on the DaemonSet's current template, as the
+DaemonSet controller and a kubelet would. The Pod object's status is the
+kubelet's: phase, a ``Ready`` condition, and ``initContainerStatuses`` and
+``containerStatuses`` with each container's ``restartCount`` and state,
+waiting in ``CrashLoopBackOff`` during a failed container's back-off. A
+template change reruns the pod under ``updateStrategy`` ``RollingUpdate``;
+under ``OnDelete`` the running pod stays until its Pod object is deleted. A
+DaemonSet counts as available only once its pod is ready, and as updated
+while its pod runs the current template; a deleted DaemonSet's pod is
+killed. Its status (desired, available, updated, observedGeneration) is
+written back as the DaemonSet controller would. ``capacity_app``'s pod, once
+its init containers passed, gives the Node ``gpu_count`` of
+``nvidia.com/gpu`` as capacity and allocatable, as a device plugin's
+registration would. A Pod of any namespace bound to the Node (the
+``workload`` component's spawned pod, a user's workload) runs once; its
+phase is set from its containers' exit codes, and deleting or evicting it
+kills its processes at once (a watch on Pods).
 
 Every process runs in its own process group; :meth:`stop` kills them all.
 What happened, and when, is in :attr:`events`.
@@ -52,7 +61,7 @@ import time
 from typing import Dict, List, Optional
 
 from .. import consts
-from ..utils import deep_get
+from ..utils import deep_get, template_fingerprint
 
 log = logging.getLogger(__name__)
 
@@ -70,12 +79,15 @@ class _Container:
     """One container as a process in its own group."""
 
     def __init__(self, kubelet: "ProcessKubelet", owner: str, spec: dict, pod_name: str,
-                 extra_env: Optional[dict] = None):
+                 extra_env: Optional[dict] = None, image_env: Optional[dict] = None):
         self.name = spec["name"]
         self.spec = spec
         self.log_path = os.path.join(kubelet.log_dir, f"{owner}.{self.name}.log")
         argv = kubelet.argv(spec)
+        # the image's env, then the container's own over it (as a runtime
+        # layers them), then a test's injected env over both
         env = dict(kubelet.base_env)
+        env.update(image_env or {})
         env.update(kubelet.container_env(spec, pod_name))
         env.update(extra_env or {})
         self.env = env
@@ -103,15 +115,27 @@ class _Container:
 class _PodRun:
     """A DaemonSet's pod on this node: its containers and their state."""
 
-    def __init__(self, kubelet: "ProcessKubelet", ds: dict, mode: str, extra_env: dict):
+    def __init__(self, kubelet: "ProcessKubelet", ds: dict, mode: str, image_env: dict,
+                 uid: Optional[str] = None):
         self.kubelet = kubelet
         self.ds_name = ds["metadata"]["name"]
-        self.generation = deep_get(ds, "metadata", "generation", default=1)
+        #: the pod template this pod runs (the DaemonSet controller's
+        #: revision hash): another fingerprint is a template change
+        self.fingerprint = template_fingerprint(deep_get(ds, "spec", "template", default={}))
         self.template = copy.deepcopy(deep_get(ds, "spec", "template", "spec", default={}))
         self.mode = mode
-        self.extra_env = extra_env
+        self.image_env = image_env
+        #: the uid of this run's Pod object, whose status it writes
+        self.uid = uid
         self.state = "pending"
         self.containers: List[_Container] = []
+        #: container name -> its status in the Pod object
+        self.statuses: Dict[str, dict] = {}
+        for kind in ("initContainers", "containers"):
+            for spec in self.template.get(kind) or []:
+                self.statuses[spec["name"]] = {
+                    "name": spec["name"], "restartCount": 0, "ready": False,
+                    "state": {"waiting": {"reason": "PodInitializing"}}}
         self._stopped = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name=f"kubelet-{self.ds_name}")
@@ -124,53 +148,126 @@ class _PodRun:
     def _event(self, kind: str, **fields) -> None:
         self.kubelet.record(kind, ds=self.ds_name, **fields)
 
+    def _container(self, name: str, state: dict, ready: bool = False,
+                   restarted: bool = False) -> None:
+        """One container's status changed: write the Pod object's status."""
+        status = self.statuses[name]
+        status["state"] = state
+        status["ready"] = ready
+        if restarted:
+            status["restartCount"] += 1
+        self.kubelet.write_pod_status(self)
+
+    def pod_status(self) -> dict:
+        """The Pod object's status as a kubelet writes it."""
+        inits = [s["name"] for s in self.template.get("initContainers") or []]
+        mains = [s["name"] for s in self.template.get("containers") or []]
+        initialized = all("terminated" in self.statuses[n]["state"] for n in inits)
+        return {
+            "phase": "Running" if initialized else "Pending",
+            "conditions": [
+                {"type": "Initialized", "status": str(initialized)},
+                {"type": "Ready", "status": str(self.ready)}],
+            "initContainerStatuses": [copy.deepcopy(self.statuses[n]) for n in inits],
+            "containerStatuses": [copy.deepcopy(self.statuses[n]) for n in mains],
+        }
+
+    def _back_off(self, c: _Container, failures: int) -> bool:
+        """A failed container waits out its back-off in ``CrashLoopBackOff``,
+        the pod not ready; True when the pod was stopped meanwhile."""
+        self.statuses[c.name]["ready"] = False
+        self._container(c.name, {"waiting": {"reason": "CrashLoopBackOff",
+                                             "message": f"exit code {c.proc.returncode}"}},
+                        restarted=True)
+        return self._stopped.wait(self.kubelet.backoff(failures))
+
     def _run(self) -> None:
         pod_name = f"{self.ds_name}-{self.kubelet.node_name}"
         if self.mode == SIMULATE:
             self.state = "ready"
+            for name in self.statuses:
+                self.statuses[name].update(state={"running": {}}, ready=True)
+            self.kubelet.write_pod_status(self)
             self._event("simulated")
             return
         for spec in self.template.get("initContainers") or []:
             failures = 0
             while True:  # restartPolicy Always: a failed init container reruns
                 self.state = f"init:{spec['name']}"
-                c = _Container(self.kubelet, self.ds_name, spec, pod_name, self.extra_env)
+                c = _Container(self.kubelet, self.ds_name, spec, pod_name,
+                               image_env=self.image_env)
                 self.containers.append(c)
+                self._container(c.name, {"running": {}})
                 self._event("init-start", container=c.name)
                 while c.proc.poll() is None:
                     if self._stopped.wait(0.05):
                         return
                 self._event("init-exit", container=c.name, rc=c.proc.returncode)
                 if c.proc.returncode == 0:
+                    self._container(c.name, {"terminated": {"exitCode": 0,
+                                                            "reason": "Completed"}})
                     break
                 self.state = f"failed:{c.name}:{c.proc.returncode}"
-                if self._stopped.wait(self.kubelet.backoff(failures)):
+                if self._back_off(c, failures):
                     return
                 failures += 1
         self._event("init-done")
         if self.mode == INIT:
             self.state = "ready"
+            for s in self.template.get("containers") or []:
+                self.statuses[s["name"]].update(state={"running": {}}, ready=True)
+            self.kubelet.write_pod_status(self)
             self._event("ready", simulated_containers=[
                 s["name"] for s in self.template.get("containers") or []])
             return
         self.state = "running"
+        mains = {}
         for spec in self.template.get("containers") or []:
-            failures = 0
-            while True:
-                c = _Container(self.kubelet, self.ds_name, spec, pod_name, self.extra_env)
-                self.containers.append(c)
-                if self._main_ready(c):
-                    break
-                if self._stopped.is_set():
-                    return
-                c.kill()
+            mains[spec["name"]] = self._start_main(spec, pod_name)
+            if mains[spec["name"]] is None:
+                return
+        self._set_ready()
+        # restartPolicy Always: a main container that fails once ready is
+        # rerun after its back-off, the pod not ready meanwhile (one that
+        # exits 0 has completed and stays so)
+        while not self._stopped.wait(0.05):
+            for spec in self.template.get("containers") or []:
+                c = mains[spec["name"]]
+                if c.proc.poll() in (None, 0):
+                    continue
                 self.state = f"failed:{c.name}:{c.proc.returncode}"
                 self._event("main-failed", container=c.name, rc=c.proc.returncode)
-                if self._stopped.wait(self.kubelet.backoff(failures)):
+                if self._back_off(c, 0):
                     return
-                failures += 1
-                self.state = "running"
+                mains[spec["name"]] = self._start_main(spec, pod_name, failures=1)
+                if mains[spec["name"]] is None:
+                    return
+                self._set_ready()
+
+    def _start_main(self, spec: dict, pod_name: str, failures: int = 0) -> Optional[_Container]:
+        """Run a main container until it is ready, rerunning it after a
+        back-off while it fails; None when the pod is stopped meanwhile."""
+        while True:
+            c = _Container(self.kubelet, self.ds_name, spec, pod_name, image_env=self.image_env)
+            self.containers.append(c)
+            self._container(c.name, {"running": {}})
+            if self._main_ready(c):
+                return c
+            if self._stopped.is_set():
+                return None
+            c.kill()
+            self.state = f"failed:{c.name}:{c.proc.returncode}"
+            self._event("main-failed", container=c.name, rc=c.proc.returncode)
+            if self._back_off(c, failures):
+                return None
+            failures += 1
+            self.state = "running"
+
+    def _set_ready(self) -> None:
         self.state = "ready"
+        for s in self.template.get("containers") or []:
+            self.statuses[s["name"]]["ready"] = True
+        self.kubelet.write_pod_status(self)
         self._event("ready")
 
     def _main_ready(self, c: _Container) -> bool:
@@ -228,6 +325,13 @@ class ProcessKubelet:
         self._events_lock = threading.Lock()
         self._pods: Dict[str, _PodRun] = {}
         self._spawned: Dict[str, List[_Container]] = {}
+        #: uids of spawned pods whose Pod object went: their processes are
+        #: killed and nothing more of them runs
+        self._killed: set = set()
+        #: guards the two above; never held across a client call (the
+        #: watch handler runs under the apiserver backend's own lock)
+        self._spawn_lock = threading.Lock()
+        self._watch = None
         self._capacity_set = False
         self._stopped = threading.Event()
         self._lock = threading.Lock()
@@ -293,9 +397,29 @@ class ProcessKubelet:
 
     # -- the loop ---------------------------------------------------------------
     def start(self) -> "ProcessKubelet":
+        # a deleted or evicted pod's processes go at once, before the
+        # delete's caller goes on, as a kubelet ends a pod before the
+        # apiserver lets its object go
+        self._watch = self.client.watch("v1", "Pod", None, handler=self._on_pod_event)
         self._thread = threading.Thread(target=self._loop, daemon=True, name="process-kubelet")
         self._thread.start()
         return self
+
+    def _on_pod_event(self, event) -> None:
+        if event.type != "DELETED":
+            return
+        meta = event.object.get("metadata") or {}
+        self._kill_spawned(meta.get("uid", meta.get("name")), meta.get("name"))
+
+    def _kill_spawned(self, uid: str, name: str) -> None:
+        with self._spawn_lock:
+            if uid not in self._spawned or uid in self._killed:
+                return
+            self._killed.add(uid)
+            containers = list(self._spawned[uid])
+        for c in containers:
+            c.kill()
+        self.record("pod-killed", pod=name)
 
     def _loop(self) -> None:
         while not self._stopped.wait(POLL_S):
@@ -318,8 +442,8 @@ class ProcessKubelet:
             run.stop()
             self._delete_pod_object(name)
             self.record("pod-stop", ds=name)
-        pods = [p for p in self.client.list("v1", "Pod", self.namespace)
-                if deep_get(p, "spec", "nodeName") == self.node_name]
+        pods = self.client.list("v1", "Pod", None,
+                                field_selector={"spec.nodeName": self.node_name})
         owned = {self._pod_name(ref["name"]) for p in pods
                  for ref in deep_get(p, "metadata", "ownerReferences", default=[]) or []
                  if ref.get("kind") == "DaemonSet"}
@@ -335,16 +459,22 @@ class ProcessKubelet:
             if not any(ref.get("kind") == "DaemonSet" for ref in
                        deep_get(pod, "metadata", "ownerReferences", default=[]) or []):
                 self._sync_pod(pod)
+        # a spawned pod whose object went while no watch event reached us
+        live = {p["metadata"].get("uid", p["metadata"]["name"]) for p in pods}
+        with self._spawn_lock:
+            gone = [uid for uid in self._spawned if uid not in live and uid not in self._killed]
+        for uid in gone:
+            self._kill_spawned(uid, uid)
 
     def _pod_name(self, ds_name: str) -> str:
         return f"{ds_name}-{self.node_name}"
 
-    def _create_pod_object(self, ds: dict) -> None:
+    def _create_pod_object(self, ds: dict) -> str:
         """The Pod object of a DaemonSet's pod on this node, a fresh one
-        (a new uid) for every run."""
+        (a new uid) for every run; returns its uid."""
         name = ds["metadata"]["name"]
         self._delete_pod_object(name)
-        self.client.create({
+        return self.client.create({
             "apiVersion": "v1", "kind": "Pod",
             "metadata": {
                 "name": self._pod_name(name), "namespace": self.namespace,
@@ -354,7 +484,21 @@ class ProcessKubelet:
                                      "name": name, "uid": ds["metadata"].get("uid", ""),
                                      "controller": True}]},
             "spec": {"nodeName": self.node_name},
-            "status": {"phase": "Running"}})
+            "status": {"phase": "Pending"}})["metadata"]["uid"]
+
+    def write_pod_status(self, run: _PodRun) -> None:
+        """A run's status onto its own Pod object (never a later run's)."""
+        try:
+            live = self.client.get("v1", "Pod", self._pod_name(run.ds_name), self.namespace)
+        except Exception:  # deleted: the run is being stopped
+            return
+        if live["metadata"].get("uid") != run.uid:
+            return
+        live["status"] = run.pod_status()
+        try:
+            self.client.update_status(live)
+        except Exception as e:  # a delete or a write racing this one
+            log.info("kubelet: status of %s not written (%s)", run.ds_name, e)
 
     def _delete_pod_object(self, ds_name: str) -> None:
         try:
@@ -368,15 +512,19 @@ class ProcessKubelet:
         matches = all(labels.get(k) == v for k, v in selector.items())
         app = deep_get(ds, "metadata", "labels", "app", default=name)
         generation = deep_get(ds, "metadata", "generation", default=1)
+        fingerprint = template_fingerprint(deep_get(ds, "spec", "template", default={}))
+        # OnDelete: a new template waits for the pod to be deleted
+        rolling = deep_get(ds, "spec", "updateStrategy", "type") != "OnDelete"
         with self._lock:
             run = self._pods.get(name)
-            if matches and (run is None or run.generation != generation):
+            if matches and (run is None or (rolling and run.fingerprint != fingerprint)):
                 if run is not None:
                     run.stop()
                 mode = self.modes.get(app, SIMULATE)
-                self._create_pod_object(ds)
+                uid = self._create_pod_object(ds)
                 self.record("pod-start", ds=name, mode=mode)
-                run = self._pods[name] = _PodRun(self, ds, mode, self.image_env.get(app, {}))
+                run = self._pods[name] = _PodRun(self, ds, mode, self.image_env.get(app, {}),
+                                                 uid)
             elif not matches and run is not None:
                 run.stop()
                 del self._pods[name]
@@ -389,7 +537,8 @@ class ProcessKubelet:
                 "currentNumberScheduled": 1 if matches else 0,
                 "numberAvailable": 1 if run is not None and run.ready else 0,
                 "numberReady": 1 if run is not None and run.ready else 0,
-                "updatedNumberScheduled": 1 if matches else 0,
+                "updatedNumberScheduled": 1 if run is not None and run.fingerprint == fingerprint
+                                          else 0,
                 "observedGeneration": generation}
         status = ds.get("status") or {}
         if any(status.get(k) != v for k, v in want.items()):
@@ -411,7 +560,7 @@ class ProcessKubelet:
         name = pod["metadata"]["name"]
         uid = pod["metadata"].get("uid", name)
         phase = deep_get(pod, "status", "phase")
-        with self._lock:
+        with self._spawn_lock:
             if uid in self._spawned or phase in ("Succeeded", "Failed"):
                 return
             self._spawned[uid] = []
@@ -420,7 +569,8 @@ class ProcessKubelet:
 
     def _set_phase(self, pod: dict, phase: str) -> None:
         try:
-            live = self.client.get("v1", "Pod", pod["metadata"]["name"], self.namespace)
+            live = self.client.get("v1", "Pod", pod["metadata"]["name"],
+                                   pod["metadata"].get("namespace"))
         except Exception as e:  # the spawner deleted it: nothing to report
             log.info("kubelet: pod %s gone (%s)", pod["metadata"]["name"], e)
             return
@@ -434,11 +584,16 @@ class ProcessKubelet:
         self.record("pod-running", pod=name)
         rc = 0
         for spec in deep_get(pod, "spec", "containers", default=[]) or []:
-            c = _Container(self, name, spec, name, self.pod_env)
-            self._spawned[uid].append(c)
+            with self._spawn_lock:
+                if uid in self._killed:
+                    return
+                c = _Container(self, name, spec, name, self.pod_env)
+                self._spawned[uid].append(c)
             while c.proc.poll() is None:
                 if self._stopped.wait(0.05):
                     return
+            if uid in self._killed:
+                return
             rc = rc or c.proc.returncode
         phase = "Succeeded" if rc == 0 else "Failed"
         self._set_phase(pod, phase)
@@ -465,6 +620,8 @@ class ProcessKubelet:
 
     def stop(self) -> None:
         self._stopped.set()
+        if self._watch is not None:
+            self._watch.stop()
         if self._thread is not None:
             self._thread.join(timeout=30)
         with self._lock:
@@ -475,3 +632,155 @@ class ProcessKubelet:
         for cs in list(self._spawned.values()):
             for c in cs:
                 c.kill()
+
+
+# -- many nodes, in memory -------------------------------------------------------
+
+#: label on a simulated DaemonSet pod naming its DaemonSet
+SIM_DS_LABEL = "tpu.ai/kubelet-sim-ds"
+#: the GPUs each simulated node's device plugin registers
+GPUS_PER_NODE = 8
+#: the app labels of the pods the validator spawns, run to completion here
+VALIDATION_APPS = ("gpu-workload-validation", "gpu-multihost-validation",
+                   "gpu-serving-validation")
+
+
+class KubeletSimulator:
+    """The DaemonSet controller and the kubelets of many nodes, in memory:
+    nothing runs. Every (DaemonSet, node) its selector matches has a Pod,
+    running and ready at once, and the DaemonSet's status counts them; the
+    device plugin's DaemonSet gives its nodes :data:`GPUS_PER_NODE` of
+    ``nvidia.com/gpu``; the validator's spawned pods finish ``Succeeded``. A
+    pod's template governs it as the DaemonSet controller's would: under
+    ``RollingUpdate`` an outdated pod is replaced, under ``OnDelete`` it
+    stays until someone (the upgrade machine) deletes it. A pod is outdated
+    when its ``tpu.ai/template-hash`` label is not its template's, or,
+    without the label, when its images and args are not the template's.
+
+    The reference's simulator can also mark DaemonSets ready without pods
+    and models image pulls, barrier gates, the migrate agent and spot
+    revocation; the port's tests need none of these yet."""
+
+    def __init__(self, client, namespace: str = consts.DEFAULT_NAMESPACE,
+                 interval: float = 0.05):
+        self.client = client
+        self.namespace = namespace
+        self.interval = interval
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> "KubeletSimulator":
+        self._thread = threading.Thread(target=self._run, daemon=True, name="kubelet-sim")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+
+    def _run(self) -> None:
+        from ..client.errors import ApiError
+
+        while not self._stop.wait(self.interval):
+            try:
+                self.tick()
+            except (ApiError, OSError) as e:  # a kubelet rides out apiserver errors
+                log.debug("kubelet sim tick error: %s", e)
+
+    def tick(self) -> None:
+        """One pass; public so that tests can drive it step by step."""
+        from ..state.skel import node_matches_selector
+
+        nodes = self.client.list("v1", "Node")
+        self._complete_validation_pods()
+        for ds in self.client.list("apps/v1", "DaemonSet", self.namespace):
+            selector = deep_get(ds, "spec", "template", "spec", "nodeSelector", default={})
+            matching = [n for n in nodes if node_matches_selector(n, selector)]
+            available, updated = self._reconcile_pods(ds, matching)
+            status = {"observedGeneration": deep_get(ds, "metadata", "generation", default=1),
+                      "desiredNumberScheduled": len(matching),
+                      "currentNumberScheduled": available, "numberReady": available,
+                      "numberAvailable": available, "updatedNumberScheduled": updated}
+            if ds.get("status") != status:
+                ds["status"] = status
+                self.client.update_status(ds)
+            component = deep_get(ds, "spec", "template", "metadata", "labels",
+                                 "app.kubernetes.io/component")
+            if available and component == "gpu-device-plugin":
+                for node in matching:
+                    self._register_gpus(node)
+
+    @staticmethod
+    def _current(pod: dict, template: dict) -> bool:
+        want = deep_get(template, "metadata", "labels", consts.TEMPLATE_HASH_LABEL)
+        if want:
+            return want == deep_get(pod, "metadata", "labels", consts.TEMPLATE_HASH_LABEL)
+
+        def essence(containers):
+            return [{"image": c.get("image"), "args": c.get("args")} for c in containers or []]
+
+        return (essence(deep_get(pod, "spec", "containers"))
+                == essence(deep_get(template, "spec", "containers")))
+
+    def _reconcile_pods(self, ds: dict, matching: List[dict]) -> tuple:
+        """The DaemonSet controller's and kubelets' part for one DaemonSet:
+        (available, updated) from the pods as they are."""
+        from ..client.errors import AlreadyExistsError, NotFoundError
+
+        name = ds["metadata"]["name"]
+        template = deep_get(ds, "spec", "template", default={})
+        rolling = deep_get(ds, "spec", "updateStrategy", "type") != "OnDelete"
+        existing = {deep_get(p, "spec", "nodeName"): p for p in self.client.list(
+            "v1", "Pod", self.namespace, label_selector={SIM_DS_LABEL: name})}
+        wanted = {n["metadata"]["name"] for n in matching}
+        available = updated = 0
+        for node_name, pod in existing.items():
+            current = node_name in wanted and self._current(pod, template)
+            if node_name not in wanted or (rolling and not current):
+                try:
+                    self.client.delete("v1", "Pod", pod["metadata"]["name"], self.namespace)
+                except NotFoundError:
+                    pass
+                continue
+            available += 1
+            updated += current
+        for node_name in sorted(wanted - set(existing)):
+            labels = dict(deep_get(template, "metadata", "labels", default={}) or {})
+            labels[SIM_DS_LABEL] = name
+            try:
+                self.client.create({
+                    "apiVersion": "v1", "kind": "Pod",
+                    "metadata": {
+                        "name": f"{name}-{node_name}"[:63].rstrip("-"),
+                        "namespace": self.namespace, "labels": labels,
+                        "ownerReferences": [{"apiVersion": "apps/v1", "kind": "DaemonSet",
+                                             "name": name, "uid": ds["metadata"].get("uid", ""),
+                                             "controller": True}]},
+                    "spec": {"nodeName": node_name,
+                             "containers": copy.deepcopy(deep_get(template, "spec",
+                                                                  "containers", default=[]))},
+                    "status": {"phase": "Running",
+                               "conditions": [{"type": "Ready", "status": "True"}]}})
+            except AlreadyExistsError:  # a deleted pod's name not yet free
+                pass
+        return available, updated
+
+    def _complete_validation_pods(self) -> None:
+        for pod in self.client.list("v1", "Pod", self.namespace):
+            if deep_get(pod, "metadata", "labels", "app") not in VALIDATION_APPS:
+                continue
+            if deep_get(pod, "status", "phase") in ("Succeeded", "Failed"):
+                continue
+            pod["status"] = {"phase": "Succeeded"}
+            self.client.update_status(pod)
+
+    def _register_gpus(self, node: dict) -> None:
+        want = str(GPUS_PER_NODE)
+        if deep_get(node, "status", "capacity", consts.GPU_RESOURCE_NAME) == want:
+            return
+        live = self.client.get("v1", "Node", node["metadata"]["name"])
+        status = live.setdefault("status", {})
+        for field in ("capacity", "allocatable"):
+            status.setdefault(field, {})[consts.GPU_RESOURCE_NAME] = want
+        self.client.update_status(live)
