@@ -152,6 +152,25 @@ Phases, each of which exits non-zero on failure:
    apiserver's evictions and seconds from each template change to each
    state are printed. No hand-written kernel (K1's count under ``upgrade``
    is 0).
+16. on that cluster (:func:`autoscale_phase`): the capacity loop under
+   chaos. A fresh operator in this process, its ``RestClient`` over the
+   chaos transport (seed 1729, 10% of requests refused or answered 429/503,
+   20% of watch streams chopped). The card's node carries the serving
+   frontier feature discovery published from the serving probe on the card
+   (run first when the node has none), and the capacity collector's tokens
+   per node, ``/debug/capacity`` and the pool's metric must equal its best
+   tokens/s at the SLO. A traffic snapshot at 2.5 times that makes the
+   autoscaler register two nodes with the pool's template (a simulated
+   kubelet animates them alone); at 0.5 times, after the cooldown, it
+   scales down by migration: a simulated training job on the victim (never
+   the card's node) acks the drain, the migration goes draining,
+   transferring, restoring, done onto another node, the victim is deleted
+   and the tenant resumes at its acked step. Every chaos kind injected,
+   the retries and the breaker's transitions, the terminal state the one a
+   run without chaos reaches, no orphan actuation, ``gpuop-cfg status``
+   mid-migration (AUTOSCALE, MIGRATION) and the operator's modules in fresh
+   processes mapping neither torch nor libcuda. No hand-written kernel
+   (K1's count under ``autoscale`` is 0).
 
 Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Needs a CUDA device and the rest of the repository beside this file.
@@ -165,6 +184,7 @@ import json
 import os
 import queue
 import re
+import shutil
 import signal
 import socket
 import statistics
@@ -182,8 +202,14 @@ import warnings
 import torch
 
 
+#: the first failure's message, repeated as the last line of standard error
+#: (the phases print their logs after it)
+_FAILURES: list = []
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    _FAILURES.append(msg)
     sys.exit(1)
 
 
@@ -791,13 +817,45 @@ def smi_sample() -> dict:
             "temperature_c": temp}
 
 
-def check_beside(value, before, after, key, rel=0.0, tol=0.0) -> None:
+def check_beside(value, before, after, key, rel=0.0, tol=0.0, between=()) -> None:
     """``value`` lies in the band nvidia-smi's two samples ``before`` and
-    ``after`` span, widened by ``rel`` of it and by ``tol``."""
-    lo, hi = sorted((before[key], after[key]))
+    ``after`` span, and the readings ``between`` them, widened by ``rel`` of
+    it and by ``tol``."""
+    lo, hi = min(before[key], after[key], *between), max(before[key], after[key], *between)
     check(lo * (1 - rel) - tol <= value <= hi * (1 + rel) + tol,
           f"{key}: the exporter's {value} against nvidia-smi's {before[key]} and "
-          f"{after[key]} around it")
+          f"{after[key]} around it, {list(between)} between")
+
+
+class SmiWatch:
+    """``nvidia-smi``'s temperature reading every 20 ms, each stamped when
+    it arrives (line-buffered through ``stdbuf``): what the die read between
+    two samples."""
+
+    def __init__(self):
+        self.readings: list = []
+        line_buffered = ["stdbuf", "-oL"] if shutil.which("stdbuf") else []
+        self.proc = subprocess.Popen(
+            [*line_buffered, "nvidia-smi", "--query-gpu=temperature.gpu",
+             "--format=csv,noheader,nounits", "-lms", "20"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+            start_new_session=True)
+        self._thread = threading.Thread(target=self._read, daemon=True, name="smi-watch")
+        self._thread.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            with contextlib.suppress(ValueError):
+                self.readings.append((time.monotonic(), float(line.split(",")[0])))
+
+    def between(self, t0: float, t1: float) -> list:
+        return [v for t, v in list(self.readings) if t0 <= t <= t1]
+
+    def stop(self) -> None:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        self.proc.wait(timeout=30)
+        self._thread.join(timeout=10)
 
 
 def scrape(port: int) -> dict:
@@ -1028,8 +1086,9 @@ def plumbing_phase(card, status_dir) -> dict:
     # 6. telemetry under load: a child holds 8 GiB and runs GEMMs. The
     # exporter refreshes every 0.1 s and each scrape is bracketed by two
     # nvidia-smi samples: under a 700 W load the die's reading moves by a
-    # degree or two within a second, so the exporter's value is held to
-    # the band the two samples span, widened by the tolerance
+    # few degrees within a second, so the exporter's temperature is held to
+    # the band the two samples and a 20 ms watch between them span, widened
+    # by the tolerance
     refresh_s = 0.1
     port = free_port()
     trigger = os.path.join(work, "exporter-check")
@@ -1051,6 +1110,7 @@ def plumbing_phase(card, status_dir) -> dict:
         "    for _ in range(20):\n"
         "        b = a @ a\n"
         "    torch.cuda.synchronize()\n"))
+    watch = None
     try:
         deadline = time.monotonic() + 60
         while True:
@@ -1064,9 +1124,12 @@ def plumbing_phase(card, status_dir) -> dict:
         load.json_lines(1, timeout=120)
         time.sleep(3.0)
         pairs = []
+        watch = SmiWatch()
         for _ in range(3):
+            t0 = time.monotonic()
             before, got, after = smi_sample(), scrape(port), smi_sample()
-            pairs.append((got, [before, after]))
+            temps = watch.between(t0, time.monotonic())
+            pairs.append((got, [before, after, temps]))
             used = got['tpu_hbm_used_bytes{chip="0"}']
             check(used >= 8 * 2 ** 30, f"hbm used {used} under an 8 GiB hold")
             check_beside(used, before, after, "memory_used_bytes", rel=0.05)
@@ -1074,7 +1137,7 @@ def plumbing_phase(card, status_dir) -> dict:
             check_beside(got['tpu_power_watts{sensor="nvml/gpu0"}'], before, after, "power_w",
                          rel=0.15)
             check_beside(got['tpu_temperature_celsius{sensor="nvml/gpu0"}'], before, after,
-                         "temperature_c", tol=2)
+                         "temperature_c", tol=2, between=temps)
             time.sleep(0.5)
         loaded_used = pairs[-1][0]['tpu_hbm_used_bytes{chip="0"}']
         metrics = telemetry.TelemetryMetrics(handoff_dir=handoff)
@@ -1097,6 +1160,8 @@ def plumbing_phase(card, status_dir) -> dict:
         open(trigger, "w").close()
         exporter_check = exporter.json_lines(1, timeout=60)[0]
     finally:
+        if watch is not None:
+            watch.stop()
         load.stop()
         exporter.stop()
     check(exporter_check == {"torch": False, "jax": False, "contexts": [False] * n_cuda},
@@ -1838,6 +1903,16 @@ def _gpuop_cfg(ctx, *argv) -> dict:
     return {"rc": out.returncode, "out": out.stdout, "err": out.stderr, "maps_line": last}
 
 
+def _patch_policy(ctx, spec: dict) -> None:
+    """A merge patch of the ClusterPolicy's spec over HTTP, as an admin's."""
+    body = json.dumps({"spec": spec}).encode()
+    request = urllib.request.Request(
+        f"{ctx.base}/apis/tpu.ai/v1/clusterpolicies/cluster-policy", data=body,
+        method="PATCH", headers={"Content-Type": "application/merge-patch+json"})
+    with urllib.request.urlopen(request, timeout=10) as r:
+        check(r.status == 200, f"the ClusterPolicy patch: {r.status}")
+
+
 def gpudriver_phase(ctx) -> dict:
     """Phase 13, on phase 12's cluster once it is ``ready`` again: the
     sample GPUDriver takes the driver DaemonSet over from the ClusterPolicy
@@ -2030,9 +2105,19 @@ def gpudriver_phase(ctx) -> dict:
         _wait_for(lambda: cp_state() == "ready", 60, "ready under the elected leader")
         t5 = time.time()
         os.killpg(old.proc.pid, signal.SIGSTOP)
+        time.sleep(0.5)  # a renewal in flight at the stop lands meanwhile
+        renewed = real_get("coordination.k8s.io/v1", "Lease", "gpu-operator-leader", ns)["spec"]
         leader_numbers["takeover_s"] = since(t5, new.is_leader, 60, "the standby taking over")
-        check(leader_numbers["takeover_s"] <= 15.0 + 2.0 + 1.0,
-              f"takeover {leader_numbers['takeover_s']} s, past the lease plus a retry period")
+        acquired = real_get("coordination.k8s.io/v1", "Lease", "gpu-operator-leader", ns)["spec"]
+        check(acquired["holderIdentity"] == new.readyz()["leader"]["identity"],
+              f"lease after the takeover {acquired}")
+        # the takeover as the Lease records it (whole seconds): from the old
+        # leader's last renewal to the new one's acquisition
+        leader_numbers["takeover_lease_s"] = (_stamp_s(acquired["acquireTime"])
+                                              - _stamp_s(renewed["renewTime"]))
+        check(leader_numbers["takeover_lease_s"] <= 15.0 + 2.0 + 1.0,
+              f"takeover {leader_numbers['takeover_lease_s']} s by the Lease, past the lease "
+              f"plus a retry period")
         check(cp_state() == "ready", f"the CR {cp_state()} after the takeover")
         # the old leader resumes with a write to make: the new one is stopped,
         # the node lost its presence label, and Lease reads are slow
@@ -2045,12 +2130,19 @@ def gpudriver_phase(ctx) -> dict:
         os.killpg(old.proc.pid, signal.SIGCONT)
 
         def fenced_writes():
-            text = _try_scrape(old.metrics_port) or ""
-            return sum(v for k, v in scrape_samples(text).items()
-                       if k.startswith("tpu_operator_fenced_writes_total{"))
+            samples = scrape_samples(_try_scrape(old.metrics_port) or "")
+            count = sum(v for k, v in samples.items()
+                        if k.startswith("tpu_operator_fenced_writes_total{"))
+            first = min((v for k, v in samples.items()
+                         if k.startswith("tpu_operator_fenced_writes_created{")), default=None)
+            return (count, first) if count else None
 
-        leader_numbers["fenced_writes"] = _wait_for(fenced_writes, 8, "a fenced write")
-        leader_numbers["first_fenced_s"] = round(time.time() - t6, 3)
+        # polled over a minute (a loaded machine answers scrapes late); the
+        # bound is on the counter's own creation stamp, the first refusal
+        leader_numbers["fenced_writes"], first = _wait_for(fenced_writes, 60, "a fenced write")
+        leader_numbers["first_fenced_s"] = round(first - t6, 3)
+        check(leader_numbers["first_fenced_s"] <= 8.0,
+              f"the first fenced write {leader_numbers['first_fenced_s']} s after the resume")
         held.clear()
         release.set()
         backend.get = real_get
@@ -2203,7 +2295,11 @@ class NodeTrail:
         entry = {"state": (meta.get("labels") or {}).get(self.label) or self.empty,
                  "cordoned": bool((event.object.get("spec") or {}).get("unschedulable")),
                  "plan": consts.RETILE_PLAN_ANNOTATION in anns,
-                 "verdict": anns.get(consts.WORKLOAD_HEALTH_ANNOTATION)}
+                 "verdict": anns.get(consts.WORKLOAD_HEALTH_ANNOTATION),
+                 # the health machine's own stamps: when it entered the state
+                 # (whole seconds), and its remediation attempts
+                 "since": anns.get(consts.HEALTH_STATE_SINCE_ANNOTATION),
+                 "attempts": anns.get(consts.HEALTH_ATTEMPTS_ANNOTATION)}
         with self._lock:
             if self.changes and all(self.changes[-1][k] == v for k, v in entry.items()):
                 return
@@ -2227,6 +2323,15 @@ class NodeTrail:
 
     def stop(self) -> None:
         self._handle.stop()
+
+
+def _stamp_s(stamp: str) -> float:
+    """An RFC 3339 stamp (a health machine's since, a Lease's times) as unix
+    seconds, its fraction dropped."""
+    import calendar
+
+    return float(calendar.timegm(time.strptime(stamp.split(".")[0].rstrip("Z"),
+                                               "%Y-%m-%dT%H:%M:%S")))
 
 
 def _node_events(backend, namespace: str, name: str) -> dict:
@@ -2317,13 +2422,7 @@ def health_phase(ctx) -> dict:
         _wait_for(lambda: op.readyz().get("status") == "ok", 120, "the phase-14 operator ready")
         _wait_for(lambda: cp_state() == "ready", 120, "the ClusterPolicy ready under it")
         t_patch = time.time()
-        body = json.dumps({"spec": {"health": HEALTH_SPEC,
-                                    "featureDiscovery": {"sleepInterval": "2s"}}}).encode()
-        request = urllib.request.Request(
-            f"{ctx.base}/apis/tpu.ai/v1/clusterpolicies/cluster-policy", data=body,
-            method="PATCH", headers={"Content-Type": "application/merge-patch+json"})
-        with urllib.request.urlopen(request, timeout=10) as r:
-            check(r.status == 200, f"the health patch: {r.status}")
+        _patch_policy(ctx, {"health": HEALTH_SPEC, "featureDiscovery": {"sleepInterval": "2s"}})
         check(policy()["spec"]["health"]["drainDeadlineS"] == 5, "the health patch not stored")
         _wait_for(lambda: kubelet.first("pod-start", after=t_patch, ds="gpu-feature-discovery"),
                   60, "feature discovery restarted with its 2 s interval")
@@ -2402,6 +2501,13 @@ def health_phase(ctx) -> dict:
         b["failed_s"] = since(t_b, lambda: trail.first(t_b, state="failed"), 90, "failed (B)")
         check(trail.states(t_b) == ["healthy", "degraded", "quarantined", "remediating",
                                     "failed"], f"episode B walked {trail.states(t_b)}")
+        # each 30 s wait as the machine counts it: from the since stamp it
+        # wrote entering the state to the one it wrote leaving it
+        stamps = [_stamp_s(trail.first(t_b, state="remediating", attempts=n)["since"])
+                  for n in ("1", "2")] + [_stamp_s(trail.first(t_b, state="failed")["since"])]
+        b["remediation_waits_s"] = [stamps[1] - stamps[0], stamps[2] - stamps[1]]
+        check(all(w >= HEALTH_SPEC["remediationWaitS"] for w in b["remediation_waits_s"]),
+              f"the remediation waits by the machine's stamps: {b['remediation_waits_s']}")
         message = "node GPU health: 1 failed"
         b["condition_s"] = since(t_b, lambda: condition().get("status") == "True"
                                  and condition().get("message") == message, 30,
@@ -2614,14 +2720,6 @@ def upgrade_phase(ctx) -> dict:
                      if (d["spec"]["template"]["metadata"].get("labels") or {}).get(
                          "app.kubernetes.io/component") == "gpu-driver"), {})
 
-    def patch_policy(spec):
-        body = json.dumps({"spec": spec}).encode()
-        request = urllib.request.Request(
-            f"{ctx.base}/apis/tpu.ai/v1/clusterpolicies/cluster-policy", data=body,
-            method="PATCH", headers={"Content-Type": "application/merge-patch+json"})
-        with urllib.request.urlopen(request, timeout=10) as r:
-            check(r.status == 200, f"the ClusterPolicy patch: {r.status}")
-
     def since(t, predicate, timeout, what):
         found = _wait_for(predicate, timeout, what)
         return round((found["t"] if isinstance(found, dict) else time.time()) - t, 3)
@@ -2641,7 +2739,8 @@ def upgrade_phase(ctx) -> dict:
     try:
         _wait_for(lambda: op.readyz().get("status") == "ok", 120, "the phase-15 operator ready")
         t_patch = time.time()
-        patch_policy({"health": {"enabled": False}, "driver": {"upgradePolicy": UPGRADE_POLICY}})
+        _patch_policy(ctx, {"health": {"enabled": False},
+                            "driver": {"upgradePolicy": UPGRADE_POLICY}})
         _wait_for(lambda: deep_get(driver_ds(), "spec", "updateStrategy", "type") == "OnDelete",
                   120, "the driver DaemonSet OnDelete")
         _wait_for(lambda: cp_state() == "ready", 240, "the ClusterPolicy ready with autoUpgrade")
@@ -2686,7 +2785,7 @@ def upgrade_phase(ctx) -> dict:
         raw.patch("v1", "Node", node_name, {"spec": {"unschedulable": True}})  # the admin
         evictions_before = len(ctx.srv.evictions)
         t_u1 = time.time()
-        patch_policy({"driver": {"env": U1_ENV}})
+        _patch_policy(ctx, {"driver": {"env": U1_ENV}})
         for state in ("upgrade-required", "pod-deletion-required", "pod-restart-required",
                       "validation-required", "upgrade-done"):
             u1[f"{state}_s"] = since(t_u1, lambda: trail.first(t_u1, state=state), 180,
@@ -2759,7 +2858,7 @@ def upgrade_phase(ctx) -> dict:
         os.makedirs(os.path.join(broken, consts.DRIVER_LIB), exist_ok=True)
         before = _node_events(raw, ns, node_name)
         t_u2 = time.time()
-        patch_policy({"driver": {"env": [{"name": consts.DRIVER_SRC_ENV, "value": broken}]}})
+        _patch_policy(ctx, {"driver": {"env": [{"name": consts.DRIVER_SRC_ENV, "value": broken}]}})
         u2 = {}
         for state in ("upgrade-required", "pod-restart-required", "upgrade-failed"):
             u2[f"{state}_s"] = since(t_u2, lambda: trail.first(t_u2, state=state), 180,
@@ -2782,7 +2881,7 @@ def upgrade_phase(ctx) -> dict:
                                                           f"{trail.states(t_u2)}")
         t_r = time.time()
         u2["failed_held_s"] = round(t_r - t_u2 - u2["upgrade-failed_s"], 3)
-        patch_policy({"driver": {"env": U1_ENV}})
+        _patch_policy(ctx, {"driver": {"env": U1_ENV}})
         # the retry leaves upgrade-failed and cordons in one sweep: its
         # upgrade-required may not reach the apiserver as a state of its own
         for state in ("pod-restart-required", "validation-required", "upgrade-done"):
@@ -2841,6 +2940,530 @@ def upgrade_phase(ctx) -> dict:
             with contextlib.suppress(Exception):
                 raw.delete(api_version, kind, "gpu-consumer", "default")
         op.stop()
+    return numbers
+
+
+#: phase 16's ClusterPolicy settings: the pool between one node (the card's)
+#: and three, a cooldown that holds the pool after each resize for the rest
+#: of the phase (so one scale-down follows the scale-up), a short delay; the
+#: migration controller on, and a drain window the tenant acks well inside
+AUTOSCALE_SPEC = {"enabled": True, "minNodes": {"default": 1}, "maxNodes": {"default": 3},
+                  "cooldownS": 15, "scaleDownDelayS": 2}
+MIGRATE_SPEC = {"enabled": True}
+AUTOSCALE_DRAIN_DEADLINE_S = 60
+#: the chaos under phase 16's RestClient: one seed, 10% of requests refused
+#: or answered 429/503 before the server, 20% of watch streams chopped
+#: (dropped mid-event while the fleet grows, truncated mid-line while it
+#: shrinks)
+AUTOSCALE_CHAOS = {"seed": 1729, "error_rate": 0.1, "watch_chop_rate": 0.2}
+CHAOS_KINDS = ("429", "503", "reset", "watch-drop", "watch-truncate")
+AUTOSCALE_WATCH_IDLE_S = 1.0
+#: the traffic feed's cadence
+TRAFFIC_TICK_S = 0.1
+#: the traffic, as multiples of one node's measured tokens/s at the SLO
+DEMAND_UP, DEMAND_DOWN = 2.5, 0.5
+#: where phase 16 ends, with or without chaos: the pool at two nodes (the
+#: card's and one registered), two registered in all, one migration done
+#: and its source deleted, the tenant resumed at its acked step, one Event
+#: of each kind, no orphan actuation
+AUTOSCALE_TERMINAL = {
+    "pool_size": 2, "registered": 2, "registered_left": 1, "card_node_kept": True,
+    "migration": {"phase": "done", "seq": 4}, "source_deleted": True,
+    "steps_lost_beyond_drain_window": 0,
+    "events": {"RetilePlanned": 1, "MigrationRestored": 1, "MigrationCompleted": 1,
+               "AutoscaleUp": 1, "AutoscaleDown": 1},
+    "audit": {"ok": True, "orphans": 0},
+}
+#: the migration-episode Events that must not occur on the cooperative path
+MIGRATION_FAILURE_REASONS = ("MigrationFailed", "MigrationBlocked", "MigrationSnapshotRequested",
+                             "MigrationSnapshotFailed", "RetileDeadlineExpired",
+                             "AutoscaleSaturated")
+
+
+class TrafficFeed:
+    """The traffic scenario's part: a ``tpu.ai/traffic-snapshot`` on the
+    ClusterPolicy every :data:`TRAFFIC_TICK_S`, its token demand ``multiple``
+    times ``tokens_per_node``, written over HTTP through the same chaos as the
+    operator's (a tick the chaos refuses is missed; the next one carries on,
+    as the reference's feed does)."""
+
+    def __init__(self, base: str, chaos):
+        from tpu_operator_torch.client.chaos import ChaosTransport
+        from tpu_operator_torch.client.rest import RestClient, Transport
+
+        self.client = RestClient(base, transport=ChaosTransport(Transport(base), chaos)
+                                 if chaos is not None else None)
+        self.tokens_per_node = self.multiple = 0.0
+        self.ticks = self.missed = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True, name="traffic-feed")
+
+    def _tick(self) -> None:
+        from tpu_operator_torch import consts
+
+        snapshot = {"ts": time.time(), "queue_depth": 0, "backlog_chips": 0.0, "attainment": 1.0,
+                    "demand_tokens_per_s": round(self.multiple * self.tokens_per_node, 3)}
+        self.ticks += 1
+        try:
+            self.client.patch("tpu.ai/v1", "ClusterPolicy", "cluster-policy", {
+                "metadata": {"annotations": {consts.TRAFFIC_SNAPSHOT_ANNOTATION: json.dumps(
+                    snapshot, sort_keys=True)}}})
+        except Exception:  # refused by the chaos: the next tick carries on
+            self.missed += 1
+
+    def _run(self) -> None:
+        while not self._stop.wait(TRAFFIC_TICK_S):
+            self._tick()
+
+    def start(self) -> None:
+        self._thread.start()
+
+    def set(self, multiple: float) -> float:
+        """Change the demand: returns when the change was first published."""
+        self.multiple = multiple
+        return time.time()
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread.is_alive():
+            self._thread.join(timeout=10)
+        self.client.stop()
+
+
+class MigrationTrail:
+    """Every autoscale and migration change on the nodes, timed, from the
+    apiserver backend's own watch: registrations, each migration state
+    (phase and sequence number) on a source, the drain plan and ack, the
+    transfer record and the restore answer on a destination, deletions."""
+
+    def __init__(self, backend):
+        self.entries: list = []
+        self._lock = threading.Lock()
+        self._seen: dict = {}
+        self._handle = backend.watch("v1", "Node", None, handler=self._on)
+
+    def _note(self, key, value) -> None:
+        if self._seen.get(key) == value:
+            return
+        self._seen[key] = value
+        self.entries.append({"t": time.time(), "node": key[0], "what": key[1],
+                             "value": value})
+
+    def _on(self, event) -> None:
+        from tpu_operator_torch import consts
+
+        meta = event.object.get("metadata") or {}
+        name, anns = meta.get("name"), meta.get("annotations") or {}
+        labels = meta.get("labels") or {}
+        with self._lock:
+            if event.type == "DELETED":
+                self._note((name, "deleted"), True)
+                return
+            if consts.AUTOSCALE_MANAGED_LABEL in labels:
+                self._note((name, "registered"), labels[consts.AUTOSCALE_MANAGED_LABEL])
+            raw = anns.get(consts.MIGRATION_STATE_ANNOTATION)
+            if raw:
+                with contextlib.suppress(ValueError):
+                    state = json.loads(raw)
+                    self._note((name, "migration"), (state.get("phase"), state.get("seq")))
+            for key, what in ((consts.MIGRATE_REQUEST_ANNOTATION, "request"),
+                              (consts.RETILE_PLAN_ANNOTATION, "plan"),
+                              (consts.DRAIN_ACK_ANNOTATION, "ack"),
+                              (consts.MIGRATION_INBOUND_ANNOTATION, "inbound"),
+                              (consts.MIGRATION_RESTORE_ANNOTATION, "restored")):
+                if anns.get(key):
+                    self._note((name, what), True)
+
+    def first(self, what: str, node: str = None):
+        with self._lock:
+            return next((e for e in self.entries if e["what"] == what
+                         and (node is None or e["node"] == node)), None)
+
+    def all(self, what: str) -> list:
+        with self._lock:
+            return [e for e in self.entries if e["what"] == what]
+
+    def stop(self) -> None:
+        self._handle.stop()
+
+
+def autoscale_phase(ctx) -> dict:
+    """Phase 16, on phases 12-15's cluster: the capacity loop under chaos.
+
+    A fresh operator runs in this process on the production client chain
+    (``build_client``) over a ``RestClient`` whose transport is the chaos
+    transport (:data:`AUTOSCALE_CHAOS`; ``ctx.chaos`` False runs it without).
+    The smoke reads and asserts through the apiserver's backend, which no
+    chaos touches.
+
+    1. The frontier: the card's node carries ``tpu.ai/serving-frontier`` as
+       feature discovery published it from the serving probe (run first, on
+       the card, when the node has none); the capacity collector's
+       ``tokens_per_node()`` must equal the curve's best tokens/s at
+       ``spec.serving.maxDecodeP99Ms``, and so must ``/debug/capacity`` and
+       ``tpu_operator_serving_frontier_tokens_per_s`` of the node's pool.
+    2. Scale up: ``spec.autoscale`` and ``spec.migrate`` on
+       (:data:`AUTOSCALE_SPEC`), a ``tpu.ai/traffic-snapshot`` asking for
+       :data:`DEMAND_UP` times that number; the autoscaler registers two
+       nodes with the pool's template, and a ``KubeletSimulator`` animates
+       those nodes alone (the card's stays with the process kubelet).
+    3. Scale down by migration: demand at :data:`DEMAND_DOWN` times; once
+       the cooldown and the delay have passed, the victim (a registered
+       node, never the card's) gets a migrate request; a
+       ``SimulatedTrainingJob`` on it acks the drain (its ack mirrored as
+       feature discovery mirrors a node's), the migration goes draining,
+       transferring, restoring, done onto another node, whose migrate agent
+       restores the checkpoint, and the victim is deleted. The tenant
+       resumes on the destination at the step it acked.
+    4. The chaos: every kind injected (:data:`CHAOS_KINDS`), the retries and
+       the breaker's transitions; the terminal state must be
+       :data:`AUTOSCALE_TERMINAL`, the one a run without chaos reaches.
+    5. ``gpuop-cfg status`` mid-migration (the AUTOSCALE and MIGRATION
+       columns) and the operator's modules, each in a fresh process mapping
+       neither torch nor libcuda.
+
+    ``ctx``: as :func:`upgrade_phase` has it, and ``serving_args`` /
+    ``serving_env`` for the serving probe's command line and environment."""
+    import logging
+
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.api.clusterpolicy import ClusterPolicy
+    from tpu_operator_torch.client.chaos import ChaosPolicy, ChaosTransport
+    from tpu_operator_torch.client.rest import RestClient, Transport
+    from tpu_operator_torch.cmd.operator import build_parser
+    from tpu_operator_torch.controllers.manager import OperatorApp, build_client
+    from tpu_operator_torch.health import drain
+    from tpu_operator_torch.provenance import ActuationObserver, causality_audit
+    from tpu_operator_torch.serving import frontier as frontier_schema
+    from tpu_operator_torch.state.nodepool import get_node_pools
+    from tpu_operator_torch.testing.kubelet import KubeletSimulator
+    from tpu_operator_torch.testing.trainjob import SimulatedTrainingJob
+    from tpu_operator_torch.validator.status import StatusFiles
+
+    raw, ns, card_node = ctx.srv.backend, ctx.namespace, ctx.node_name
+    numbers = {"card": ctx.card}
+    started = time.monotonic()
+
+    def policy():
+        return raw.get("tpu.ai/v1", "ClusterPolicy", "cluster-policy")
+
+    def node(name):
+        return raw.get("v1", "Node", name)
+
+    def annotation(name, key):
+        with contextlib.suppress(Exception):
+            return (node(name)["metadata"].get("annotations") or {}).get(key)
+        return None
+
+    def registered():
+        return sorted(n["metadata"]["name"] for n in raw.list("v1", "Node")
+                      if consts.AUTOSCALE_MANAGED_LABEL in (n["metadata"].get("labels") or {}))
+
+    # -- the operator, with chaos under its RestClient --------------------------------
+    chaos = ChaosPolicy(truncate_mode="drop", **AUTOSCALE_CHAOS) \
+        if getattr(ctx, "chaos", True) else None
+    observer = ctx.srv.backend = ActuationObserver(raw)  # the HTTP handlers write through it
+    # watch streams end after 1 s idle, as behind a load balancer with a short
+    # idle timeout: the informers resume (and, for a kind written meanwhile,
+    # relist) through the chaos every second
+    idle_s, ctx.srv.watch_idle_timeout_s = ctx.srv.watch_idle_timeout_s, AUTOSCALE_WATCH_IDLE_S
+    direct = RestClient(ctx.base, transport=ChaosTransport(Transport(ctx.base), chaos)
+                        if chaos else None)
+    args = build_parser().parse_args([f"--api-server={ctx.base}", f"--namespace={ns}"])
+    client, _ = build_client(args, direct)
+    metrics_port, health_port = free_port(), free_port()
+    app = OperatorApp(client, namespace=ns, metrics_port=metrics_port, health_port=health_port)
+    log_path = os.path.join(ctx.work, "operator-autoscale.log")
+    handler = logging.FileHandler(log_path)
+    handler.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(name)s: %(message)s"))
+    port_log = logging.getLogger("tpu_operator_torch")
+    port_log.addHandler(handler)
+    level = port_log.level
+    port_log.setLevel(logging.INFO)
+    port_log.propagate = False
+    sim = trail = feed = None
+    tenants = {}  # node -> (job, status)
+    fetch_root = os.path.join(ctx.work, "tenants")
+
+    def tenant_status(name):
+        return StatusFiles(os.path.join(fetch_root, name))
+
+    def fetch(inbound):
+        # the object store's stand-in: the source's host path
+        return drain.load_checkpoint(drain.checkpoint_path(
+            tenant_status(str(inbound.get("src"))).directory))
+
+    def samples():
+        return scrape_samples(_try_scrape(metrics_port) or "")
+
+    before = {name: _node_events(raw, ns, name) for name in (card_node, "cluster-policy")}
+    try:
+        app.start()
+        _wait_for(lambda: app.readiness()[0], 120, "the phase-16 operator ready")
+        feed = TrafficFeed(ctx.base, chaos)
+        feed.start()  # no demand until the frontier is known
+        # -- 1. the measured frontier on the card's node (published by feature discovery,
+        # which the operator's DaemonSet runs there) ----------------------------------
+        status_dir = policy()["spec"]["hostPaths"]["validationStatusDir"]
+        if not annotation(card_node, consts.SERVING_FRONTIER_ANNOTATION):
+            t = time.time()
+            probe = subprocess.run(
+                [sys.executable, "-m", "tpu_operator_torch.cmd.validator", "-c", "serving",
+                 f"--status-dir={status_dir}", *getattr(ctx, "serving_args", ())],
+                cwd=ctx.repo, env=dict(os.environ, PYTHONPATH=ctx.repo,
+                                       **getattr(ctx, "serving_env", {})),
+                capture_output=True, text=True, timeout=300)
+            check(probe.returncode == 0, f"the serving probe exited {probe.returncode}: "
+                                         f"{probe.stdout[-2000:]}{probe.stderr[-2000:]}")
+            numbers["serving_probe_s"] = round(time.time() - t, 3)
+            _wait_for(lambda: annotation(card_node, consts.SERVING_FRONTIER_ANNOTATION), 60,
+                      "feature discovery's serving frontier on the card's node")
+            numbers["frontier_published_s"] = round(time.time() - t, 3)
+        fr = frontier_schema.decode_annotation(annotation(card_node,
+                                                          consts.SERVING_FRONTIER_ANNOTATION))
+        max_p99 = float(ClusterPolicy.from_obj(policy()).spec.serving.max_decode_p99_ms)
+        want = fr.best_tokens_per_s(max_p99)
+        check(want > 0, f"no point of the card's frontier within {max_p99} ms: {fr}")
+        [pool] = get_node_pools([node(card_node)])
+        check(bool(pool.node_selector), f"the card's node has no pool label: {node(card_node)}")
+        numbers["frontier"] = {"points": [[p.batch, p.p99_ms, p.tokens_per_s] for p in fr.points],
+                               "max_p99_ms": max_p99, "best_tokens_per_s": want,
+                               "pool": pool.name, "template": pool.node_selector}
+        trail = MigrationTrail(raw)
+        sim = KubeletSimulator(raw, ns, node_filter=lambda n: consts.AUTOSCALE_MANAGED_LABEL in (
+            n["metadata"].get("labels") or {}), write_ds_status=False)
+        sim.start()
+        t_settings = time.time()
+        _patch_policy(ctx, {"autoscale": AUTOSCALE_SPEC, "migrate": MIGRATE_SPEC,
+                            "health": {"drainDeadlineS": AUTOSCALE_DRAIN_DEADLINE_S}})
+        # the collector keeps tokens/s to 0.1
+        _wait_for(lambda: app.capacity.tokens_per_node() == round(want, 1), 60,
+                  f"the collector's tokens_per_node at {want}")
+        debug = _debug_json(health_port, "/debug/capacity") or {}
+        metric = samples().get(
+            f'tpu_operator_serving_frontier_tokens_per_s{{p99_bucket="'
+            f'{frontier_schema.p99_bucket(max_p99)}",pool="{pool.name}"}}')
+        numbers["capacity"] = {"tokens_per_node": app.capacity.tokens_per_node(),
+                               "debug_capacity": debug.get("tokens_per_node_at_slo"),
+                               "debug_pool": (debug.get("pools") or {}).get(pool.name),
+                               "metric": metric,
+                               "collector_s": round(time.time() - t_settings, 3)}
+        check(debug.get("tokens_per_node_at_slo") == round(want, 1) == metric,
+              f"the frontier's {want} tokens/s: {numbers['capacity']}")
+        print(json.dumps({"autoscale_capacity": numbers["capacity"],
+                          "frontier": numbers["frontier"],
+                          "serving_probe_s": numbers.get("serving_probe_s"),
+                          "frontier_published_s": numbers.get("frontier_published_s"),
+                          "card": ctx.card}))
+
+        feed.tokens_per_node = want
+        t_up = feed.set(DEMAND_UP)
+        _wait_for(lambda: len(registered()) >= 2, 60, "two nodes registered by the autoscaler")
+        names = registered()
+        up = {"registered": names,
+              "registered_s": [round(trail.first("registered", n)["t"] - t_up, 3)
+                               for n in names]}
+        for name in names:
+            labels = node(name)["metadata"]["labels"]
+            check(all(labels.get(k) == v for k, v in pool.node_selector.items())
+                  and labels.get(consts.AUTOSCALE_MANAGED_LABEL) == pool.name,
+                  f"{name} lacks the pool's template {pool.node_selector}: {labels}")
+            tenants[name] = (SimulatedTrainingJob(raw, name, tenant_status(name)),
+                             tenant_status(name))
+        up["joined_s"] = []
+        for name in names:  # the simulated kubelet's device plugin registered its GPUs
+            _wait_for(lambda n=name: ((node(n).get("status") or {}).get("capacity") or {}).get(
+                consts.GPU_RESOURCE_NAME), 60, f"{name} joined")
+            up["joined_s"].append(round(time.time() - t_up, 3))
+        numbers["scale_up"] = up
+        print(json.dumps({"autoscale_up": up, "card": ctx.card}))
+
+        # -- 3. scale down by migration ---------------------------------------------------
+        if chaos is not None:
+            chaos.truncate_mode = "truncate"
+        t_down = feed.set(DEMAND_DOWN)
+        acked, status_out, deadline = {}, None, time.monotonic() + 180
+        while not trail.first("deleted"):
+            check(time.monotonic() < deadline, f"no scale-down within 180 s: {trail.entries}")
+            if status_out is None and any(e["value"][0] == "restoring"
+                                          for e in trail.all("migration")):
+                # the table mid-migration: the transfer record is on the
+                # destination, the source's state says restoring (written
+                # after the record), and no migrate agent runs yet to
+                # restore it
+                status_out = _gpuop_cfg(ctx, "status", "--base-url", ctx.base)
+                # now the agents, the card's node's too (with its own tenant
+                # host path: the migration may pick it as the destination)
+                for name in [card_node, *names]:
+                    sim.attach_migrate_agent(name, tenant_status(name), fetch=fetch)
+            for name, (job, status) in tenants.items():
+                if trail.first("deleted", name):
+                    continue
+                with contextlib.suppress(Exception):  # its node deleted meanwhile
+                    job.tick()  # steps go on inside the drain window
+                    if job.acked_plans:
+                        acked.setdefault(name, job.step)
+                    # feature discovery's part on a simulated node: mirror the
+                    # barrier's ack onto the node
+                    value = drain.ack_annotation_value(drain.read_drain_ack(status))
+                    if value and annotation(name, consts.DRAIN_ACK_ANNOTATION) != value:
+                        raw.patch("v1", "Node", name, {"metadata": {"annotations": {
+                            consts.DRAIN_ACK_ANNOTATION: value}}})
+            time.sleep(0.1)
+        victim = trail.first("deleted")["node"]
+        check(victim in names and victim != card_node, f"the victim {victim} of {names}")
+        check(victim in acked, f"the victim's tenant never acked: {acked}")
+        dst = next((e["node"] for e in trail.all("inbound")), None)
+        check(dst is not None and dst != victim, f"no transfer record off {victim}")
+        states = [e["value"] for e in trail.entries if e["what"] == "migration"
+                  and e["node"] == victim]
+        check(states[0] == ("draining", 1) and states[-1] == ("done", 4)
+              and [p for p, _ in states] == [p for p in ("draining", "transferring",
+                                                         "restoring", "done")
+                                             if p in {q for q, _ in states}],
+              f"the migration walked {states}")
+        resumed = SimulatedTrainingJob(raw, dst, tenant_status(dst)).resume()
+        t_req = trail.first("request", victim)["t"]
+
+        def at(what, name):
+            entry = trail.first(what, name)
+            return None if entry is None else round(entry["t"] - t_down, 3)
+
+        down = {"victim": victim, "destination": dst, "states": [list(s) for s in states],
+                "requested_s": at("request", victim), "plan_s": at("plan", victim),
+                "ack_s": at("ack", victim), "transfer_s": at("inbound", dst),
+                "restored_s": at("restored", dst),
+                "done_s": round(next(e["t"] for e in trail.entries if e["what"] == "migration"
+                                     and e["value"][0] == "done") - t_down, 3),
+                "deleted_s": at("deleted", victim), "ack_step": acked[victim],
+                "resume_step": resumed}
+        down["phase_s"] = {"draining": round(down["ack_s"] - down["requested_s"], 3),
+                           "transferring": round(down["transfer_s"] - down["ack_s"], 3),
+                           "restoring": round(down["restored_s"] - down["transfer_s"], 3),
+                           "done": round(down["done_s"] - down["restored_s"], 3),
+                           "node_deleted": round(down["deleted_s"] - down["done_s"], 3)}
+        numbers["scale_down"] = down
+        print(json.dumps({"autoscale_down": down, "card": ctx.card}))
+
+        # -- 4. the chaos and the terminal state -------------------------------------------
+        _wait_for(lambda: samples().get("tpu_operator_migrations_in_progress") == 0.0, 30,
+                  "no migration in progress")
+
+        def phase_events():
+            out = {}
+            for name in {victim, dst, card_node, "cluster-policy"}:
+                counts = _events_since(before.get(name, {}), _node_events(raw, ns, name))
+                for reason, n in counts.items():
+                    out[reason] = out.get(reason, 0) + n
+            return out
+
+        # the scale-down's Event follows the node's deletion, through the chaos
+        _wait_for(lambda: all(phase_events().get(k, 0) >= n
+                              for k, n in AUTOSCALE_TERMINAL["events"].items()), 30,
+                  "the phase's Events")
+        time.sleep(2.0)  # a sweep more: the pool must hold at two
+        metric_now = samples()
+        events = phase_events()
+        audit = causality_audit(app.journal, observer.observed)
+        pool_size = len([n for n in raw.list("v1", "Node")
+                         if all((n["metadata"].get("labels") or {}).get(k) == v
+                                for k, v in pool.node_selector.items())])
+        terminal = {
+            "pool_size": pool_size, "registered": len(names),
+            "registered_left": len(registered()),
+            "card_node_kept": card_node in [n["metadata"]["name"]
+                                            for n in raw.list("v1", "Node")],
+            "migration": dict(zip(("phase", "seq"), states[-1])),
+            "source_deleted": not any(n["metadata"]["name"] == victim
+                                      for n in raw.list("v1", "Node")),
+            "steps_lost_beyond_drain_window": acked[victim] - (resumed or 0),
+            "events": {k: events.get(k, 0) for k in AUTOSCALE_TERMINAL["events"]},
+            "audit": {"ok": audit["ok"], "orphans": len(audit["orphans"])},
+        }
+        numbers["terminal"] = terminal
+        numbers["audit"] = {k: audit[k] for k in ("observed", "covered", "episodes",
+                                                  "complete_episodes", "ok")}
+        failures = {k: events.get(k, 0) for k in MIGRATION_FAILURE_REASONS if events.get(k)}
+        resizes = {k.split("{", 1)[1].rstrip("}"): v for k, v in metric_now.items()
+                   if k.startswith("tpu_operator_autoscale_resizes_total{")}
+        numbers["metrics"] = {
+            "migrations_total": {k.split('"')[1]: v for k, v in metric_now.items()
+                                 if k.startswith("tpu_operator_migrations_total{")},
+            "autoscale_resizes": resizes,
+            "target_nodes": metric_now.get(f'tpu_operator_autoscale_target_nodes{{pool="'
+                                           f'{pool.name}"}}'),
+            "api_retries": {k.split("{", 1)[1].rstrip("}"): v for k, v in metric_now.items()
+                            if k.startswith("tpu_operator_api_retries_total{")},
+            "breaker_transitions": {k.split('"')[1]: v for k, v in metric_now.items()
+                                    if k.startswith("tpu_operator_api_breaker_transitions_total{")},
+            "breaker_state": metric_now.get("tpu_operator_api_breaker_state"),
+        }
+        numbers["chaos"] = None if chaos is None else dict(sorted(chaos.injected.items()))
+        numbers["traffic_feed"] = {"ticks": feed.ticks, "missed": feed.missed}
+        print(json.dumps({"autoscale_terminal": terminal, "audit": numbers["audit"],
+                          "metrics": numbers["metrics"], "chaos_injected": numbers["chaos"],
+                          "traffic_feed": numbers["traffic_feed"], "card": ctx.card}))
+        check(terminal == AUTOSCALE_TERMINAL,
+              f"the terminal state {terminal} is not {AUTOSCALE_TERMINAL}")
+        check(not failures, f"failure Events on the cooperative path: {failures}")
+        check(numbers["metrics"]["migrations_total"] == {"completed": 1.0},
+              f"tpu_operator_migrations_total {numbers['metrics']['migrations_total']}")
+        if chaos is not None:
+            check(all(chaos.injected.get(k, 0) > 0 for k in CHAOS_KINDS),
+                  f"a chaos kind never injected: {chaos.injected}")
+            check(sum(numbers["metrics"]["api_retries"].values()) > 0,
+                  f"no retry under chaos: {numbers['metrics']}")
+
+        # -- 5. the table and the operator's isolation --------------------------------------
+        check(status_out is not None and status_out["maps_line"] == "MAPS False False",
+              f"gpuop-cfg status: {status_out and status_out['maps_line']}")
+        print(status_out["out"])
+        lines = status_out["out"].splitlines()
+        header = next((line for line in lines if line.startswith("NODE ")), "")
+        row = next((line for line in lines if line.startswith(victim + " ")), "")
+        check("AUTOSCALE" in header and "MIGRATION" in header and "resizing:down" in row
+              and f"restoring {victim}->{dst} seq=3" in row,
+              f"gpuop-cfg status mid-migration: {header!r} {row!r}")
+        isolation = subprocess.run(
+            [sys.executable, "-c",
+             "import sys\n"
+             "from tpu_operator_torch.client.fake import FakeClient\n"
+             "from tpu_operator_torch.controllers.manager import OperatorApp\n"
+             "import tpu_operator_torch.autoscale, tpu_operator_torch.capacity\n"
+             "import tpu_operator_torch.migrate.controller, tpu_operator_torch.client.chaos\n"
+             "app = OperatorApp(FakeClient())\n"
+             "maps = open('/proc/self/maps').read()\n"
+             "print('MAPS', 'libtorch' in maps, 'libcuda' in maps, 'torch' in sys.modules)\n"],
+            cwd=ctx.repo, env=ctx.operator_env, capture_output=True, text=True, timeout=120)
+        numbers["operator_maps"] = isolation.stdout.strip()
+        check(isolation.returncode == 0 and numbers["operator_maps"] == "MAPS False False False",
+              f"the operator's modules: {isolation.stdout}{isolation.stderr[-2000:]}")
+        numbers["phase_s"] = round(time.monotonic() - started, 3)
+        print(json.dumps({"autoscale_phase": {"phase_s": numbers["phase_s"],
+                                              "operator_maps": numbers["operator_maps"]},
+                          "card": ctx.card}))
+    except SystemExit:
+        with contextlib.suppress(OSError):
+            print(f"-- {log_path}:\n{open(log_path).read()[-6000:]}", file=sys.stderr)
+        if trail is not None:
+            print(f"-- trail: {trail.entries}", file=sys.stderr)
+        raise
+    finally:
+        if feed is not None:
+            feed.stop()
+        if trail is not None:
+            trail.stop()
+        if sim is not None:
+            sim.stop()
+        app.stop()
+        client.stop()
+        direct.stop()
+        ctx.srv.backend = raw
+        ctx.srv.watch_idle_timeout_s = idle_s
+        port_log.removeHandler(handler)
+        port_log.setLevel(level)
+        port_log.propagate = True
+        handler.close()
     return numbers
 
 
@@ -3063,7 +3686,7 @@ def main() -> int:
     k1.launches = 0
     counts = {}
 
-    def phases_13_to_15(ctx):
+    def phases_13_to_16(ctx):
         counts["operator"] = k1.launches
         phase("GPUDriver hand-over and back, the CRD schema, leader election and the fence")
         k1.launches = 0
@@ -3077,14 +3700,20 @@ def main() -> int:
         k1.launches = 0
         upgrade_phase(ctx)
         counts["upgrade"] = k1.launches
+        phase("the capacity loop under chaos: frontier, scale-up, scale-down by migration")
+        k1.launches = 0
+        autoscale_phase(ctx)
+        counts["autoscale"] = k1.launches
 
-    operator_phase(card, then=phases_13_to_15)
+    operator_phase(card, then=phases_13_to_16)
     operator_launches, gpudriver_launches = counts["operator"], counts["gpudriver"]
     health_launches, upgrade_launches = counts["health"], counts["upgrade"]
+    autoscale_launches = counts["autoscale"]
     check(operator_launches == 0, f"the operator path launched K1 {operator_launches} times")
     check(gpudriver_launches == 0, f"phase 13 launched K1 {gpudriver_launches} times")
     check(health_launches == 0, f"phase 14 launched K1 {health_launches} times")
     check(upgrade_launches == 0, f"phase 15 launched K1 {upgrade_launches} times")
+    check(autoscale_launches == 0, f"phase 16 launched K1 {autoscale_launches} times")
 
     print(json.dumps({"smoke_s": round(time.monotonic() - _T0, 1), "card": card}))
     print(json.dumps({"kernels": [{
@@ -3102,7 +3731,8 @@ def main() -> int:
         # the paths without K1 launch it no time: serving (7), the steady
         # state (9), the device plumbing (10), the last components (11), the
         # operator (12), the GPUDriver and leader phase (13), the health
-        # loop (14) and the rolling upgrade (15) are checked at 0 above
+        # loop (14), the rolling upgrade (15) and the capacity loop (16) are
+        # checked at 0 above
         "launches_by_phase": {"perf": k1_main_launches, "serving": serving_launches,
                               "steady_state": steady_state_launches,
                               "device_plumbing": plumbing_launches,
@@ -3110,7 +3740,8 @@ def main() -> int:
                               "operator": operator_launches,
                               "gpudriver": gpudriver_launches,
                               "health": health_launches,
-                              "upgrade": upgrade_launches},
+                              "upgrade": upgrade_launches,
+                              "autoscale": autoscale_launches},
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -3119,4 +3750,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        if _FAILURES:
+            print(f"chip_smoke: FAIL (first): {_FAILURES[0][-4000:]}", file=sys.stderr)

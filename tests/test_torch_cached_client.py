@@ -63,6 +63,10 @@ def _wait_for(predicate, timeout=10.0):
     return False
 
 
+def _rv_int(obj):
+    return int(obj["metadata"]["resourceVersion"])
+
+
 def _names(objs):
     return sorted(o["metadata"]["name"] for o in objs)
 
@@ -169,6 +173,31 @@ def test_out_of_order_events_do_not_regress_cache():
         return cached.get("v1", "Node", "n1")["metadata"]["labels"]["v"]
 
     assert both(scenario) == "2"
+
+
+def test_a_write_applied_after_its_object_s_delete_does_not_bring_it_back():
+    """A write-through whose response lands after the object's DELETED
+    event (the write batcher's flush racing a delete) leaves the object
+    gone; a later create brings it back. The reference's informer re-inserts
+    the deleted object (tests/test_torch_operator_mapping.py, the client
+    chain)."""
+    backend = FakeClient()
+    backend.create(_node("n0"))
+    cached = port_cache.CachedClient(backend)
+    cached.get("v1", "Node", "n0")  # the Node informer, synced
+    written = cached.create(_node("n1"))
+    backend.delete("v1", "Node", "n1")
+    assert _wait_for(lambda: _raises(PORT, lambda: cached.get("v1", "Node", "n1")) ==
+                     "NotFound")
+    cached.absorb(written)
+    assert _raises(PORT, lambda: cached.get("v1", "Node", "n1")) == "NotFound"
+    # a relist after the delete: the write is older than the list
+    informer = next(iter(cached._informers.values()))
+    informer._on_relist(backend.list("v1", "Node"), str(_rv_int(written) + 1))
+    cached.absorb(written)
+    assert _raises(PORT, lambda: cached.get("v1", "Node", "n1")) == "NotFound"
+    cached.create(_node("n1"))
+    assert cached.get("v1", "Node", "n1")["metadata"]["name"] == "n1"
 
 
 def test_shared_informer_watch_replays_and_streams():

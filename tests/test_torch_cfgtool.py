@@ -295,6 +295,42 @@ def test_status_autoscale_column(capsys):
             assert line.rstrip().endswith("-")
 
 
+def test_status_migration_and_autoscale_columns(capsys):
+    """A migration mid-episode and a pool resizing down: the MIGRATION
+    column (``_migration_cell``) and the AUTOSCALE column (the typed
+    ``spec.autoscale``'s bounds) as the reference's status prints them."""
+    from tpu_operator.api.clusterpolicy import new_cluster_policy
+
+    policy = new_cluster_policy(spec={"autoscale": {
+        "enabled": True, "minNodes": {"default": 1}, "maxNodes": {"v5-lite-podslice-2x2": 3}},
+        "migrate": {"enabled": True}})
+    labels = {ref_consts.TPU_PRESENT_LABEL: "true",
+              ref_consts.GKE_TPU_ACCELERATOR_LABEL: "tpu-v5-lite-podslice",
+              ref_consts.GKE_TPU_TOPOLOGY_LABEL: "2x2"}
+    state = {"phase": "restoring", "src": "node-0", "dst": "node-1", "at_risk": 2, "seq": 3}
+    nodes = [_ref_node("node-0", labels, {
+        consts.MIGRATION_STATE_ANNOTATION: json.dumps(state)}), _ref_node("node-1", labels)]
+
+    def resizing(pool):
+        def edit(client):
+            cp = client.get("tpu.ai/v1", "ClusterPolicy", "cluster-policy")
+            cp["metadata"].setdefault("annotations", {})[
+                consts.AUTOSCALE_STATE_ANNOTATION] = json.dumps({pool: {
+                    "target": 1, "seq": 2, "resize": {"node": "node-0", "direction": "down",
+                                                      "fingerprint": "f", "deadline": 0.0}}})
+            client.update(cp)
+        return edit
+
+    port_policy = copy.deepcopy(policy)
+    port_policy["spec"]["autoscale"]["maxNodes"] = {"nvidia-h100-80gb": 3}
+    got = _status_twin(capsys, [policy] + nodes, [port_policy] + [_port_node(n) for n in nodes],
+                       [resizing("v5-lite-podslice-2x2")], [resizing("nvidia-h100-80gb")],
+                       rounds=2)
+    assert "AUTOSCALE            MIGRATION" in got[1][1]
+    row = next(line for line in got[1][1].splitlines() if line.startswith("node-0 "))
+    assert row.endswith("2/1[1-3] resizing:down restoring node-0->node-1 risk=2 seq=3")
+
+
 def test_status_upgrade_state_column_shows_what_the_machine_writes(capsys):
     """Each package's upgrade machine sweeps its own cluster between the
     runs: the UPGRADE-STATE column reads ``-``, ``upgrade-required``, then

@@ -136,7 +136,8 @@ def test_queue_state_traces_and_join_traces_after_a_sweep(cluster):
             break
         time.sleep(0.1)
     _, queues = get(port, "/debug/queue")
-    assert {q["controller"] for q in queues} == {"clusterpolicy", "gpudriver", "upgrade"}
+    assert {q["controller"] for q in queues} == {"clusterpolicy", "gpudriver", "upgrade",
+                                                 "autoscale", "migrate"}
     for q in queues:
         assert {"depth_ready", "delayed", "pending", "backoff", "inflight",
                 "worker_alive"} <= set(q)
@@ -144,7 +145,12 @@ def test_queue_state_traces_and_join_traces_after_a_sweep(cluster):
     assert {"node_health", "slice_states", "serving_failing"} <= set(policy_queue)
     _, state = get(port, "/debug/state")
     assert {"ready", "readiness", "informers", "controllers", "flight_recorder",
-            "join_profiler", "journal"} <= set(state)
+            "join_profiler", "journal", "capacity"} <= set(state)
+    # the capacity collector's page, as the reference's manager serves it
+    _, capacity = get(port, "/debug/capacity")
+    assert set(capacity) == {"max_p99_ms", "tokens_per_node_at_slo", "pools", "nodes",
+                             "drifting", "template_stale"}
+    assert capacity == state["capacity"] == app.capacity.debug_state()
     assert state["flight_recorder"]["capacity"] == 16
     assert state["flight_recorder"]["error_capacity"] == 4
     _, traces = get(port, "/debug/traces?controller=clusterpolicy&limit=1")

@@ -34,7 +34,7 @@ from tpu_operator.health import drain as ref_drain
 from tpu_operator.health import machine as ref_machine
 from tpu_operator.provenance import DecisionJournal as RefJournal
 from tpu_operator_torch import consts
-from tpu_operator_torch.api.clusterpolicy import HealthSpec
+from tpu_operator_torch.api.clusterpolicy import HealthSpec, MigrateSpec
 from tpu_operator_torch.client.fake import FakeClient
 from tpu_operator_torch.controllers.metrics import OperatorMetrics
 from tpu_operator_torch.health import drain, machine
@@ -54,7 +54,7 @@ PORT = types.SimpleNamespace(
     consts=consts, HealthSpec=HealthSpec, Fake=FakeClient, m=machine,
     drain=drain, Journal=DecisionJournal,
     failed_ids=machine.failed_gpus_from_annotation,
-    migrate_spec=dict,  # the port's CR keeps ``migrate`` as given
+    migrate_spec=MigrateSpec.from_dict,
     validator=HEALTH_COMPONENTS["tpu-operator-validator"],
     driver=HEALTH_COMPONENTS["tpu-driver"],
     accelerator=(consts.GKE_ACCELERATOR_LABEL, "nvidia-h100-80gb"))

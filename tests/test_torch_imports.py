@@ -88,7 +88,10 @@ def test_port_module_list_is_complete():
                      "health.machine", "provenance", "provenance.journal",
                      "provenance.audit", "provenance.explain", "joinprofile.critical_path",
                      "joinprofile.collector", "upgrade", "upgrade.machine",
-                     "controllers.upgrade_controller"):
+                     "controllers.upgrade_controller", "client.chaos", "testing.chaos",
+                     "testing.trainjob", "autoscale", "autoscale.predictor",
+                     "autoscale.engine", "autoscale.controller", "capacity",
+                     "capacity.collector", "migrate.controller"):
         assert f"tpu_operator_torch.{expected}" in names
 
 
@@ -200,7 +203,11 @@ DAEMON_MODULES = ("tpu_operator_torch.cmd.operator", "tpu_operator_torch.control
                   "tpu_operator_torch.joinprofile.collector",
                   "tpu_operator_torch.joinprofile.critical_path",
                   "tpu_operator_torch.upgrade.machine",
-                  "tpu_operator_torch.controllers.upgrade_controller")
+                  "tpu_operator_torch.controllers.upgrade_controller",
+                  "tpu_operator_torch.client.chaos", "tpu_operator_torch.autoscale",
+                  "tpu_operator_torch.autoscale.controller", "tpu_operator_torch.capacity",
+                  "tpu_operator_torch.migrate.controller", "tpu_operator_torch.testing.chaos",
+                  "tpu_operator_torch.testing.trainjob")
 
 
 def test_the_node_daemons_import_no_torch(tmp_path):

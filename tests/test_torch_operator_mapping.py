@@ -16,7 +16,10 @@ GPU-health machine's renames (the pods it recycles, the texts naming GPUs)
 and its one deliberate difference, each episode's own id; the upgrade
 section its renames, its keys and the three faults of the reference's
 upgrade the port does not copy; :data:`DEBUG_ROUTES_LEFT_OUT` the
-``/debug`` routes the port does not serve. The tests at the end hold the mapping itself: it changes nothing the
+``/debug`` routes the port does not serve; the autoscale section the
+autoscaler's two differences (``nvidia.com/gpu`` capacity, a GPU count by
+default) and the names of the nodes it registers; the client-chain section
+three faults of the reference's the port repairs. The tests at the end hold the mapping itself: it changes nothing the
 port already renders, and it leaves no TPU name behind in what it maps.
 """
 
@@ -450,18 +453,83 @@ def upgrade_cordon_record(state: str, unschedulable: bool) -> dict:
 
 
 #: the reference's /debug routes the port's health server does not answer:
-#: /debug/capacity is the fleet capacity observatory's (ROADMAP Queue 1,
-#: item 7), /debug/opsan the reference's race sanitizer's, which the port
-#: does not have (tpu_operator/controllers/manager.py:DEBUG_ROUTES)
-DEBUG_ROUTES_LEFT_OUT = {"/debug/capacity", "/debug/opsan"}
+#: /debug/opsan, the reference's race sanitizer's, which the port does not
+#: have (tpu_operator/controllers/manager.py:DEBUG_ROUTES)
+DEBUG_ROUTES_LEFT_OUT = {"/debug/opsan"}
+
+
+# -- the autoscaler, the capacity collector and the migration controller ----------
+#
+# Kept: the keys tpu.ai/traffic-snapshot, tpu.ai/autoscale-state,
+# tpu.ai/autoscale.managed, tpu.ai/preemptible, tpu.ai/migrate-request and
+# tpu.ai/migration-*; the Event reasons; the metric families. Renamed: a
+# node is picked by ``nodeinfo.is_gpu_node``, pools are keyed on the GPU
+# model (:func:`map_pool_name`) and so are the nodes the autoscaler
+# registers, ``<pool>-a<seq>`` (:func:`map_registered_name`); the resync
+# period is $GPU_OPERATOR_RESYNC_S. Two differences of the autoscaler:
+# - a node's size is its ``nvidia.com/gpu`` capacity, where the reference
+#   reads ``google.com/tpu`` (tpu_operator/autoscale/controller.py:
+#   _node_chips); :func:`map_node` moves the capacity;
+# - a node that reports no capacity counts for
+#   :data:`AUTOSCALE_DEFAULT_PER_NODE` ``["port"]`` GPUs, one 8-GPU host,
+#   where the reference counts 4 chips, one v5e host
+#   (AutoscaleReconciler's ``chips_per_node``); the twins give the port's
+#   reconciler the reference's default.
+# And one addition: a node registered for a pool keyed on feature
+# discovery's GPU model (no GKE accelerator label, as the card's node) also
+# carries ``feature.node.kubernetes.io/pci-10de.present``, so that it is a
+# GPU node; a TPU pool's template, its accelerator label, marks a TPU node
+# by itself (tests/test_torch_autoscale.py pins it).
+
+#: the per-node accelerator count of a node without capacity
+AUTOSCALE_DEFAULT_PER_NODE = {"reference": 4, "port": 8}
+
+
+def map_registered_name(name: str) -> str:
+    """A node name of the reference's cluster as the port's: a node the
+    autoscaler registered (``<pool>-a<seq>``) is named after the port's
+    pool; any other name stays."""
+    head, sep, seq = name.rpartition("-a")
+    if sep and seq.isdigit():
+        try:
+            return f"{map_pool_name(head)}-a{seq}"
+        except KeyError:
+            pass
+    return name
+
+
+# -- the client chain ------------------------------------------------------------
+#
+# Three faults of the reference's the port does not copy. Its write batcher's
+# flush patches below the read cache and never hands the result back
+# (tpu_operator/client/batch.py:_apply_one), so until the watch delivers the
+# write a sweep reads its node from before it, re-derives a health transition
+# that already landed (the deferred write's decline comes only at the flush)
+# and announces it a second time: NodeHealthDegraded, NodeHealthQuarantined
+# or NodeHealthRecovered twice, as a loaded run or a lagging watch shows. The
+# port's batcher gives each flushed object to the cache (``CachedClient.
+# absorb``); tests/test_torch_crash_soak.py holds the port to one
+# announcement with its Node watch 150 ms late. And while another
+# controller's window is open, a flushed write waits in the batcher (up to
+# its 2 s deadline): the reference's migration controller then reads its
+# source at ``restoring`` again and finalizes the episode a second time,
+# counting ``tpu_operator_migrations_total`` twice (the card's phase 16 saw
+# it). The port's controller remembers the seq of the state row it wrote
+# last and requeues on an older cached row
+# (``migrate/controller.py:OWN_WRITE_LAG_S``; tests/test_torch_migrate.py::
+# test_a_state_row_still_in_the_batcher_is_not_advanced_twice). And its
+# informer takes a write's response applied after the object's DELETED event
+# (a write-through racing the watch) as the object again, and keeps a deleted
+# GPUDriver, say, for good; the port's informer keeps the rv of each delete
+# and of its last relist and drops a write no newer
+# (tests/test_torch_cached_client.py::
+# test_a_write_applied_after_its_object_s_delete_does_not_bring_it_back).
 
 
 def map_crd(crd: dict) -> dict:
     """A reference CRD as the port generates it, descriptions aside: the
     driver kind and its names, ``driverVersion`` and the port's driver
-    defaults through the string rules, and the autoscale and migrate
-    sub-specs free-form objects until their controllers are ported.
-    Descriptions are prose, rewritten for GPUs; :func:`strip_descriptions`
+    defaults through the string rules. Descriptions are prose, rewritten for GPUs; :func:`strip_descriptions`
     drops them from both sides."""
     out = _map_value(copy.deepcopy(crd))
     names = out["spec"]["names"]
@@ -487,10 +555,6 @@ def map_crd(crd: dict) -> dict:
 
         props["spec"] = rename_keys(props["spec"])
         spec_props = props["spec"].get("properties") or {}
-        for free_form in ("autoscale", "migrate"):
-            if free_form in spec_props:
-                spec_props[free_form] = {"type": "object",
-                                         "x-kubernetes-preserve-unknown-fields": True}
         devglobs = (spec_props.get("hostPaths") or {}).get("properties", {}).get("devGlobs")
         if devglobs and "default" in devglobs:
             devglobs["default"] = list(consts.GPU_DEV_GLOBS)

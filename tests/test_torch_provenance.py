@@ -5,11 +5,9 @@ Each case runs on both packages with the same decisions on the same fake
 clock and compares what they leave: record and episode ids (equal content
 gives equal ids in both), canonical exports, the disk round trip, the
 ConfigMap mirror, the causality audit, the four metric families
-``wire_provenance`` feeds, and ``render_explain``'s text. The reference's
-two cases that drive its autoscale and migration controllers
-(``test_every_protocol_event_carries_trace_id``,
-``test_autoscale_events_carry_trace_id``) wait for those controllers'
-slices and are not twinned here.
+``wire_provenance`` feeds, and ``render_explain``'s text; and the protocol
+Events the migration and autoscale controllers record outside a runtime
+worker, each with its trace id.
 """
 
 import json
@@ -259,19 +257,108 @@ def case_render_explain_shows_causal_chain(s, tmp_path):
     return [text, open_text]
 
 
+# -- protocol Events carry the trace annotation ------------------------------------------
+
+def _controllers(s):
+    """The migration and autoscale controllers of either package, and a node
+    of its kind (a TPU node on the reference's side, the same with GPUs on
+    the port's)."""
+    from test_torch_operator_mapping import map_node
+
+    if s.consts is ref_consts:
+        from tpu_operator import tracing
+        from tpu_operator.api.clusterpolicy import new_cluster_policy
+        from tpu_operator.autoscale.controller import AutoscaleReconciler
+        from tpu_operator.controllers.runtime import Request
+        from tpu_operator.health import drain
+        from tpu_operator.migrate.controller import MigrationReconciler, migration_state
+    else:
+        from tpu_operator_torch import tracing
+        from tpu_operator_torch.api.clusterpolicy import new_cluster_policy
+        from tpu_operator_torch.autoscale.controller import AutoscaleReconciler
+        from tpu_operator_torch.controllers.runtime import Request
+        from tpu_operator_torch.health import drain
+        from tpu_operator_torch.migrate.controller import MigrationReconciler, migration_state
+
+    def node(name):
+        obj = {"apiVersion": "v1", "kind": "Node", "metadata": {"name": name, "labels": {
+            ref_consts.TPU_PRESENT_LABEL: "true",
+            ref_consts.GKE_TPU_ACCELERATOR_LABEL: "tpu-v5-lite-podslice",
+            ref_consts.GKE_TPU_TOPOLOGY_LABEL: "2x2"}},
+            "status": {"capacity": {ref_consts.TPU_RESOURCE_NAME: "4"}}}
+        return obj if s.consts is ref_consts else map_node(obj)
+
+    return types.SimpleNamespace(
+        tracing=tracing, new_policy=new_cluster_policy, Autoscaler=AutoscaleReconciler,
+        Request=Request, drain=drain, Migration=MigrationReconciler,
+        migration_state=migration_state, node=node,
+        kw={} if s.consts is ref_consts else {"chips_per_node": 4})
+
+
+def _traced(c, client):
+    """Each Event's reason and whether it carries a trace id."""
+    return sorted((e["reason"], bool((e["metadata"].get("annotations") or {}).get(
+        c.tracing.TRACE_ID_ANNOTATION))) for e in client.list("v1", "Event", NS))
+
+
+def case_every_protocol_event_carries_trace_id(s, tmp_path):
+    c = _controllers(s)
+    client, clock = s.Fake(), Clock(1_000_000.0)
+    client.create(c.new_policy(spec={
+        "migrate": {"enabled": True, "snapshotWaitS": 10, "restoreWaitS": 30},
+        "health": {"drainDeadlineS": 60}}))
+    for name in ("node-a", "node-b"):
+        client.create(c.node(name))
+    rec = c.Migration(client, namespace=NS, now=clock)
+    client.patch("v1", "Node", "node-a", {"metadata": {"annotations": {
+        s.consts.MIGRATE_REQUEST_ANNOTATION: json.dumps({"reason": "test", "dst": "node-b"})}}})
+    rec.reconcile(c.Request(name="node-a"))
+    fp = c.migration_state(client.get("v1", "Node", "node-a"))["plan"]
+    client.patch("v1", "Node", "node-a", {"metadata": {"annotations": {
+        s.consts.DRAIN_ACK_ANNOTATION: c.drain.ack_annotation_value({"plan": fp, "step": 17})}}})
+    rec.reconcile(c.Request(name="node-a"))
+    client.patch("v1", "Node", "node-b", {"metadata": {"annotations": {
+        s.consts.MIGRATION_RESTORE_ANNOTATION: json.dumps(
+            {"plan": fp, "ok": True, "step": 17, "src": "node-a"})}}})
+    rec.reconcile(c.Request(name="node-a"))
+    traced = _traced(c, client)
+    assert {r for r, _ in traced} >= {"RetilePlanned", "MigrationRestored",
+                                      "MigrationCompleted"}
+    assert all(has for _, has in traced)
+    return traced
+
+
+def case_autoscale_events_carry_trace_id(s, tmp_path):
+    c = _controllers(s)
+    client, clock = s.Fake(), Clock(1_000_000.0)
+    client.create(c.new_policy(spec={
+        "autoscale": {"enabled": True, "scaleDownDelayS": 0, "cooldownS": 0,
+                      "minNodes": {"default": 1}, "maxNodes": {"default": 8}},
+        "health": {"drainDeadlineS": 60}}))
+    client.create(c.node("node-a"))
+    client.patch("tpu.ai/v1", "ClusterPolicy", "cluster-policy", {"metadata": {"annotations": {
+        s.consts.TRAFFIC_SNAPSHOT_ANNOTATION: json.dumps({
+            "ts": clock.t, "queue_depth": 0, "backlog_chips": 40.0, "attainment": 0.5})}}})
+    c.Autoscaler(client, namespace=NS, now=clock, **c.kw).reconcile(
+        c.Request(name="cluster-policy"))
+    traced = _traced(c, client)
+    assert traced and all(has for _, has in traced)
+    return traced
+
+
 CASES = {name[len("case_"):]: fn for name, fn in globals().items() if name.startswith("case_")}
-#: the reference's cases that drive controllers the port does not have yet
-WAITING = {"every_protocol_event_carries_trace_id", "autoscale_events_carry_trace_id"}
 
 
 def test_the_twins_are_the_reference_s_cases_but_the_waiting_two():
+    """Every reference case has its twin (the two that waited for the
+    autoscale and migration controllers are twinned now)."""
     import ast
 
     with open(__file__.replace("test_torch_provenance.py", "test_provenance.py")) as f:
         tree = ast.parse(f.read())
     ref_tests = {n.name[len("test_"):] for n in tree.body
                  if isinstance(n, ast.FunctionDef) and n.name.startswith("test_")}
-    assert set(CASES) == ref_tests - WAITING and WAITING <= ref_tests
+    assert set(CASES) == ref_tests
 
 
 @pytest.mark.parametrize("case", sorted(CASES))

@@ -1,8 +1,8 @@
 """The port's generated CRDs and their validator against the reference's.
 
 After the one mapping (tests/test_torch_operator_mapping.py: the driver
-kind, ``driverVersion``, the GPU defaults, and ``autoscale``/``migrate``
-free-form until their controllers are ported) the port's CRDs are the
+kind, ``driverVersion`` and the GPU defaults; ``autoscale`` and ``migrate``
+are typed as the reference's are) the port's CRDs are the
 reference's, descriptions aside; every rejection case of the reference's
 tests/test_schema.py gets the same verdict from both validators; the
 committed CRD files are what the generator writes, read back by PyYAML and
@@ -103,6 +103,18 @@ CASES = [
     ("driver typo", _driver({"libtpuVerion": "x"}), "unknown field"),
     ("driver selector", _driver({"nodeSelector": {
         "cloud.google.com/gke-tpu-accelerator": "tpu-v5-lite-podslice"}}), None),
+    # the typed autoscale and migrate sub-specs
+    ("autoscale", _ref_cp({"autoscale": {"enabled": True, "minNodes": {"default": 1},
+                                         "maxNodes": {"default": 3}, "cooldownS": 15,
+                                         "preemptiblePools": ["p"]}}), None),
+    ("autoscale typo", _ref_cp({"autoscale": {"minNode": {"default": 1}}}), "unknown field"),
+    ("autoscale negative bound", _ref_cp({"autoscale": {"maxNodes": {"default": -1}}}),
+     "below minimum"),
+    ("autoscale short window", _ref_cp({"autoscale": {"windowS": 5}}), "below minimum"),
+    ("autoscale attainment", _ref_cp({"autoscale": {"targetSloAttainment": 2}}), "maximum"),
+    ("migrate", _ref_cp({"migrate": {"enabled": True, "snapshotWaitS": 0}}), None),
+    ("migrate restore wait", _ref_cp({"migrate": {"restoreWaitS": 0}}), "below minimum"),
+    ("migrate bad type", _ref_cp({"migrate": {"enabled": "yes"}}), "expected boolean"),
 ]
 
 
@@ -146,9 +158,31 @@ def test_only_the_waiting_sub_specs_are_free_form():
             ["openAPIV3Schema"]["properties"]["spec"])
     shells = {name for name, sub in spec["properties"].items()
               if sub.get("x-kubernetes-preserve-unknown-fields")}
-    assert shells == {"autoscale", "migrate"}
+    assert shells == set()  # autoscale and migrate are typed since their controllers
     assert all(sub.get("properties") for name, sub in spec["properties"].items()
                if name not in shells)
+
+
+@pytest.mark.parametrize("autoscale", [
+    {"enabled": True, "minNodes": {"default": 1}, "maxNodes": {"default": 3}},
+    {"minNodes": {"p": 4}, "maxNodes": {"p": 2}},
+    {"minNodes": {"p": -1}},
+    {"maxNodes": {"default": True}},
+], ids=["bounds", "min-above-max", "negative", "boolean"])
+def test_typed_autoscale_spec_validates_as_the_reference(autoscale):
+    """The typed sub-specs' own checks (``ClusterPolicySpec.validate``) and
+    their serde are the reference's: the same errors, the same round trip,
+    the same pool bounds."""
+    from tpu_operator.api.clusterpolicy import ClusterPolicySpec as RefSpec
+
+    ref = RefSpec.from_dict({"autoscale": autoscale, "migrate": {"enabled": True}})
+    port = ClusterPolicySpec.from_dict({"autoscale": autoscale, "migrate": {"enabled": True}})
+    assert port.validate() == ref.validate()
+    assert port.autoscale.to_dict() == ref.autoscale.to_dict()
+    assert port.migrate.to_dict() == ref.migrate.to_dict()
+    for pool in ("p", "q"):
+        assert (port.autoscale.pool_min(pool), port.autoscale.pool_max(pool)) == \
+            (ref.autoscale.pool_min(pool), ref.autoscale.pool_max(pool))
 
 
 def test_schema_gen_check_passes():

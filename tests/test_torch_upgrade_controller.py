@@ -13,8 +13,9 @@ and of tests/test_upgrade_e2e.py (a rolling upgrade end to end, direct and
 behind the informer cache), each run on both packages with each package's
 in-memory kubelet; and the requeue on a PDB-blocked eviction's hint.
 
-The reference's chaos twin (``test_chaos_pod_deletion_during_rolling_upgrade``)
-waits for the port's chaos client (ROADMAP Queue 1, item 12).
+And the reference's chaos case (``test_chaos_pod_deletion_during_rolling_upgrade``,
+slow as the reference's), each package's ``PodChaos`` deleting operand pods
+during a roll.
 """
 
 import ast
@@ -392,6 +393,33 @@ def test_a_rolling_upgrade_end_to_end_as_the_reference(cached):
         finally:
             s.stop()
             s.ctl.stop()
+
+
+@pytest.mark.slow
+def test_chaos_pod_deletion_during_rolling_upgrade_as_the_reference():
+    """The twin of tests/test_upgrade_fault_injection.py's chaos case: each
+    package's ``PodChaos`` deletes operand pods at random (seed 1729) for 3 s
+    of a three-node roll at two nodes at a time; every driver pod still ends
+    on the new version, every node settled and uncordoned."""
+    from tpu_operator.testing.chaos import PodChaos as RefPodChaos
+    from tpu_operator_torch.testing.chaos import PodChaos
+
+    for side in (REF, PORT):
+        s = Stack(side, nodes=3, max_parallel=2).start()
+        chaos = (PodChaos if side.port else RefPodChaos)(s.client, NS, interval_s=0.05,
+                                                           seed=1729)
+        try:
+            wait_for(s.ready, timeout=90, message=f"{side.name}: initial install")
+            s.bump(NEW)
+            chaos.start()
+            time.sleep(3.0)  # the deletions overlap the rollout
+            chaos.stop()
+            assert chaos.victim_count > 0, side.name
+            wait_for(lambda: s.settled(image(NEW)), timeout=90,
+                     message=f"{side.name}: every driver pod on 2.0, nodes settled")
+        finally:
+            chaos.stop()
+            s.stop()
 
 
 def test_the_operator_registers_the_upgrade_controller():

@@ -6,10 +6,9 @@ API. The defaults name NVIDIA's: the device plugin advertises
 ``nvidia.com/gpu``; the driver installer places the user-space driver
 libraries (``libcuda.so.1``, ``libnvidia-ml.so.1``) in the driver library
 directory and records ``driver.driverVersion``; the device globs are the
-GPUs' ``/dev/nvidia<minor>``. The autoscale and migrate sub-specs of the
-reference wait for their controllers' slices: until then ``autoscale`` and
-``migrate`` are free-form objects, which a CR keeps as it gave them and the
-CRD schema does not check.
+GPUs' ``/dev/nvidia<minor>``. ``autoscale`` and ``migrate`` are the
+reference's sub-specs, read by the fleet autoscaler (``autoscale/``) and the
+migration controller (``migrate/controller.py``).
 """
 
 from __future__ import annotations
@@ -317,6 +316,131 @@ class HealthSpec(SpecBase):
 
 
 @dataclasses.dataclass
+class AutoscaleSpec(SpecBase):
+    """SLO-driven fleet autoscaler: close the traffic->capacity loop.
+    The autoscale controller (``tpu_operator_torch/autoscale``) consumes the
+    serving rollup (``tpu.ai/serving-slo-detail``) plus the traffic
+    snapshot (queue depth, backlog chips, rolling attainment) and drives
+    per-pool node counts — scale-up registers nodes onto the event-driven
+    join path, scale-down is a planned re-tile through the drain/handoff
+    protocol (never a bare delete). Opt-in like the slice partitioner:
+    fixed fleets never pay for it."""
+
+    enabled: bool = spec_field(
+        False, doc="Run the fleet autoscaler controller (scale per-pool "
+                   "node counts from serving SLO + traffic backlog "
+                   "signals).")
+    target_slo_attainment: float = spec_field(
+        0.99, doc="Fleet-wide serving SLO attainment the autoscaler "
+                  "defends; forecast attainment below this triggers "
+                  "scale-up before p99 breaches.",
+        minimum=0, maximum=1)
+    headroom_pct: float = spec_field(
+        20.0, doc="Capacity headroom kept above the forecast chip demand "
+                  "(percent); absorbs arrival bursts inside one "
+                  "decision interval.",
+        minimum=0, maximum=500)
+    scale_down_delay_s: int = spec_field(
+        300, doc="Demand must stay below the scale-down threshold for "
+                 "this long before a node is surrendered — the diurnal "
+                 "trough filter that stops flap-scaling.",
+        minimum=0, maximum=86400)
+    cooldown_s: int = spec_field(
+        60, doc="Minimum seconds between resizes of the same pool, in "
+                "either direction (one in-flight resize per pool is "
+                "additionally enforced).",
+        minimum=0, maximum=86400)
+    window_s: int = spec_field(
+        600, doc="Sliding window the predictor (EWMA level + linear "
+                 "trend) fits over; samples older than this age out.",
+        minimum=10, maximum=86400)
+    min_nodes: Dict[str, Any] = spec_field(
+        dict, doc="Per-pool floor on node count (pool name -> nodes); "
+                  "the key 'default' applies to unlisted pools "
+                  "(built-in default 1).",
+        schema={"type": "object",
+                "additionalProperties": {"type": "integer", "minimum": 0}})
+    max_nodes: Dict[str, Any] = spec_field(
+        dict, doc="Per-pool ceiling on node count (pool name -> nodes); "
+                  "the key 'default' applies to unlisted pools "
+                  "(built-in default 32).",
+        schema={"type": "object",
+                "additionalProperties": {"type": "integer", "minimum": 0}})
+    preemptible_pools: List[str] = spec_field(
+        list, doc="Pools whose nodes may be revoked by the platform "
+                  "without a drain plan (spot/preemptible); the "
+                  "autoscaler replaces revoked capacity immediately and "
+                  "never counts it toward scale-down savings.")
+    extra: Dict[str, Any] = spec_field(dict)
+
+    #: built-in bounds for pools absent from minNodes/maxNodes
+    DEFAULT_MIN: int = dataclasses.field(default=1, repr=False)
+    DEFAULT_MAX: int = dataclasses.field(default=32, repr=False)
+
+    def pool_min(self, pool: str) -> int:
+        m = self.min_nodes or {}
+        return int(m.get(pool, m.get("default", self.DEFAULT_MIN)))
+
+    def pool_max(self, pool: str) -> int:
+        m = self.max_nodes or {}
+        return int(m.get(pool, m.get("default", self.DEFAULT_MAX)))
+
+    def is_enabled(self, default: bool = False) -> bool:
+        return default if self.enabled is None else bool(self.enabled)
+
+    def validate(self, path: str = "spec.autoscale") -> List[str]:
+        errors: List[str] = []
+        for field, mapping in (("minNodes", self.min_nodes),
+                               ("maxNodes", self.max_nodes)):
+            for pool, n in (mapping or {}).items():
+                if not isinstance(n, int) or isinstance(n, bool) or n < 0:
+                    errors.append(f"{path}.{field}[{pool}]: {n!r} must be "
+                                  f"a non-negative integer")
+        pools = set(self.min_nodes or {}) | set(self.max_nodes or {})
+        for pool in sorted(pools):
+            lo, hi = self.pool_min(pool), self.pool_max(pool)
+            if isinstance(lo, int) and isinstance(hi, int) and lo > hi:
+                errors.append(f"{path}: pool {pool!r} minNodes {lo} "
+                              f"exceeds maxNodes {hi}")
+        return errors
+
+
+@dataclasses.dataclass
+class MigrateSpec(SpecBase):
+    """Cross-node workload migration (``tpu_operator_torch/migrate``):
+    transparent checkpoint/restore in the CRIUgpu mold. When enabled, a
+    drain deadline that expires without a workload ack is answered with an
+    operator-driven snapshot request to the node's migrate agent (the
+    workload never participates) instead of a bare force-retile, and the
+    MigrationReconciler can move a tenant drain->transfer->restore onto
+    another node's slice with zero steps lost. Opt-in like the
+    autoscaler: cooperative-only fleets never pay for it."""
+
+    enabled: bool = spec_field(
+        False, doc="Run the MigrationReconciler (cross-node "
+                   "drain/transfer/restore episodes driven by the "
+                   "tpu.ai/migrate-request annotation) and let the "
+                   "autoscaler route scale-down through it.")
+    snapshot_wait_s: int = spec_field(
+        30, doc="Budget for the node's migrate agent to produce a "
+                "transparent snapshot after a drain deadline expires "
+                "without an ack; only when this window also closes empty "
+                "(or the agent reports failure) does the episode fall "
+                "back to the counted force-retile. 0 disables the "
+                "snapshot path (a bare force-retile).",
+        minimum=0, maximum=86400)
+    restore_wait_s: int = spec_field(
+        120, doc="Budget for the destination node's migrate agent to "
+                 "restore a transferred checkpoint before the episode "
+                 "is failed (and the TPUMigrationStuck alert fires).",
+        minimum=1, maximum=86400)
+    extra: Dict[str, Any] = spec_field(dict)
+
+    def is_enabled(self, default: bool = False) -> bool:
+        return default if self.enabled is None else bool(self.enabled)
+
+
+@dataclasses.dataclass
 class PSASpec(SpecBase):
     """Pod Security Admission (reference PSASpec,
     api/nvidia/v1/clusterpolicy_types.go:208-211;
@@ -414,13 +538,8 @@ class ClusterPolicySpec(SpecBase):
     host_paths: HostPathsSpec = spec_field(HostPathsSpec)
     psa: PSASpec = spec_field(PSASpec)
     health: HealthSpec = spec_field(HealthSpec)
-    autoscale: Optional[Dict[str, Any]] = spec_field(
-        None, doc="The fleet autoscaler's settings, kept as given until its "
-                  "controller is ported (gpuop-cfg status reads minNodes, "
-                  "maxNodes and enabled).")
-    migrate: Optional[Dict[str, Any]] = spec_field(
-        None, doc="The migration controller's settings, kept as given until "
-                  "its controller is ported.")
+    autoscale: AutoscaleSpec = spec_field(AutoscaleSpec)
+    migrate: MigrateSpec = spec_field(MigrateSpec)
     extra: Dict[str, Any] = spec_field(dict)
 
     def driver_dir(self) -> str:
@@ -434,6 +553,7 @@ class ClusterPolicySpec(SpecBase):
         errors += self.daemonsets.validate()
         errors += self.driver.validate()
         errors += self.host_paths.validate()
+        errors += self.autoscale.validate()
         for name in ("device_plugin", "feature_discovery", "telemetry",
                      "node_status_exporter", "validator", "slice_partitioner",
                      "serving"):

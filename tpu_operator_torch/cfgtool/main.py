@@ -253,34 +253,27 @@ def _capacity_cell(annotations: dict) -> str:
     return cell
 
 
-#: the autoscaler's built-in per-pool bounds, for pools its spec leaves out
-AUTOSCALE_DEFAULT_MIN = 1
-AUTOSCALE_DEFAULT_MAX = 32
-
-
-def _pool_bound(bounds, pool: str, default: int) -> int:
-    bounds = bounds if isinstance(bounds, dict) else {}
-    return int(bounds.get(pool, bounds.get("default", default)))
-
-
 def _autoscale_cells(policy_obj, gpu_nodes, now=None) -> dict:
     """AUTOSCALE column, by node name: the node's pool posture (current and
     target size against the spec's bounds, an in-flight resize, the
     cooldown left) from the autoscaler's durable state
-    (``tpu.ai/autoscale-state``). ``spec.autoscale`` is a free-form object
-    until the autoscaler is ported; its ``enabled``, ``minNodes`` and
-    ``maxNodes`` are read as the reference's spec reads them."""
+    (``tpu.ai/autoscale-state``), the state its next sweep acts on."""
     import json
     import time
 
     from .. import consts
+    from ..api.clusterpolicy import ClusterPolicy
+    from ..api.common import SpecValidationError
     from ..state.nodepool import get_node_pools
     from ..utils import deep_get
 
     if not policy_obj:
         return {}
-    spec = deep_get(policy_obj, "spec", "autoscale")
-    if not isinstance(spec, dict) or not spec.get("enabled"):
+    try:
+        spec = ClusterPolicy.from_obj(policy_obj).spec.autoscale
+    except SpecValidationError:
+        return {}  # the rest of the table renders regardless
+    if not spec.is_enabled():
         return {}
     try:
         states = json.loads(deep_get(
@@ -295,8 +288,7 @@ def _autoscale_cells(policy_obj, gpu_nodes, now=None) -> dict:
     for pool in get_node_pools(gpu_nodes):
         st = states.get(pool.name) or {}
         cell = (f"{pool.size}/{st.get('target', pool.size)}"
-                f"[{_pool_bound(spec.get('minNodes'), pool.name, AUTOSCALE_DEFAULT_MIN)}"
-                f"-{_pool_bound(spec.get('maxNodes'), pool.name, AUTOSCALE_DEFAULT_MAX)}]")
+                f"[{spec.pool_min(pool.name)}-{spec.pool_max(pool.name)}]")
         resize = st.get("resize") or {}
         if resize.get("direction"):
             cell += f" resizing:{resize['direction']}"

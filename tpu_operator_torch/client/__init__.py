@@ -9,7 +9,10 @@ error hierarchy for the validator's components and the operator.
   write coalescing and the agents' resourceVersion-preconditioned writes;
 - the operator's other layers, in their modules: ``cache.CachedClient``
   (informer reads), ``resilience.RetryingClient`` (retries, token bucket,
-  circuit breaker) and ``fenced.FencedClient`` (the leader write fence).
+  circuit breaker) and ``fenced.FencedClient`` (the leader write fence);
+- the fault injectors of ``chaos``: ``ChaosClient`` (call level),
+  ``ChaosTransport`` (wire level, under a ``RestClient``) and
+  ``CrashPointClient`` (kill points).
 """
 
 from .errors import (

@@ -8,9 +8,10 @@ apiserver latencies the round trips dominate the sweep, and at fleet size
 they are the difference between O(events) and O(nodes·sweeps)
 steady-state traffic.
 
-:class:`WriteBatcher` wraps the apiserver client (the port's chain is
-``WriteBatcher → RestClient``; the reference's read cache, resilience and
-fencing layers around it are not ported yet). While a reconcile sweep holds a *flush
+:class:`WriteBatcher` sits in the client chain between the read cache and
+the resilience layer (``CachedClient → WriteBatcher → RetryingClient →
+FencedClient → RestClient``, ``controllers/manager.py:build_client``).
+While a reconcile sweep holds a *flush
 window* open (:func:`batch_window`), deferred writes — registered through
 :func:`~.preconditions.preconditioned_patch` or :func:`coalesced_patch` —
 are queued per (apiVersion, kind, namespace, name) instead of dispatched.
@@ -141,8 +142,9 @@ class WriteBatcher(Client):
         self._depth = 0  # open windows (ref-counted across controllers)
         self._pending: Dict[Tuple[str, str, str, str], _Pending] = (
             {})
-        #: outermost read client, bound after chain assembly (a read cache
-        #: above the batcher, when one is ported, makes flush re-reads hits)
+        #: outermost read client, bound after chain assembly: the read cache
+        #: above the batcher makes flush re-reads hits, and takes each
+        #: flushed object back (its ``absorb``)
         self._read: Optional[Client] = None
         self._flusher: Optional[threading.Thread] = None
         self._stopped = threading.Event()
@@ -304,6 +306,12 @@ class WriteBatcher(Client):
                 hook = self.on_flush
             if hook is not None:
                 hook(len(pending.builds))
+            # write-through: the read cache above holds the flushed object
+            # now, not one watch delivery later, so the next sweep's
+            # snapshot cannot re-derive a transition that already landed
+            absorb = getattr(self._read, "absorb", None)
+            if absorb is not None:
+                absorb(out)
             return out
         raise last_conflict if last_conflict is not None else ConflictError(
             f"batched patch of {pending.kind}/{pending.name} never applied")

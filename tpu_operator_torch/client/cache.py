@@ -43,6 +43,9 @@ log = logging.getLogger(__name__)
 #: how long a read waits for an informer's initial LIST before falling back
 #: to a direct read (a dead watch must degrade to slow, never to wrong)
 SYNC_TIMEOUT_S = 30.0
+#: deletes an informer remembers (the newest): a write racing a delete
+#: lands within a round trip of it, so older ones need no guard
+TOMBSTONES_KEPT = 4096
 
 
 def _rv_int(obj: dict) -> int:
@@ -94,6 +97,13 @@ class _Informer:
         self.kind = kind
         self.namespace = namespace
         self._store: Dict[Tuple[str, str], dict] = {}
+        #: the rv each deleted object's DELETED event carried, and the last
+        #: relist's rv (below which an object absent from the list was
+        #: deleted): a write made before the delete, whose response is
+        #: applied after it (a write-through racing the watch), must not
+        #: bring the object back
+        self._gone: Dict[Tuple[str, str], int] = {}
+        self._listed_rv = -1
         self._lock = threading.Lock()
         self.synced = threading.Event()
         #: set after a full sync-timeout expired once: later reads stop
@@ -180,6 +190,8 @@ class _Informer:
             old = self._store
             # wholesale swap: the relist is the new truth
             self._store = {self._key(o): o for o in items}
+            self._gone = {}
+            self._listed_rv = _rv_int({"metadata": {"resourceVersion": rv}})
             vanished = [obj for key, obj in old.items()
                         if key not in self._store]
         self.synced.set()
@@ -199,13 +211,21 @@ class _Informer:
     def apply(self, event_type: str, obj: dict) -> None:
         key = self._key(obj)
         with self._lock:
+            rv = _rv_int(obj)
             if event_type == "DELETED":
                 self._store.pop(key, None)
+                self._gone.pop(key, None)
+                self._gone[key] = rv
+                if len(self._gone) > TOMBSTONES_KEPT:
+                    del self._gone[next(iter(self._gone))]
                 return
             current = self._store.get(key)
-            rv = _rv_int(obj)
+            if current is None and 0 <= rv <= max(self._gone.get(key, -1),
+                                                   self._listed_rv):
+                return
             if current is None or rv < 0 or rv >= _rv_int(current):
                 self._store[key] = obj
+                self._gone.pop(key, None)
 
     def get(self, name: str, namespace: str) -> Optional[dict]:
         with self._lock:
@@ -331,6 +351,11 @@ class CachedClient(Client):
                                                  obj.get("kind"), ns):
             informer.apply("MODIFIED", copy.deepcopy(obj))
         return obj
+
+    def absorb(self, obj: dict) -> None:
+        """Write-through of a write made below this layer (the write
+        batcher's flush)."""
+        self._apply_write(obj)
 
     def stop(self) -> None:
         with self._lock:

@@ -196,14 +196,17 @@ def raise_for(resp: Response) -> None:
 class RestClient(Client):
     def __init__(self, base_url: Optional[str] = None, token: Optional[str] = None,
                  verify=None, scheme: Optional[Scheme] = None,
-                 default_timeout: Optional[float] = DEFAULT_TIMEOUT_S):
+                 default_timeout: Optional[float] = DEFAULT_TIMEOUT_S,
+                 transport=None):
+        """``transport`` takes the place of the :class:`Transport` built from
+        the URL (a fault injector's, ``client.chaos.ChaosTransport``)."""
         if base_url is None:
             cfg = _in_cluster_config()
             base_url, token, verify = cfg["base_url"], cfg["token"], cfg["verify"]
         self.base_url = base_url.rstrip("/")
         self.scheme = scheme or default_scheme()
-        self.transport = Transport(self.base_url, token,
-                                   verify if verify is not None else True)
+        self.transport = transport or Transport(self.base_url, token,
+                                                verify if verify is not None else True)
         self.default_timeout = default_timeout
         #: optional telemetry hook called (method, status_code) per response
         #: (client-go's rest_client_requests_total analog)

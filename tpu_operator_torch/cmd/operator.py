@@ -45,7 +45,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "quarter-sized ring)")
     p.add_argument("--debug-endpoints", action=argparse.BooleanOptionalAction,
                    default=True,
-                   help="serve /debug/{traces,join-traces,queue,state,informers,"
+                   help="serve /debug/{traces,join-traces,queue,state,informers,capacity,"
                         "threads,timeline} on the health port "
                         "(--no-debug-endpoints disables)")
     p.add_argument("--version", action="version", version=f"gpu-operator {__version__}")

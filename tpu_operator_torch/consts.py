@@ -43,11 +43,29 @@ NODE_POOL_LABEL = "tpu.ai/node-pool"
 #: the monotonic leader epoch on the operator's Lease, bumped at every
 #: acquisition; the write fence checks against it
 LEADER_EPOCH_ANNOTATION = "tpu.ai/leader-epoch"
-#: read by ``gpuop-cfg status``: the health machine's remediation attempts,
-#: and the autoscale and migration controllers' durable state (their
-#: controllers wait for their slices)
+#: the health machine's remediation attempts (read by ``gpuop-cfg status``)
 HEALTH_ATTEMPTS_ANNOTATION = "tpu.ai/health-remediation-attempts"
+
+# -- the fleet autoscaler (autoscale/) ---------------------------------------------
+#: the traffic feed on the ClusterPolicy (JSON: ts, queue_depth,
+#: backlog_chips, attainment, optional demand_tokens_per_s); the patch is the
+#: watch event that wakes the autoscaler
+TRAFFIC_SNAPSHOT_ANNOTATION = "tpu.ai/traffic-snapshot"
+#: the autoscaler's durable decision state on the ClusterPolicy (JSON per
+#: pool: target, cooldown, delay bookkeeping, the in-flight resize), written
+#: before any actuation
 AUTOSCALE_STATE_ANNOTATION = "tpu.ai/autoscale-state"
+#: on a node the autoscaler registered (value: the pool's name)
+AUTOSCALE_MANAGED_LABEL = "tpu.ai/autoscale.managed"
+#: on a node of a pool the platform may revoke without warning (spot)
+PREEMPTIBLE_POOL_LABEL = "tpu.ai/preemptible"
+
+# -- cross-node migration (migrate/controller.py) ----------------------------------
+#: asks the migration controller to move a node's tenant elsewhere (JSON:
+#: reason, optional dst); stamped by the autoscaler's scale-down or an admin
+MIGRATE_REQUEST_ANNOTATION = "tpu.ai/migrate-request"
+#: a migration episode's durable state on its source node (JSON: phase, src,
+#: dst, plan fingerprint, step, seq), written before every actuation
 MIGRATION_STATE_ANNOTATION = "tpu.ai/migration-state"
 
 # -- the rolling driver upgrade (upgrade/machine.py) ------------------------------

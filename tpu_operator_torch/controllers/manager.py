@@ -1,8 +1,8 @@
 """Operator process wiring (counterpart of tpu_operator/controllers/manager.py;
 NVIDIA's cmd/gpu-operator/main.go:74-233): build the client chain, register
-the ClusterPolicy, GPUDriver and upgrade controllers, serve metrics and
-health, and run until signalled, or, under ``--leader-elect``, until
-leadership is lost.
+the ClusterPolicy, GPUDriver, upgrade, autoscale and migration controllers
+(the autoscaler fed by the capacity collector), serve metrics and health, and
+run until signalled, or, under ``--leader-elect``, until leadership is lost.
 
 The client chain, outermost first: ``CachedClient`` (informer reads; off
 with ``--no-cache-reads``) → ``WriteBatcher`` (write coalescing) →
@@ -14,10 +14,8 @@ The app also builds the operator's black box: the decision-provenance
 journal (on the client chain, so its mirror writes are fenced), the flight
 recorder (``--trace-buffer-size``) and its tracer, and the join profiler,
 and serves them on the health port under ``/debug`` (:data:`DEBUG_ROUTES`;
-``--no-debug-endpoints`` serves none). The reference's autoscale and
-migration controllers, and its ``/debug/capacity`` route, wait for their
-slice; its ``/debug/opsan`` belongs to a race sanitizer the port does not
-have.
+``--no-debug-endpoints`` serves none). The reference's ``/debug/opsan``
+belongs to a race sanitizer the port does not have.
 """
 
 from __future__ import annotations
@@ -57,7 +55,7 @@ log = logging.getLogger(__name__)
 #: every /debug route the health server answers
 DEBUG_ROUTES = ("/debug/informers", "/debug/traces", "/debug/join-traces",
                 "/debug/queue", "/debug/state", "/debug/threads",
-                "/debug/timeline")
+                "/debug/timeline", "/debug/capacity")
 
 
 def _query_int(query: dict, key: str, default: int) -> int:
@@ -136,6 +134,10 @@ def serve_health_and_metrics(metrics: OperatorMetrics, metrics_port: int,
                     limit=_query_int(query, "limit", 100))
                 return {"stats": app.journal.debug_state(), "count": len(records),
                         "episodes": app.journal.episodes(), "records": records}
+            if path == "/debug/capacity":
+                # the capacity collector: pool curves from the nodes' serving
+                # frontiers, staleness and open drift episodes
+                return app.capacity.debug_state()
             # /debug/threads: every thread's stack, as a goroutine dump
             frames = sys._current_frames()
             lines = []
@@ -224,6 +226,25 @@ class OperatorApp:
                                                     metrics=self.metrics, journal=self.journal)
         self.upgrade_controller = self.manager.add(
             setup_upgrade_controller(client, self.upgrade_reconciler))
+        from ..autoscale import AutoscaleReconciler, setup_autoscale_controller
+        from ..capacity import CapacityCollector
+        from ..migrate import MigrationReconciler, setup_migration_controller
+
+        # the capacity collector aggregates the nodes' serving frontiers
+        # into pool curves (/debug/capacity) and gives the autoscaler its
+        # measured tokens/s per node at the SLO
+        self.capacity = CapacityCollector(
+            client, namespace or os.environ.get(consts.NAMESPACE_ENV, consts.DEFAULT_NAMESPACE),
+            metrics=self.metrics)
+        self.autoscale_reconciler = AutoscaleReconciler(
+            client, namespace=namespace, metrics=self.metrics, journal=self.journal,
+            capacity=self.capacity)
+        self.autoscale_controller = self.manager.add(
+            setup_autoscale_controller(client, self.autoscale_reconciler))
+        self.migration_reconciler = MigrationReconciler(
+            client, namespace=namespace, metrics=self.metrics, journal=self.journal)
+        self.migration_controller = self.manager.add(
+            setup_migration_controller(client, self.migration_reconciler))
         for controller in self.manager.controllers:
             controller.instrument(self.metrics, self.tracer)
         # rest_client_requests_total rides the innermost RestClient; the
@@ -301,8 +322,8 @@ class OperatorApp:
     def debug_state(self) -> dict:
         """``/debug/state``: what a "why is it not working yet" question
         needs on one page: readiness, leadership, informer sync, each
-        controller's queue, the flight recorder, the join profiler and the
-        journal."""
+        controller's queue, the flight recorder, the join profiler, the
+        journal and the capacity collector."""
         ready, detail = self.readiness()
         return {
             "ready": ready,
@@ -312,6 +333,7 @@ class OperatorApp:
             "flight_recorder": self.recorder.stats(),
             "join_profiler": self.join_profiler.stats(),
             "journal": self.journal.debug_state(),
+            "capacity": self.capacity.debug_state(),
         }
 
     def stop(self) -> None:

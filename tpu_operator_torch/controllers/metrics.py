@@ -203,6 +203,9 @@ class OperatorMetrics:
             "tpu_operator_tpu_nodes_total",
             "Number of accelerator nodes in the cluster (GPU nodes here; "
             "the name is the reference's)"))
+        self.driver_render_failed = add(Counter(
+            "tpu_operator_driver_render_failed_total",
+            "Driver manifest render failures"))
         # the rolling driver upgrade (the upgrade controller, every sweep);
         # names and help texts are the reference's
         self.upgrades_in_progress = add(Gauge(
@@ -251,6 +254,55 @@ class OperatorMetrics:
             "Operator-driven transparent snapshots taken after a drain "
             "deadline expired without a workload ack (the CRIU-style "
             "path that replaces a bare force-retile)"))
+        # the fleet autoscaler (autoscale.AutoscaleReconciler)
+        self.autoscale_target_nodes = add(Gauge(
+            "tpu_operator_autoscale_target_nodes",
+            "Node count the autoscaler is steering each pool toward "
+            "(clamped to spec.autoscale minNodes/maxNodes)", ["pool"]))
+        self.autoscale_resizes = add(Counter(
+            "tpu_operator_autoscale_resizes",
+            "Pool resizes the autoscaler actuated, by direction (up = node "
+            "registered onto the join path, down = planned drain/re-tile)",
+            ["pool", "direction"]))
+        self.autoscale_headroom_ratio = add(Gauge(
+            "tpu_operator_autoscale_headroom_ratio",
+            "Fleet chip capacity divided by forecast chip demand (1.0 = no "
+            "headroom; below 1.0 the fleet is under-provisioned and pools "
+            "are saturating at maxNodes or awaiting joins)"))
+        # the capacity collector (capacity.CapacityCollector)
+        self.serving_frontier_tokens_per_s = add(Gauge(
+            "tpu_operator_serving_frontier_tokens_per_s",
+            "Pool capacity curve from aggregated per-node serving "
+            "frontiers: median measured tokens/s a node in the pool "
+            "serves while holding p99 under the bucket's ceiling "
+            "(p99_bucket is le<ms> or inf)", ["pool", "p99_bucket"]))
+        self.serving_frontier_age = add(Gauge(
+            "tpu_operator_serving_frontier_age_seconds",
+            "Age of the node's measured serving frontier (now minus the "
+            "curve's measured_at stamp); the TPUFrontierStale alert "
+            "fires when capacity decisions run on an old curve", ["node"]))
+        self.serving_frontier_drift = add(Counter(
+            "tpu_operator_serving_frontier_drift",
+            "FrontierDrift episodes: a node's measured curve departed "
+            "its pool's envelope (edge-triggered, one count per episode, "
+            "not per sweep)", ["pool"]))
+        # cross-node migration (migrate.MigrationReconciler and the agents)
+        self.migrations_total = add(Counter(
+            "tpu_operator_migrations_total",
+            "Cross-node migration episodes reaching a terminal phase, by "
+            "outcome (completed = tenant restored on the destination with "
+            "zero steps lost; failed = fell back to the counted "
+            "force-retile path)", ["outcome"]))
+        self.migrations_in_progress = add(Gauge(
+            "tpu_operator_migrations_in_progress",
+            "Migration episodes currently in a non-terminal phase "
+            "(draining/snapshotting/transferring/restoring)"))
+        self.checkpoint_corrupt = add(Counter(
+            "tpu_operator_checkpoint_corrupt_total",
+            "Drain checkpoints that existed but could not be loaded "
+            "(torn/truncated/non-dict payload) — each one is silent "
+            "restart-from-scratch unless a migration restore supersedes "
+            "it; a CheckpointCorrupt Event carries the detail"))
         self.serving_slo_failing_nodes = add(Gauge(
             "tpu_operator_serving_slo_failing_nodes",
             "Nodes whose serving SLO probe failed or failed closed "

@@ -29,12 +29,13 @@ from ..utils import deep_get, object_hash
 
 log = logging.getLogger(__name__)
 
-#: plan reasons: a re-tile around gated GPUs, or a remediation that
-#: recycles the node's pods (the reference's autoscaler and migration
-#: controller also publish "scale-down" and "migrate"; an agent acks every
-#: reason alike)
+#: plan reasons: a re-tile around gated GPUs, a remediation that recycles
+#: the node's pods, the autoscaler's scale-down and a migration's drain (an
+#: agent acks every reason alike)
 REASON_RETILE = "retile"
 REASON_REMEDIATE = "remediate"
+REASON_SCALE_DOWN = "scale-down"
+REASON_MIGRATE = "migrate"
 
 
 @dataclasses.dataclass(frozen=True)

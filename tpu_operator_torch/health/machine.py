@@ -139,9 +139,8 @@ class HealthStateMachine:
         #: (plan publish, snapshot request, counted force, pod recycle,
         #: terminal recover/failed) records the decision that licensed it
         self.journal = journal or DecisionJournal()
-        #: the ClusterPolicy's ``migrate`` sub-spec as given (a free-form
-        #: object until the migration controller's slice; None when
-        #: absent): when ``enabled`` with ``snapshotWaitS`` > 0 (default
+        #: the ClusterPolicy's ``migrate`` sub-spec (a ``MigrateSpec``; None
+        #: when absent): when enabled with ``snapshotWaitS`` > 0 (default
         #: 30), an expired drain deadline requests a transparent snapshot
         #: through the node's migrate agent before any counted force-retile
         self.migrate = migrate
@@ -541,10 +540,9 @@ class HealthStateMachine:
         return False
 
     def _snapshot_wait_s(self) -> float:
-        migrate = self.migrate or {}
-        if not migrate.get("enabled"):
+        if self.migrate is None or not self.migrate.is_enabled():
             return 0.0
-        return float(migrate.get("snapshotWaitS", 30) or 0)
+        return float(getattr(self.migrate, "snapshot_wait_s", 0) or 0)
 
     def _force_expired(self, node: dict, fingerprint: str,
                        detail: str) -> bool:

@@ -14,6 +14,7 @@ from __future__ import annotations
 import collections
 import json
 import queue
+import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -65,6 +66,15 @@ class _Router:
         name = rest[0] if rest else None
         subresource = rest[1] if len(rest) > 1 else None
         return api_version, kind, namespace, name, subresource
+
+
+class _Server(ThreadingHTTPServer):
+    def handle_error(self, request, client_address):
+        """A client that hangs up (a stopped watch, a chopped stream, a
+        closed keep-alive connection) is no server error: keep quiet."""
+        if isinstance(sys.exc_info()[1], (ConnectionResetError, BrokenPipeError)):
+            return
+        super().handle_error(request, client_address)
 
 
 class MiniApiServer:
@@ -302,7 +312,7 @@ class MiniApiServer:
                 except ApiError as e:
                     self._fail(e)
 
-        self._httpd = ThreadingHTTPServer(("127.0.0.1", port), Handler)
+        self._httpd = _Server(("127.0.0.1", port), Handler)
         self._httpd.daemon_threads = True
         self._thread = threading.Thread(target=self._httpd.serve_forever, daemon=True)
         self._thread.start()

@@ -58,7 +58,7 @@ import signal
 import subprocess
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 from .. import consts
 from ..utils import deep_get, template_fingerprint
@@ -657,17 +657,81 @@ class KubeletSimulator:
     when its ``tpu.ai/template-hash`` label is not its template's, or,
     without the label, when its images and args are not the template's.
 
+    Each tick also runs the migrate agent's snapshot and restore passes for
+    the nodes :meth:`attach_migrate_agent` names, and :meth:`revoke_node`
+    takes a node back as a cloud reclaims spot capacity.
+
+    ``node_filter`` limits the simulator to the nodes it accepts, beside a
+    process kubelet that runs another node of the same cluster: then
+    ``write_ds_status=False`` leaves the DaemonSets' status to that kubelet.
     The reference's simulator can also mark DaemonSets ready without pods
-    and models image pulls, barrier gates, the migrate agent and spot
-    revocation; the port's tests need none of these yet."""
+    and models image pulls and barrier gates; the port's tests need none of
+    these."""
 
     def __init__(self, client, namespace: str = consts.DEFAULT_NAMESPACE,
-                 interval: float = 0.05):
+                 interval: float = 0.05,
+                 node_filter: Optional[Callable[[dict], bool]] = None,
+                 write_ds_status: bool = True):
         self.client = client
         self.namespace = namespace
         self.interval = interval
+        self.node_filter = node_filter
+        self.write_ds_status = write_ds_status
+        #: node name -> the migrate agent's settings, run every tick
+        self._migrate_agents: Dict[str, dict] = {}
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+
+    def attach_migrate_agent(self, node_name: str, status,
+                             dump: Optional[Callable] = None,
+                             fetch: Optional[Callable] = None,
+                             links=None, metrics=None) -> None:
+        """Run the migrate agent's snapshot and restore passes for this node
+        on every tick, against ``status`` (the node's host path). ``dump``
+        and ``fetch`` replace the process-state read and the transfer
+        fetch; ``links`` (NVML's link classes of the node's GPUs) re-map a
+        restored manifest onto them, where the reference's agent takes an
+        accelerator and a chip count."""
+        self._migrate_agents[node_name] = {"status": status, "dump": dump, "fetch": fetch,
+                                           "links": links, "metrics": metrics}
+
+    def detach_migrate_agent(self, node_name: str) -> None:
+        self._migrate_agents.pop(node_name, None)
+
+    def _run_migrate_agents(self) -> None:
+        from ..client.errors import ApiError
+        from ..migrate import agent as migrate_agent
+
+        for node_name, cfg in list(self._migrate_agents.items()):
+            try:
+                migrate_agent.snapshot_once(self.client, node_name, cfg["status"],
+                                            dump=cfg.get("dump"))
+                migrate_agent.restore_once(self.client, node_name, cfg["status"],
+                                           fetch=cfg.get("fetch"), links=cfg.get("links"),
+                                           metrics=cfg.get("metrics"),
+                                           namespace=self.namespace)
+            except (ApiError, OSError) as e:
+                # a node revoked mid-pass must not stop the other agents
+                log.debug("migrate agent pass for %s failed: %s", node_name, e)
+
+    def revoke_node(self, name: str) -> bool:
+        """Spot reclamation: every pod on the node and the Node object
+        vanish, with no drain plan and no ack window. False when the node
+        was already gone."""
+        from ..client.errors import NotFoundError
+
+        for pod in self.client.list("v1", "Pod", None, field_selector={"spec.nodeName": name}):
+            try:
+                self.client.delete("v1", "Pod", pod["metadata"]["name"],
+                                   deep_get(pod, "metadata", "namespace"))
+            except NotFoundError:
+                pass
+        try:
+            self.client.delete("v1", "Node", name)
+        except NotFoundError:
+            return False
+        log.info("kubelet sim: node %s revoked (spot reclaim)", name)
+        return True
 
     def start(self) -> "KubeletSimulator":
         self._thread = threading.Thread(target=self._run, daemon=True, name="kubelet-sim")
@@ -692,8 +756,11 @@ class KubeletSimulator:
         """One pass; public so that tests can drive it step by step."""
         from ..state.skel import node_matches_selector
 
-        nodes = self.client.list("v1", "Node")
-        self._complete_validation_pods()
+        nodes = [n for n in self.client.list("v1", "Node")
+                 if self.node_filter is None or self.node_filter(n)]
+        self._complete_validation_pods(None if self.node_filter is None
+                                       else {n["metadata"]["name"] for n in nodes})
+        self._run_migrate_agents()
         for ds in self.client.list("apps/v1", "DaemonSet", self.namespace):
             selector = deep_get(ds, "spec", "template", "spec", "nodeSelector", default={})
             matching = [n for n in nodes if node_matches_selector(n, selector)]
@@ -702,7 +769,7 @@ class KubeletSimulator:
                       "desiredNumberScheduled": len(matching),
                       "currentNumberScheduled": available, "numberReady": available,
                       "numberAvailable": available, "updatedNumberScheduled": updated}
-            if ds.get("status") != status:
+            if self.write_ds_status and ds.get("status") != status:
                 ds["status"] = status
                 self.client.update_status(ds)
             component = deep_get(ds, "spec", "template", "metadata", "labels",
@@ -766,9 +833,11 @@ class KubeletSimulator:
                 pass
         return available, updated
 
-    def _complete_validation_pods(self) -> None:
+    def _complete_validation_pods(self, node_names) -> None:
         for pod in self.client.list("v1", "Pod", self.namespace):
             if deep_get(pod, "metadata", "labels", "app") not in VALIDATION_APPS:
+                continue
+            if node_names is not None and deep_get(pod, "spec", "nodeName") not in node_names:
                 continue
             if deep_get(pod, "status", "phase") in ("Succeeded", "Failed"):
                 continue
