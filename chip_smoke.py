@@ -171,6 +171,19 @@ Phases, each of which exits non-zero on failure:
    mid-migration (AUTOSCALE, MIGRATION) and the operator's modules in fresh
    processes mapping neither torch nor libcuda. No hand-written kernel
    (K1's count under ``autoscale`` is 0).
+17. after phase 16 (:func:`simulator_phase`): the fleet simulator
+   (``gpu-sim``) on the card's frontier. The curve phase 16 checked on the
+   card's node (the serving probe's, on the card) and the per-GPU rate a
+   simulated node derives from it; the five committed scenarios
+   (``tests/cases/scenarios/``) each through ``gpu-sim run --double-run
+   --json`` in a fresh process that maps neither torch nor libcuda (every
+   oracle green, the two canonical logs byte-identical); the same cases in
+   this process on the card's curve, whose canonical logs must be the
+   processes' (a card's scale changes no decision); a 5-scenario fuzz sweep
+   at the pinned seed 20260806, double-run (the scenario-fuzz gate's 25 cut
+   to 5 for time); the serving-traffic mix twice over phase 11's partition
+   handoff from the card's NVML (equal dicts, no unhandled error, no request
+   lost). No hand-written kernel (K1's count under ``simulator`` is 0).
 
 Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Needs a CUDA device and the rest of the repository beside this file.
@@ -1560,6 +1573,7 @@ def last_components_phase(card, status_dir, native_build_s) -> dict:
                                         "self_check": agent_check, "card": card}}))
     shutil.rmtree(work, ignore_errors=True)
     print(json.dumps({"last_components": numbers}))
+    numbers["handoff"] = restored  # phase 17 plays the traffic mix over it
     return numbers
 
 
@@ -3467,6 +3481,166 @@ def autoscale_phase(ctx) -> dict:
     return numbers
 
 
+
+#: the fuzz sweep's scenarios in phase 17: the scenario-fuzz gate's 25, cut
+#: to 5 for the smoke's time
+SIM_FUZZ_BUDGET = 5
+#: the traffic mix's sampling interval over phase 11's handoff
+SIM_TRAFFIC_SAMPLE_S = 5.0
+#: a simulator process that reports, as it exits, whether it maps torch or
+#: libcuda (standard error: its standard output is the report)
+_SIM_SCRIPT = ("import runpy, sys\n"
+               "sys.argv = ['gpu-sim', *sys.argv[1:]]\n"
+               "try:\n"
+               "    runpy.run_module('tpu_operator_torch.cmd.sim', run_name='__main__',\n"
+               "                     alter_sys=True)\n"
+               "finally:\n"
+               "    maps = open('/proc/self/maps').read()\n"
+               "    print('MAPS', 'libtorch' in maps, 'libcuda' in maps, 'torch' in sys.modules,\n"
+               "          file=sys.stderr)\n")
+
+
+def _gpu_sim(ctx, *argv, timeout: float = 600) -> dict:
+    """``python -m tpu_operator_torch.cmd.sim`` in a fresh process."""
+    t = time.monotonic()
+    out = subprocess.run([sys.executable, "-c", _SIM_SCRIPT, *argv], cwd=ctx.repo,
+                         env=ctx.operator_env, capture_output=True, text=True, timeout=timeout)
+    maps = [line for line in out.stderr.splitlines() if line.startswith("MAPS ")]
+    return {"rc": out.returncode, "out": out.stdout, "err": out.stderr,
+            "maps_line": maps[-1] if maps else "", "wall_s": round(time.monotonic() - t, 3)}
+
+
+def card_curve(ctx, checked: list) -> list:
+    """Phase 17's step 1: the serving frontier on the card's node, as phase
+    16 checked it (``checked``: its ``[batch, p99_ms, tokens_per_s]``
+    points), one GPU's curve."""
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.serving import frontier as frontier_schema
+
+    node = ctx.srv.backend.get("v1", "Node", ctx.node_name)
+    fr = frontier_schema.decode_annotation(
+        (node["metadata"].get("annotations") or {}).get(consts.SERVING_FRONTIER_ANNOTATION))
+    check(fr is not None, f"no serving frontier on {ctx.node_name}")
+    points = [[p.batch, p.p99_ms, p.tokens_per_s] for p in fr.points]
+    check(points == checked, f"the node's frontier {points} is not phase 16's {checked}")
+    return points
+
+
+def simulator_phase(ctx, curve=None, handoff=None, budget: int = SIM_FUZZ_BUDGET) -> dict:
+    """Phase 17: the fleet simulator (``gpu-sim``) on the card's frontier.
+
+    1. ``curve``: one GPU's serving frontier, ``[batch, p99_ms,
+       tokens_per_s]`` points (:func:`card_curve`; None takes the engine's
+       ``CARD_FRONTIER``), and the per-GPU rate a healthy node of the
+       simulated fleet derives from it.
+    2. Each committed case (``tests/cases/scenarios/*.yaml``) through
+       ``python -m tpu_operator_torch.cmd.sim run <case> --double-run
+       --json`` in a fresh process: exit 0, every oracle green, the double
+       run's canonical logs byte-identical, neither torch nor libcuda mapped.
+    3. The same cases in this process on ``curve``: the canonical log must be
+       step 2's (it holds no token figure, so a card's scale changes no
+       decision).
+    4. ``gpu-sim fuzz --budget <budget> --double-run`` at the pinned seed:
+       every scenario green and byte-identical across the double run.
+    5. The traffic mix (``serving.traffic.scenario_from_handoff``) twice
+       over ``handoff`` (phase 11's, from the card's NVML), sampled every
+       :data:`SIM_TRAFFIC_SAMPLE_S`: equal dicts, no unhandled error, every
+       request finished or still queued.
+
+    ``ctx``: ``repo``, ``operator_env`` (a torch-free process's
+    environment), ``work`` and ``card``."""
+    from tpu_operator_torch.serving import traffic
+    from tpu_operator_torch.simulator import (DEFAULT_SCENARIO_SEED, FleetSimulator,
+                                              engine, parse_file)
+
+    started = time.monotonic()
+    numbers = {"card": ctx.card}
+    # -- 1. the card's curve ---------------------------------------------------------
+    frontier = [list(p) for p in (curve or engine.CARD_FRONTIER)]
+    per_gpu = engine.tokens_per_gpu(frontier)
+    check(per_gpu > 0, f"no point of the curve {frontier} within {engine.MAX_P99_MS} ms")
+    numbers["curve"] = {"points": frontier, "measured": curve is not None,
+                        "tokens_per_gpu": per_gpu, "gpus_per_node": engine.GPUS_PER_NODE}
+    print(json.dumps({"simulator_curve": numbers["curve"], "card": ctx.card}))
+
+    # -- 2. the committed cases in fresh processes -------------------------------------
+    cases = sorted(glob.glob(os.path.join(ctx.repo, "tests", "cases", "scenarios", "*.yaml")))
+    check(len(cases) == 5, f"the committed cases: {cases}")
+    runs = {}
+    for path in cases:
+        name = os.path.splitext(os.path.basename(path))[0]
+        out = _gpu_sim(ctx, "run", path, "--double-run", "--json")
+        check(out["rc"] == 0, f"gpu-sim run {name} exited {out['rc']}: "
+                              f"{out['out'][-2000:]}{out['err'][-3000:]}")
+        check(out["maps_line"] == "MAPS False False False",
+              f"gpu-sim run {name}: {out['maps_line']!r}")
+        report = json.loads(out["out"])
+        failed = [o["name"] for o in report["oracles"] if not o["ok"]]
+        check(report["ok"] and not failed and not report["injections_unfired"],
+              f"{name}: oracles {failed}, unfired {report['injections_unfired']}")
+        runs[name] = {"ok": report["ok"], "settled_at_tick": report["settled_at_tick"],
+                      "reconcile_errors": len(report["reconcile_errors"]),
+                      "feeder_faults": len(report["feeder_faults"]),
+                      "wall_s": out["wall_s"], "seed": report["seed"],
+                      "canonical": report["canonical"]}
+        print(json.dumps({"simulator_case": name,
+                          **{k: v for k, v in runs[name].items() if k != "canonical"},
+                          "double_run": "byte-identical", "maps": out["maps_line"],
+                          "card": ctx.card}))
+
+    # -- 3. the same cases here, on the card's curve -------------------------------------
+    for path in cases:
+        name = os.path.splitext(os.path.basename(path))[0]
+        t = time.monotonic()
+        report = FleetSimulator(parse_file(path), seed=runs[name]["seed"],
+                                frontier=frontier).run()
+        check(report["canonical"] == runs[name]["canonical"],
+              f"{name} on the card's curve: the canonical log differs from the "
+              f"process's\n{report['canonical']}\n{runs[name]['canonical']}")
+        runs[name]["card_curve_s"] = round(time.monotonic() - t, 3)
+    print(json.dumps({"simulator_card_curve": {n: r["card_curve_s"] for n, r in runs.items()},
+                      "canonical": "equal", "card": ctx.card}))
+
+    # -- 4. the fuzz sweep ---------------------------------------------------------------
+    bundles = os.path.join(ctx.work, "sim-bundles")
+    out = _gpu_sim(ctx, "fuzz", "--seed", str(DEFAULT_SCENARIO_SEED), "--budget", str(budget),
+                   "--double-run", "--out", bundles)
+    check(out["rc"] == 0, f"gpu-sim fuzz exited {out['rc']}: {out['out'][-3000:]}"
+                          f"{out['err'][-3000:]}")
+    check(out["maps_line"] == "MAPS False False False", f"gpu-sim fuzz: {out['maps_line']!r}")
+    check(f"fuzz done: {budget}/{budget} passed, 0 failed" in out["out"]
+          and f"double run: {budget} canonical logs byte-identical" in out["out"],
+          f"gpu-sim fuzz: {out['out'][-3000:]}")
+    numbers["fuzz"] = {"seed": DEFAULT_SCENARIO_SEED, "budget": budget, "wall_s": out["wall_s"],
+                       "verdicts": [line.strip() for line in out["out"].splitlines()
+                                    if line.startswith("[")]}
+    print(out["out"].rstrip())
+    print(json.dumps({"simulator_fuzz": numbers["fuzz"], "note": "the gate's budget is 25, "
+                      f"cut to {budget} for the smoke's time", "card": ctx.card}))
+
+    # -- 5. the traffic mix over the card's handoff -----------------------------------------
+    check(handoff is None or handoff.get("groups"), f"phase 11's handoff: {handoff}")
+    mixes = [traffic.scenario_from_handoff(handoff, sample_interval_s=SIM_TRAFFIC_SAMPLE_S)
+             for _ in range(2)]
+    mix = mixes[0]
+    check(mixes[0] == mixes[1], "the traffic mix differs between two runs")
+    check(mix["unhandled_errors"] == 0, f"traffic mix errors: {mix['unhandled_errors']}")
+    check(mix["rejected"] == 0 and mix["arrivals"] == mix["completed"] + mix["incomplete"],
+          f"traffic mix lost requests: {mix}")
+    numbers["traffic"] = {k: mix[k] for k in ("slices", "arrivals", "completed", "incomplete",
+                                              "slo_attainment", "latency_p50_s",
+                                              "latency_p99_s", "preemptions",
+                                              "unhandled_errors")}
+    numbers["traffic"]["samples"] = len(mix["timeseries"])
+    print(json.dumps({"simulator_traffic": numbers["traffic"], "handoff": handoff,
+                      "card": ctx.card}))
+
+    numbers["cases"] = {n: {k: v for k, v in r.items() if k != "canonical"}
+                        for n, r in runs.items()}
+    numbers["phase_s"] = round(time.monotonic() - started, 3)
+    print(json.dumps({"simulator_phase": {"phase_s": numbers["phase_s"]}, "card": ctx.card}))
+    return numbers
+
 def _try_scrape(port: int):
     try:
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=2) as r:
@@ -3678,7 +3852,7 @@ def main() -> int:
 
     phase("the validator's last components: driver, probe, partitioner, exporter, migrate")
     k1.launches = 0
-    last_components_phase(card, status_dir, native_s)
+    last = last_components_phase(card, status_dir, native_s)
     last_launches = k1.launches
     check(last_launches == 0, f"the last components launched K1 {last_launches} times")
 
@@ -3686,7 +3860,7 @@ def main() -> int:
     k1.launches = 0
     counts = {}
 
-    def phases_13_to_16(ctx):
+    def phases_13_to_17(ctx):
         counts["operator"] = k1.launches
         phase("GPUDriver hand-over and back, the CRD schema, leader election and the fence")
         k1.launches = 0
@@ -3702,18 +3876,24 @@ def main() -> int:
         counts["upgrade"] = k1.launches
         phase("the capacity loop under chaos: frontier, scale-up, scale-down by migration")
         k1.launches = 0
-        autoscale_phase(ctx)
+        autoscale = autoscale_phase(ctx)
         counts["autoscale"] = k1.launches
+        phase("the fleet simulator on the card's frontier: five cases, a fuzz sweep, traffic")
+        k1.launches = 0
+        simulator_phase(ctx, card_curve(ctx, autoscale["frontier"]["points"]),
+                        last["handoff"])
+        counts["simulator"] = k1.launches
 
-    operator_phase(card, then=phases_13_to_16)
+    operator_phase(card, then=phases_13_to_17)
     operator_launches, gpudriver_launches = counts["operator"], counts["gpudriver"]
     health_launches, upgrade_launches = counts["health"], counts["upgrade"]
-    autoscale_launches = counts["autoscale"]
+    autoscale_launches, simulator_launches = counts["autoscale"], counts["simulator"]
     check(operator_launches == 0, f"the operator path launched K1 {operator_launches} times")
     check(gpudriver_launches == 0, f"phase 13 launched K1 {gpudriver_launches} times")
     check(health_launches == 0, f"phase 14 launched K1 {health_launches} times")
     check(upgrade_launches == 0, f"phase 15 launched K1 {upgrade_launches} times")
     check(autoscale_launches == 0, f"phase 16 launched K1 {autoscale_launches} times")
+    check(simulator_launches == 0, f"phase 17 launched K1 {simulator_launches} times")
 
     print(json.dumps({"smoke_s": round(time.monotonic() - _T0, 1), "card": card}))
     print(json.dumps({"kernels": [{
@@ -3731,8 +3911,8 @@ def main() -> int:
         # the paths without K1 launch it no time: serving (7), the steady
         # state (9), the device plumbing (10), the last components (11), the
         # operator (12), the GPUDriver and leader phase (13), the health
-        # loop (14), the rolling upgrade (15) and the capacity loop (16) are
-        # checked at 0 above
+        # loop (14), the rolling upgrade (15), the capacity loop (16) and the
+        # fleet simulator (17) are checked at 0 above
         "launches_by_phase": {"perf": k1_main_launches, "serving": serving_launches,
                               "steady_state": steady_state_launches,
                               "device_plumbing": plumbing_launches,
@@ -3741,7 +3921,8 @@ def main() -> int:
                               "gpudriver": gpudriver_launches,
                               "health": health_launches,
                               "upgrade": upgrade_launches,
-                              "autoscale": autoscale_launches},
+                              "autoscale": autoscale_launches,
+                              "simulator": simulator_launches},
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,7 +6,8 @@ importing the package builds and loads no kernel and loads no jinja2 (the
 manifest renderer imports it when it renders). grpc and google.protobuf
 are imported only by the device plugin's wire layer: the package, the
 plugin's plan layer included, imports without them. The operator's
-process, like the node daemons, imports no torch."""
+process, like the node daemons and the fleet simulator, imports no
+torch."""
 
 import ast
 import os
@@ -91,7 +92,11 @@ def test_port_module_list_is_complete():
                      "controllers.upgrade_controller", "client.chaos", "testing.chaos",
                      "testing.trainjob", "autoscale", "autoscale.predictor",
                      "autoscale.engine", "autoscale.controller", "capacity",
-                     "capacity.collector", "migrate.controller"):
+                     "capacity.collector", "migrate.controller", "utils.objects",
+                     "utils.hash", "utils.clock", "utils.seeds", "serving.traffic",
+                     "simulator", "simulator.clock", "simulator.seeds", "simulator.scenario",
+                     "simulator.engine", "simulator.fuzz", "simulator.minimize",
+                     "simulator.artifacts", "cmd.sim"):
         assert f"tpu_operator_torch.{expected}" in names
 
 
@@ -207,7 +212,10 @@ DAEMON_MODULES = ("tpu_operator_torch.cmd.operator", "tpu_operator_torch.control
                   "tpu_operator_torch.client.chaos", "tpu_operator_torch.autoscale",
                   "tpu_operator_torch.autoscale.controller", "tpu_operator_torch.capacity",
                   "tpu_operator_torch.migrate.controller", "tpu_operator_torch.testing.chaos",
-                  "tpu_operator_torch.testing.trainjob")
+                  "tpu_operator_torch.testing.trainjob", "tpu_operator_torch.utils",
+                  "tpu_operator_torch.serving.traffic", "tpu_operator_torch.simulator",
+                  "tpu_operator_torch.simulator.fuzz", "tpu_operator_torch.simulator.minimize",
+                  "tpu_operator_torch.simulator.artifacts", "tpu_operator_torch.cmd.sim")
 
 
 def test_the_node_daemons_import_no_torch(tmp_path):

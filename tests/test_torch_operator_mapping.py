@@ -19,7 +19,8 @@ upgrade the port does not copy; :data:`DEBUG_ROUTES_LEFT_OUT` the
 ``/debug`` routes the port does not serve; the autoscale section the
 autoscaler's two differences (``nvidia.com/gpu`` capacity, a GPU count by
 default) and the names of the nodes it registers; the client-chain section
-three faults of the reference's the port repairs. The tests at the end hold the mapping itself: it changes nothing the
+three faults of the reference's the port repairs; the simulator section the
+fleet simulator's GPU fleet and the traffic mix's fallback layout. The tests at the end hold the mapping itself: it changes nothing the
 port already renders, and it leaves no TPU name behind in what it maps.
 """
 
@@ -632,6 +633,97 @@ def map_rendezvous_pod(pod: dict) -> dict:
                         node_name]
     assert not env, env
     return out
+
+
+
+# -- the fleet simulator and the traffic mix --------------------------------------
+#
+# The simulator's fleet is GPU nodes: ``node-NNN`` where the reference seeds
+# ``tpu-NNN`` (herd joiners keep ``herd-NNNN``; the upgrade's job pods are
+# ``gpu-consumer-<node>`` for ``job-<node>``; :func:`map_sim_name`), names
+# that sort as the reference's do, since the chaos injectors draw their
+# victims from sorted names, each with
+# ``testing.kubelet.GPUS_PER_NODE`` (8) of ``nvidia.com/gpu`` where the
+# reference's have 4 chips, labelled with feature discovery's chip type
+# (``nvidia-h100-80gb``) and node feature discovery's NVIDIA PCI label where
+# the reference's carry GKE's TPU accelerator and a slice topology
+# (:func:`map_sim_labels`). Their pool is the chip type
+# (:func:`map_pool_name`). Deliberate differences, none of which changes a
+# decision on the committed cases (tests/test_torch_simulator.py holds the
+# oracles, the settle tick, the injections, the Event counts and the
+# terminal nodes equal):
+# - a healthy node serves the card's measured frontier times its GPUs, and
+#   the nominal per-GPU rate is that curve's best at 200 ms over 8, where the
+#   reference's nodes serve a synthetic 3-point curve topping out at 4 x
+#   250 tokens/s; the demand is in the same units, so every decision reads a
+#   ratio the two share; ``capacity_basis`` says ``gpu-constant`` where the
+#   reference's says ``chip-constant``;
+# - the demand's traffic mix plays over one node's GPUs as two halves,
+#   the reference's two 4-chip slices, so its shape is the reference's;
+# - the port's simulated kubelet always makes the DaemonSets' pods (the
+#   reference's ``create_pods=False`` outside the upgrade has no
+#   counterpart); the autoscale and migrate operations render no DaemonSet,
+#   so it makes none there;
+# - the migrate agents re-map over an 8-GPU NVLink board's links where the
+#   reference's take an accelerator and a chip count, and the training job
+#   names no partition (the reference's ``2x2``);
+# - the upgrade's images are the simulated registry's ``gpu-validator``;
+# - the read barrier's informer watermark moves with what the watch
+#   delivered, never with a write-through (the reference's moves with both;
+#   the port's batcher hands its flushed writes to the cache, which would
+#   mark a kind caught up past events the watch still owes).
+#
+# The traffic mix (serving/traffic.py) is the reference's arithmetic: equal
+# dicts for equal inputs. Its one difference is the fallback layout with no
+# handoff: one group of one GPU (:data:`TRAFFIC_FALLBACK_SLICES`), where the
+# reference's is one 4-chip 2x2 slice.
+
+#: the slices ``scenario_from_handoff(None)`` reports: reference, port
+TRAFFIC_FALLBACK_SLICES = {"reference": [{"capacity": 4, "blocked": False}],
+                           "port": [{"capacity": 1, "blocked": False}]}
+
+
+def map_sim_name(name: str) -> str:
+    """A reference simulator node's or pod's name as the port's."""
+    if re.fullmatch(r"tpu-\d{3}", name):
+        return "node-" + name[4:]
+    pod = re.fullmatch(r"(.+)-(tpu-\d{3}|herd-\d{4})", name)
+    if pod:  # a job's or a DaemonSet's pod on a fleet node
+        owner = "gpu-consumer" if pod.group(1) == "job" else _map_string(pod.group(1))
+        return f"{owner}-{map_sim_name(pod.group(2))}"
+    return map_registered_name(name)
+
+
+def map_sim_labels(labels: dict) -> dict:
+    """A reference simulator node's labels as the port's node carries them:
+    the chip type and the PCI label for the TPU accelerator, no topology,
+    the presence and deploy labels renamed, the autoscaled pool's name."""
+    out = {}
+    for key, value in labels.items():
+        if key == "cloud.google.com/gke-tpu-accelerator":
+            out[consts.TPU_CHIP_TYPE_LABEL] = ACCELERATORS[value]
+            out[consts.NFD_NVIDIA_PCI_LABEL] = "true"
+        elif key == "cloud.google.com/gke-tpu-topology":
+            continue
+        elif key == consts.AUTOSCALE_MANAGED_LABEL:
+            out[key] = map_pool_name(value)
+        else:
+            out[_map_string(key)] = value
+    return dict(sorted(out.items()))
+
+
+def map_sim_terminal(terminal: dict) -> dict:
+    """A reference simulator report's terminal node state as the port's."""
+    return {map_sim_name(name): {"labels": map_sim_labels(state["labels"]),
+                                 "unschedulable": state["unschedulable"]}
+            for name, state in terminal.items()}
+
+
+def map_sim_injection(record: dict) -> dict:
+    """A reference injection record (tick, kind, victims) as the port's."""
+    return {"tick": record["tick"], "kind": record["kind"], "params": record["params"],
+            "victims": sorted(map_sim_name(v) for v in record.get("victims", [])),
+            "zones": record.get("zones", [])}
 
 
 # -- the mapping's own tests ----------------------------------------------------

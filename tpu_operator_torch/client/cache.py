@@ -30,6 +30,7 @@ from __future__ import annotations
 import copy
 import logging
 import threading
+import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 from .. import tracing
@@ -104,6 +105,12 @@ class _Informer:
         #: bring the object back
         self._gone: Dict[Tuple[str, str], int] = {}
         self._listed_rv = -1
+        #: the newest rv the watch (an event or a relist) has delivered: the
+        #: read barrier's watermark. Unlike the reference's, a write-through
+        #: does not advance it: the write batcher hands its flushed writes to
+        #: the cache, which would mark the kind caught up past events the
+        #: watch still owes
+        self.max_rv = -1
         self._lock = threading.Lock()
         self.synced = threading.Event()
         #: set after a full sync-timeout expired once: later reads stop
@@ -192,6 +199,7 @@ class _Informer:
             self._store = {self._key(o): o for o in items}
             self._gone = {}
             self._listed_rv = _rv_int({"metadata": {"resourceVersion": rv}})
+            self.max_rv = max(self.max_rv, self._listed_rv)
             vanished = [obj for key, obj in old.items()
                         if key not in self._store]
         self.synced.set()
@@ -206,7 +214,18 @@ class _Informer:
 
     def _on_event(self, event: WatchEvent) -> None:
         self.apply(event.type, event.object)
+        with self._lock:
+            self.max_rv = max(self.max_rv, _rv_int(event.object))
         self._fanout(event.type, event.object)
+
+    def caught_up(self, rv: int) -> bool:
+        """True once the initial relist landed and the watch has delivered
+        every event up to ``rv`` (the backend's newest event for this watch
+        scope). ``rv <= 0`` means the scope never emitted an event."""
+        if not self.synced.is_set():
+            return False
+        with self._lock:
+            return rv <= 0 or self.max_rv >= rv
 
     def apply(self, event_type: str, obj: dict) -> None:
         key = self._key(obj)
@@ -453,6 +472,26 @@ class CachedClient(Client):
             # a concurrent superset creation retired this scoped informer
             # between resolve and subscribe; re-resolve onto the superset
             sub.stop()
+
+    def wait_caught_up(self, rv_for: Callable[[str, str, Optional[str]], int],
+                       timeout: float = 5.0) -> bool:
+        """Deterministic read barrier for synchronous harnesses (the fleet
+        simulator): block until every active informer's watch has delivered
+        the newest event its scope has emitted. ``rv_for(api_version, kind,
+        namespace)`` returns that scope's event high watermark
+        (``FakeClient.last_event_rv``). False on timeout (a watch stream is
+        wedged or lagging)."""
+        deadline = time.monotonic() + timeout
+        while True:
+            with self._lock:
+                informers = list(self._informers.values())
+            lagging = [i for i in informers if not i.caught_up(
+                int(rv_for(i.api_version, i.kind, i.namespace) or 0))]
+            if not lagging:
+                return True
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(0.001)
 
     def server_version(self) -> str:
         return self.inner.server_version()

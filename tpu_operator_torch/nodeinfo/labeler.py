@@ -13,14 +13,13 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-import time
 from typing import Dict, List, Optional
 
 from .. import consts, events
 from ..api.clusterpolicy import ClusterPolicy
 from ..client.batch import coalesced_patch
 from ..client.interface import Client
-from ..utils import deep_get
+from ..utils import clock, deep_get
 from .node_info import is_gpu_node
 
 log = logging.getLogger(__name__)
@@ -174,7 +173,7 @@ def label_gpu_nodes(client: Client, policy: ClusterPolicy,
                                    default={}) or {}
             ann_patch: Dict[str, str] = {}
             if consts.IMAGE_PREPULL_ANNOTATION not in annotations:
-                ann_patch[consts.IMAGE_PREPULL_ANNOTATION] = f"{time.time():.3f}"
+                ann_patch[consts.IMAGE_PREPULL_ANNOTATION] = f"{clock.now():.3f}"
             if patch or ann_patch:
                 log.info("labeling GPU node %s: %s", name, patch)
                 body: Dict[str, dict] = {"metadata": {}}

@@ -80,17 +80,27 @@ class _Server(ThreadingHTTPServer):
 class MiniApiServer:
     """HTTP facade over a FakeClient; start() returns the base URL. It
     answers in microseconds, where a real apiserver takes milliseconds: a
-    control-plane time measured against it is a lower bound."""
+    control-plane time measured against it is a lower bound.
+
+    ``latency_s`` delays every request by that much before it is handled,
+    a real apiserver's round trip."""
 
     def __init__(self, backend: Optional[FakeClient] = None, scheme: Optional[Scheme] = None,
-                 watch_idle_timeout_s: float = 5.0):
+                 latency_s: float = 0.0, watch_idle_timeout_s: float = 5.0):
         self.scheme = scheme or default_scheme()
         self.backend = backend or FakeClient(self.scheme)
+        self.latency_s = latency_s
         # how long an event-less watch stream stays open before the server
         # closes it — real apiservers do this on a timer; clients must
         # resume. Short by default, so a stopped server's stream threads
         # end soon after it
         self.watch_idle_timeout_s = watch_idle_timeout_s
+        #: optional fault injector, called as ``fault(method, path)`` before a
+        #: request is handled; a truthy HTTP status code fails the request
+        #: with that code (the fleet simulator's apiserver brownout: a seeded
+        #: share of requests answered 503 for a window). Watch streams are
+        #: exempt: a stream's faults are the chaos transport's.
+        self.fault = None
         self._router = _Router(self.scheme)
         #: requests served, by (verb, kind): GET, LIST, WATCH, POST, PUT
         #: (``PUT/status`` for the status subresource), PATCH, DELETE,
@@ -133,6 +143,11 @@ class MiniApiServer:
             def log_message(self, *args):
                 pass
 
+            def handle_one_request(self):
+                if server.latency_s > 0:
+                    time.sleep(server.latency_s)
+                super().handle_one_request()
+
             def _body(self) -> dict:
                 length = int(self.headers.get("Content-Length", 0))
                 try:
@@ -157,7 +172,25 @@ class MiniApiServer:
                 self._send(err.code, {"kind": "Status", "message": str(err), "code": err.code},
                            headers)
 
+            def _faulted(self, method: str) -> bool:
+                fault = server.fault
+                if fault is None or "watch=true" in urlparse(self.path).query:
+                    return False
+                code = fault(method, self.path)
+                if not code:
+                    return False
+                # read the unread body first: the connection is keep-alive,
+                # and bytes left on the socket would corrupt the next
+                # request's framing
+                length = int(self.headers.get("Content-Length", 0))
+                if length:
+                    self.rfile.read(length)
+                self._fail(ApiError("injected fault: apiserver brownout", int(code)))
+                return True
+
             def do_GET(self):
+                if self._faulted("GET"):
+                    return
                 try:
                     url = urlparse(self.path)
                     if url.path == "/version":
@@ -267,6 +300,8 @@ class MiniApiServer:
                 self._send(201, {"kind": "Status", "status": "Success"})
 
             def do_POST(self):
+                if self._faulted("POST"):
+                    return
                 try:
                     api_version, kind, ns, name, sub = server._router.resolve(
                         urlparse(self.path).path)
@@ -284,6 +319,8 @@ class MiniApiServer:
                     self._fail(e)
 
             def do_PUT(self):
+                if self._faulted("PUT"):
+                    return
                 try:
                     api_version, kind, ns, name, sub = server._router.resolve(urlparse(self.path).path)
                     server._count("PUT/status" if sub == "status" else "PUT", kind)
@@ -296,6 +333,8 @@ class MiniApiServer:
                     self._fail(e)
 
             def do_PATCH(self):
+                if self._faulted("PATCH"):
+                    return
                 try:
                     api_version, kind, ns, name, _ = server._router.resolve(urlparse(self.path).path)
                     server._count("PATCH", kind)
@@ -304,6 +343,8 @@ class MiniApiServer:
                     self._fail(e)
 
             def do_DELETE(self):
+                if self._faulted("DELETE"):
+                    return
                 try:
                     api_version, kind, ns, name, _ = server._router.resolve(urlparse(self.path).path)
                     server._count("DELETE", kind)

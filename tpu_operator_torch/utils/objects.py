@@ -1,17 +1,11 @@
-"""Object helpers of the validator and the operator (copies of
-tpu_operator/utils/objects.py and tpu_operator/utils/hash.py), and the CUDA
-device-order pin every sweep process gets (torch-free, for the processes
-that must not import torch)."""
+"""Helpers for plain-dict Kubernetes objects (copy of
+tpu_operator/utils/objects.py, the helpers the port uses)."""
 
 from __future__ import annotations
 
-import copy
-import json
 import re
 import time
-from typing import Any, Mapping, MutableMapping, Optional
-
-from . import consts
+from typing import Any, Mapping, Optional
 
 
 def deep_get(obj: Optional[Mapping], *path: str, default: Any = None) -> Any:
@@ -75,43 +69,3 @@ def parse_quantity(value: Any) -> float:
     if not m or m.group(2) not in _SUFFIXES:
         raise ValueError(f"unparseable quantity: {value!r}")
     return float(m.group(1)) * _SUFFIXES[m.group(2)]
-
-
-_FNV_OFFSET_32 = 0x811C9DC5
-_FNV_PRIME_32 = 0x01000193
-
-
-def fnv32a(data: bytes) -> int:
-    h = _FNV_OFFSET_32
-    for b in data:
-        h ^= b
-        h = (h * _FNV_PRIME_32) & 0xFFFFFFFF
-    return h
-
-
-def object_hash(obj: Any) -> str:
-    """FNV-32a of the canonical (key-sorted) JSON of ``obj``, in hex: the
-    operator's hash, so both sides compute the same drain-plan identity."""
-    payload = json.dumps(obj, sort_keys=True, separators=(",", ":"), default=str)
-    return format(fnv32a(payload.encode("utf-8")), "x")
-
-
-def template_fingerprint(template: dict) -> str:
-    """Whole-pod-template fingerprint, the fingerprint label itself left
-    out (it is derived from the rest of the template)."""
-    doc = copy.deepcopy(template or {})
-    labels = doc.get("metadata", {}).get("labels")
-    if labels:
-        labels.pop(consts.TEMPLATE_HASH_LABEL, None)
-    return object_hash(doc)
-
-
-def pin_device_order(env: MutableMapping[str, str]) -> MutableMapping[str, str]:
-    """Set ``CUDA_DEVICE_ORDER=PCI_BUS_ID`` in ``env`` unless the caller
-    chose an order, and return it. CUDA reads it once, at its first call in
-    a process, so a sweep process gets it before it touches CUDA: then
-    ordinal ``i`` is the ``i``-th GPU in PCI order, the device plugin's unit
-    ``i`` (whose device node is that GPU's minor), and a barrier's failing
-    local GPU ``i`` gates the GPU that failed."""
-    env.setdefault(consts.CUDA_DEVICE_ORDER_ENV, consts.CUDA_DEVICE_ORDER)
-    return env
