@@ -71,11 +71,18 @@ Phases, each of which exits non-zero on failure:
    and then restoring it on the same node, its manifest re-mapped over
    NVML's links. No hand-written kernel
 
-12. the operator's join on the card: an in-process MiniApiServer whose one
+12. the operator's join on the card, installed from the port's chart
+   (``deployments/gpu-operator``, rendered by the port's helmlite with the
+   phase's settings as chart values): an in-process MiniApiServer whose one
    Node is this machine (NVIDIA's feature-discovery PCI label, no GPU
-   capacity yet); ``gpu-operator`` in a subprocess that must map neither
-   torch nor libcuda; the port's sample ClusterPolicy with its host paths
-   in a temp dir and its device globs the card's; a process kubelet
+   capacity yet) given every rendered object (the CRDs, the release
+   Namespace, the RBAC, the Deployment, the ClusterPolicy); ``gpu-operator``
+   started from the rendered Deployment's container (its console script as
+   ``python -m`` of the module ``[project.scripts]`` names, its args, its
+   env with the downward-API namespace resolved to the release's, plus only
+   ``--api-server`` and two free ports) in a subprocess that must map
+   neither torch nor libcuda; the ClusterPolicy's host paths in a temp dir
+   and its device globs the card's; a process kubelet
    (``tpu_operator_torch/testing/kubelet.py``) running what the operator
    renders: the driver installer (from a bundle of the machine's driver
    libraries) until its startup probe passes, the validator's init chain
@@ -184,6 +191,17 @@ Phases, each of which exits non-zero on failure:
    to 5 for time); the serving-traffic mix twice over phase 11's partition
    handoff from the card's NVML (equal dicts, no unhandled error, no request
    lost). No hand-written kernel (K1's count under ``simulator`` is 0).
+18. after phase 17 (:func:`must_gather_phase`): the support bundle. A fresh
+   ``gpu-operator`` from the chart's rendered Deployment (and its Pod, as a
+   ReplicaSet makes it, at this machine's address); ``gpu-must-gather``
+   in a fresh process against the live cluster, the operator's metrics
+   and health ports, phase 12's status directory and the exporters' URLs;
+   its tarball must hold a file in every section, every route of the
+   operator's ``DEBUG_ROUTES``, the card's node at NVML's GPU count of
+   ``nvidia.com/gpu``, phase 12's barrier files and a scrape of the port's
+   exporters. Then ``gpuop-cfg validate-csv`` of the OLM bundle and
+   ``schema_gen --check`` in torch-free processes, each exiting 0. No
+   hand-written kernel (K1's count under ``must_gather`` is 0).
 
 Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Needs a CUDA device and the rest of the repository beside this file.
@@ -1614,6 +1632,72 @@ def _report_line(text: str, key: str):
     return None
 
 
+def chart_values(work: str, status_dir: str) -> dict:
+    """Phase 12's chart values over ``values.yaml``: the host paths in the
+    work dir and the card's device nodes, revalidation off, the health
+    machine off until phase 14 (the flip below measures the barrier's own
+    path, with no health writes mixed in), feature discovery's interval at
+    5 s in place of 60 (the operator's join trace holds the node's spans
+    soon after ready), free exporter ports, and one operator without the
+    election (phase 13 runs two that elect)."""
+    return {
+        "operator": {"leaderElect": False},
+        "hostPaths": {"validationStatusDir": status_dir,
+                      "partitionHandoffDir": os.path.join(work, "handoff"),
+                      "driverInstallDir": os.path.join(work, "driver-install"),
+                      "devGlobs": os.environ["GPU_DEV_GLOBS"].split(",")},
+        "validator": {"revalidateIntervalS": 0},
+        "health": {"enabled": False},
+        "featureDiscovery": {"sleepInterval": "5s"},
+        "telemetry": {"metricsPort": free_port()},
+        "nodeStatusExporter": {"metricsPort": free_port()},
+    }
+
+
+def install_from_chart(repo: str, values: dict, namespace: str) -> list:
+    """``helm install --create-namespace`` of the port's chart, rendered by
+    the port's helmlite: every object, in install order; the ClusterPolicy
+    must pass the CRD's schema."""
+    from tpu_operator_torch.api import schema_gen, schema_validate
+    from tpu_operator_torch.testing import helmlite
+
+    helm = helmlite.HelmLite(os.path.join(repo, "deployments", "gpu-operator"), values=values,
+                             release_namespace=namespace)
+    rendered = helmlite.install_order(helm.render_all(create_namespace=True))
+    cp = next(o for o in rendered if o["kind"] == "ClusterPolicy")
+    errors = schema_validate.validate_cr(cp, schema_gen.clusterpolicy_crd())
+    check(errors == [], f"the chart's ClusterPolicy fails its schema: {errors}")
+    return rendered
+
+
+def console_script(repo: str, name: str) -> list:
+    """``[python, -m, module]`` for a console script of ``[project.scripts]``."""
+    import tomllib
+
+    with open(os.path.join(repo, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    check(name in scripts, f"no console script {name!r} in pyproject.toml")
+    return [sys.executable, "-m", scripts[name].split(":")[0]]
+
+
+def deployment_process(repo: str, deployment: dict) -> tuple:
+    """The rendered Deployment's one container as a process here: its
+    command (a console script) as ``python -m`` of its module, its args,
+    and its env, the downward API's namespace resolved to the release's."""
+    [ctr] = deployment["spec"]["template"]["spec"]["containers"]
+    [script] = ctr["command"]
+    env = {}
+    for item in ctr.get("env") or []:
+        field = ((item.get("valueFrom") or {}).get("fieldRef") or {}).get("fieldPath")
+        if "value" in item:
+            env[item["name"]] = str(item["value"])
+        elif field == "metadata.namespace":
+            env[item["name"]] = deployment["metadata"]["namespace"]
+        else:
+            fail(f"the Deployment's env {item} has no value to give a process")
+    return [*console_script(repo, script), *ctr.get("args", [])], env
+
+
 def operator_phase(card, then=None) -> dict:
     """Phase 12: ``gpu-operator`` reconciles the port's sample ClusterPolicy
     onto this machine as a one-node cluster, and a process kubelet runs the
@@ -1623,6 +1707,7 @@ def operator_phase(card, then=None) -> dict:
     import shutil
 
     from tpu_operator_torch import consts, nvml
+    from tpu_operator_torch.testing import helmlite
     from tpu_operator_torch.testing.apiserver import MiniApiServer
     from tpu_operator_torch.testing.kubelet import INIT, RUN, ProcessKubelet
     from tpu_operator_torch.validator import driver
@@ -1639,38 +1724,31 @@ def operator_phase(card, then=None) -> dict:
     for name in consts.DRIVER_LIB_FILES:
         os.symlink(os.path.realpath(os.path.join(host_dir, name)), os.path.join(bundle, name))
     status_dir = os.path.join(work, "status")
-    cp = json.load(open(os.path.join(repo, "tpu_operator_torch", "manifests", "samples",
-                                     "v1_clusterpolicy.json")))
-    cp["spec"]["hostPaths"] = {
-        "validationStatusDir": status_dir,
-        "partitionHandoffDir": os.path.join(work, "handoff"),
-        "driverInstallDir": os.path.join(work, "driver-install"),
-        "devGlobs": os.environ["GPU_DEV_GLOBS"].split(","),
-    }
-    cp["spec"]["validator"]["revalidateIntervalS"] = 0
-    # the health machine stays off until phase 14: the flip below measures
-    # the barrier's own path, with no health writes mixed in
-    cp["spec"]["health"] = {"enabled": False}
-    # feature discovery mirrors the node's spans on its interval: 5 s in
-    # place of 60, so the operator's join trace holds them soon after ready
-    cp["spec"]["featureDiscovery"]["sleepInterval"] = "5s"
-    cp["spec"]["telemetry"]["metricsPort"] = free_port()
-    cp["spec"]["nodeStatusExporter"]["metricsPort"] = free_port()
+    rendered = install_from_chart(repo, chart_values(work, status_dir), consts.DEFAULT_NAMESPACE)
+    cp = next(o for o in rendered if o["kind"] == "ClusterPolicy")
+    deployment = next(o for o in rendered if o["kind"] == "Deployment")
+    argv, deployment_env = deployment_process(repo, deployment)
+    print(json.dumps({"chart_install": {
+        "objects": [f"{o['kind']}/{o['metadata']['name']}" for o in rendered],
+        "operator_argv": argv[1:], "operator_env": deployment_env}}))
 
     srv = MiniApiServer()
     base = srv.start()
     srv.backend.create({"apiVersion": "v1", "kind": "Node", "metadata": {
         "name": node_name, "labels": {consts.NFD_NVIDIA_PCI_LABEL: "true",
                                       "kubernetes.io/hostname": node_name}}})
+    # helm install: every rendered object but the custom resource now, the
+    # ClusterPolicy at the join's start below
+    helmlite.apply(srv.backend, rendered, skip_kinds=("ClusterPolicy",))
     metrics_port, health_port = free_port(), free_port()
     operator_log = os.path.join(work, "operator.log")
+    operator_env = dict({k: v for k, v in os.environ.items() if not k.startswith("GPU_")},
+                        **deployment_env)
     operator = subprocess.Popen(
-        [sys.executable, "-m", "tpu_operator_torch.cmd.operator", f"--api-server={base}",
-         f"--namespace={consts.DEFAULT_NAMESPACE}", f"--metrics-port={metrics_port}",
+        [*argv, f"--api-server={base}", f"--metrics-port={metrics_port}",
          f"--health-port={health_port}"],
         cwd=repo, stdout=open(operator_log, "w"), stderr=subprocess.STDOUT,
-        start_new_session=True,
-        env={k: v for k, v in os.environ.items() if not k.startswith("GPU_")})
+        start_new_session=True, env=operator_env)
     # the join's apiserver load: the operator's (through its informer cache)
     # and the node agents'; the kubelet reads the backend in process
     srv.requests.clear()
@@ -1831,11 +1909,14 @@ def operator_phase(card, then=None) -> dict:
                                "tpu_operator_reconciliation_total")}
         print(json.dumps({"operator_flip": numbers["flip"], "card": card}))
         if then is not None:
+            spec = cp["spec"]
             then(types.SimpleNamespace(
                 srv=srv, base=base, kubelet=kubelet, namespace=consts.DEFAULT_NAMESPACE,
                 node_name=node_name, repo=repo, work=work, card=card, operator=operator,
-                operator_env={k: v for k, v in os.environ.items() if not k.startswith("GPU_")},
-                driver_env={consts.DRIVER_SRC_ENV: bundle}))
+                operator_env=operator_env, driver_env={consts.DRIVER_SRC_ENV: bundle},
+                deployment=deployment, gpu_count=gpu_count, status_dir=status_dir,
+                exporter_urls=[f"http://127.0.0.1:{spec[key]['metricsPort']}/metrics"
+                               for key in ("nodeStatusExporter", "telemetry")]))
     except SystemExit:
         print(f"-- operator log:\n{open(operator_log).read()[-6000:]}", file=sys.stderr)
         for ds in ("gpu-driver", "gpu-operator-validator", "gpu-device-plugin"):
@@ -3487,23 +3568,26 @@ def autoscale_phase(ctx) -> dict:
 SIM_FUZZ_BUDGET = 5
 #: the traffic mix's sampling interval over phase 11's handoff
 SIM_TRAFFIC_SAMPLE_S = 5.0
-#: a simulator process that reports, as it exits, whether it maps torch or
-#: libcuda (standard error: its standard output is the report)
-_SIM_SCRIPT = ("import runpy, sys\n"
-               "sys.argv = ['gpu-sim', *sys.argv[1:]]\n"
-               "try:\n"
-               "    runpy.run_module('tpu_operator_torch.cmd.sim', run_name='__main__',\n"
-               "                     alter_sys=True)\n"
-               "finally:\n"
-               "    maps = open('/proc/self/maps').read()\n"
-               "    print('MAPS', 'libtorch' in maps, 'libcuda' in maps, 'torch' in sys.modules,\n"
-               "          file=sys.stderr)\n")
+#: runs a module as ``python -m`` would, then reports on standard error
+#: whether the process mapped torch or the CUDA driver (argv: the module,
+#: then its arguments; standard output stays the module's)
+_MODULE_SCRIPT = ("import runpy, sys\n"
+                  "module = sys.argv[1]\n"
+                  "sys.argv = [module, *sys.argv[2:]]\n"
+                  "try:\n"
+                  "    runpy.run_module(module, run_name='__main__', alter_sys=True)\n"
+                  "finally:\n"
+                  "    maps = open('/proc/self/maps').read()\n"
+                  "    print('MAPS', 'libtorch' in maps, 'libcuda' in maps,\n"
+                  "          'torch' in sys.modules, file=sys.stderr)\n")
 
 
-def _gpu_sim(ctx, *argv, timeout: float = 600) -> dict:
-    """``python -m tpu_operator_torch.cmd.sim`` in a fresh process."""
+def _module_process(ctx, argv: list, timeout: float = 600) -> dict:
+    """``argv`` (``[python, -m, module, ...]``, as :func:`console_script`
+    gives it) in a fresh process: its exit code, output, maps line, wall s."""
     t = time.monotonic()
-    out = subprocess.run([sys.executable, "-c", _SIM_SCRIPT, *argv], cwd=ctx.repo,
+    check(argv[1:2] == ["-m"], f"not a module's command line: {argv}")
+    out = subprocess.run([argv[0], "-c", _MODULE_SCRIPT, *argv[2:]], cwd=ctx.repo,
                          env=ctx.operator_env, capture_output=True, text=True, timeout=timeout)
     maps = [line for line in out.stderr.splitlines() if line.startswith("MAPS ")]
     return {"rc": out.returncode, "out": out.stdout, "err": out.stderr,
@@ -3569,7 +3653,8 @@ def simulator_phase(ctx, curve=None, handoff=None, budget: int = SIM_FUZZ_BUDGET
     runs = {}
     for path in cases:
         name = os.path.splitext(os.path.basename(path))[0]
-        out = _gpu_sim(ctx, "run", path, "--double-run", "--json")
+        out = _module_process(ctx, [*console_script(ctx.repo, "gpu-sim"), "run", path,
+                                    "--double-run", "--json"])
         check(out["rc"] == 0, f"gpu-sim run {name} exited {out['rc']}: "
                               f"{out['out'][-2000:]}{out['err'][-3000:]}")
         check(out["maps_line"] == "MAPS False False False",
@@ -3603,8 +3688,9 @@ def simulator_phase(ctx, curve=None, handoff=None, budget: int = SIM_FUZZ_BUDGET
 
     # -- 4. the fuzz sweep ---------------------------------------------------------------
     bundles = os.path.join(ctx.work, "sim-bundles")
-    out = _gpu_sim(ctx, "fuzz", "--seed", str(DEFAULT_SCENARIO_SEED), "--budget", str(budget),
-                   "--double-run", "--out", bundles)
+    out = _module_process(ctx, [*console_script(ctx.repo, "gpu-sim"), "fuzz", "--seed",
+                                str(DEFAULT_SCENARIO_SEED), "--budget", str(budget),
+                                "--double-run", "--out", bundles])
     check(out["rc"] == 0, f"gpu-sim fuzz exited {out['rc']}: {out['out'][-3000:]}"
                           f"{out['err'][-3000:]}")
     check(out["maps_line"] == "MAPS False False False", f"gpu-sim fuzz: {out['maps_line']!r}")
@@ -3640,6 +3726,159 @@ def simulator_phase(ctx, curve=None, handoff=None, budget: int = SIM_FUZZ_BUDGET
     numbers["phase_s"] = round(time.monotonic() - started, 3)
     print(json.dumps({"simulator_phase": {"phase_s": numbers["phase_s"]}, "card": ctx.card}))
     return numbers
+
+def must_gather_phase(ctx) -> dict:
+    """Phase 18, after phase 17 on the same cluster: the support bundle.
+
+    1. A fresh ``gpu-operator`` from the chart's rendered Deployment
+       (:func:`deployment_process`, plus ``--api-server`` and two free
+       ports), ready on its ``/readyz``, and its Pod as the Deployment's
+       ReplicaSet would make it, at this machine's address.
+    2. ``gpu-must-gather`` (its console script) in a fresh process that maps
+       neither torch nor libcuda, against the apiserver, the operator's
+       metrics and health ports, phase 12's status directory and the two
+       exporters' ``/metrics``. Its tarball must hold a file in every
+       section of ``SECTIONS``, every route of the operator's
+       ``DEBUG_ROUTES`` (not an error file), the card's node in the node
+       summary with NVML's GPU count as its ``nvidia.com/gpu`` capacity,
+       phase 12's barrier files, a scrape of each exporter and no error.
+    3. ``gpuop-cfg validate-csv`` of ``bundle-gpu/`` and ``schema_gen
+       --check``, each in a fresh process that maps neither torch nor
+       libcuda, each exiting 0.
+
+    ``ctx``: as :func:`upgrade_phase` has it, and ``deployment`` (the
+    rendered Deployment), ``gpu_count`` (NVML's), ``status_dir`` (phase
+    12's) and ``exporter_urls``."""
+    import tarfile
+
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.cmd.must_gather import SECTIONS, debug_endpoint_files
+
+    started = time.monotonic()
+    numbers = {"card": ctx.card}
+    backend, ns = ctx.srv.backend, ctx.namespace
+    out_dir = os.path.join(ctx.work, "must-gather")
+    argv, env = deployment_process(ctx.repo, ctx.deployment)
+    metrics_port, health_port = free_port(), free_port()
+    log_path = os.path.join(ctx.work, "operator-must-gather.log")
+    operator = subprocess.Popen(
+        [*argv, f"--api-server={ctx.base}", f"--metrics-port={metrics_port}",
+         f"--health-port={health_port}"],
+        cwd=ctx.repo, stdout=open(log_path, "w"), stderr=subprocess.STDOUT,
+        start_new_session=True, env=dict(ctx.operator_env, **env))
+    template = ctx.deployment["spec"]["template"]
+    pod_name = f"{ctx.deployment['metadata']['name']}-{uuid.uuid4().hex[:5]}"
+    try:
+        def ready():
+            with contextlib.suppress(OSError, ValueError):
+                with urllib.request.urlopen(f"http://127.0.0.1:{health_port}/readyz",
+                                            timeout=2) as r:
+                    return r.status == 200
+            return False
+
+        _wait_for(ready, 60, "the chart's operator ready on /readyz")
+        numbers["operator_ready_s"] = round(time.monotonic() - started, 3)
+        backend.create({"apiVersion": "v1", "kind": "Pod",
+                        "metadata": {"name": pod_name, "namespace": ns,
+                                     "labels": dict(template["metadata"]["labels"])},
+                        "spec": copy.deepcopy(template["spec"]),
+                        "status": {"phase": "Running", "podIP": "127.0.0.1"}})
+        t = time.monotonic()
+        gather = _module_process(ctx, [
+            *console_script(ctx.repo, "gpu-must-gather"), f"--base-url={ctx.base}",
+            f"--namespace={ns}", f"--out={out_dir}", f"--status-dir={ctx.status_dir}",
+            *(f"--telemetry-url={url}" for url in ctx.exporter_urls),
+            f"--operator-metrics-port={metrics_port}", f"--operator-health-port={health_port}"])
+        numbers["must_gather_s"] = round(time.monotonic() - t, 3)
+        check(gather["rc"] == 0, f"gpu-must-gather exited {gather['rc']}: "
+                                 f"{gather['out'][-2000:]}{gather['err'][-2000:]}")
+        check(gather["maps_line"] == "MAPS False False False",
+              f"gpu-must-gather maps torch or libcuda: {gather['maps_line']}")
+        check(operator.poll() is None, "the chart's operator died during the gather")
+    finally:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(operator.pid, signal.SIGKILL)
+        operator.wait(timeout=60)
+        with contextlib.suppress(Exception):
+            backend.delete("v1", "Pod", pod_name, ns)
+
+    # -- the tarball ---------------------------------------------------------------------
+    tar_path = out_dir + ".tar.gz"
+    base = os.path.basename(out_dir)
+    with tarfile.open(tar_path) as tar:
+        members = {m.name: m for m in tar.getmembers() if m.isfile()}
+
+        def read(rel):
+            return tar.extractfile(members[f"{base}/{rel}"]).read().decode()
+
+        manifest = json.loads(read("manifest.json"))
+        per_section = {sec: sorted(n[len(base) + len(sec) + 2:] for n in members
+                                   if n.startswith(f"{base}/{sec}/")) for sec in SECTIONS}
+        numbers["files"] = {sec: len(names) for sec, names in per_section.items()}
+        numbers["errors"] = manifest["errors"]
+        numbers["tarball_bytes"] = os.path.getsize(tar_path)
+        for sec, names in per_section.items():
+            check(names, f"the bundle's {sec}/ section is empty")
+        check(manifest["errors"] == [], f"the bundle recorded errors: {manifest['errors']}")
+        routes = {route: f"{pod_name}/{fname}" for route, fname in debug_endpoint_files()}
+        missing = [route for route, rel in routes.items() if rel not in per_section["operator"]]
+        check(not missing, f"debug routes not collected: {missing} "
+                           f"(operator/: {per_section['operator']})")
+        check(f"{pod_name}/metrics.prom" in per_section["operator"],
+              "the operator's /metrics not collected")
+        for rel in routes.values():
+            if rel.endswith(".json"):
+                json.loads(read(f"operator/{rel}"))  # stays machine-readable
+        summary = read("cluster/node-summary.txt").splitlines()
+        header = summary[0].split()
+        rows = {r.split()[0]: dict(zip(header, r.split())) for r in summary[1:] if r.strip()}
+        check(ctx.node_name in rows, f"the card's node is not in the summary: {summary}")
+        capacity = rows[ctx.node_name]["CAPACITY"]
+        check(capacity == str(ctx.gpu_count),
+              f"the summary's {consts.GPU_RESOURCE_NAME} capacity {capacity}, NVML's "
+              f"GPU count {ctx.gpu_count}")
+        barriers = sorted(n.split("/", 1)[1] for n in per_section["validation"]
+                          if n.startswith("barriers/"))
+        for name in ("driver-ready", "plugin-ready", "workload-ready"):
+            check(name in barriers, f"phase 12's barrier {name} not in the bundle: {barriers}")
+            with open(os.path.join(ctx.status_dir, name)) as f:
+                check(read(f"validation/barriers/{name}") == f.read(),
+                      f"the bundle's {name} differs from the status dir's")
+        scrapes = [n for n in per_section["telemetry"] if n.endswith(".prom")]
+        check(len(scrapes) == len(ctx.exporter_urls),
+              f"exporter scrapes {per_section['telemetry']}")
+        for rel in scrapes:
+            text = read(f"telemetry/{rel}")
+            check("\n# TYPE " in text or text.count("\n") > 3,
+                  f"telemetry/{rel} holds no metrics: {text[:300]}")
+        info = read("cluster/clusterinfo.txt")
+        check(info.startswith("kubernetes: ") and "runtime: " in info, f"clusterinfo {info}")
+    numbers["node_summary"] = rows[ctx.node_name]
+    numbers["barriers"] = barriers
+    numbers["debug_routes"] = sorted(routes)
+    numbers["clusterinfo"] = info.strip()
+    print(json.dumps({"must_gather": numbers}))
+
+    # -- the OLM bundle and the CRD copies, torch-free ----------------------------------------
+    csv = os.path.join(ctx.repo, "bundle-gpu", "manifests",
+                       "gpu-operator.clusterserviceversion.yaml")
+    checks = {"validate_csv": [*console_script(ctx.repo, "gpuop-cfg"), "validate-csv", csv],
+              "schema_gen_check": [sys.executable, "-m", "tpu_operator_torch.api.schema_gen",
+                                   "--check"]}
+    numbers["torch_free"] = {}
+    for name, cmd in checks.items():
+        result = _module_process(ctx, cmd)
+        numbers["torch_free"][name] = {"rc": result["rc"], "maps": result["maps_line"],
+                                       "wall_s": result["wall_s"]}
+        check(result["rc"] == 0, f"{name} exited {result['rc']}: "
+                                 f"{result['out'][-2000:]}{result['err'][-2000:]}")
+        check(result["maps_line"] == "MAPS False False False",
+              f"{name} maps torch or libcuda: {result['maps_line']}")
+    numbers["phase_s"] = round(time.monotonic() - started, 3)
+    print(json.dumps({"must_gather_phase": {"torch_free": numbers["torch_free"],
+                                            "phase_s": numbers["phase_s"]}, "card": ctx.card}))
+    return numbers
+
 
 def _try_scrape(port: int):
     try:
@@ -3860,7 +4099,7 @@ def main() -> int:
     k1.launches = 0
     counts = {}
 
-    def phases_13_to_17(ctx):
+    def phases_13_to_18(ctx):
         counts["operator"] = k1.launches
         phase("GPUDriver hand-over and back, the CRD schema, leader election and the fence")
         k1.launches = 0
@@ -3883,17 +4122,23 @@ def main() -> int:
         simulator_phase(ctx, card_curve(ctx, autoscale["frontier"]["points"]),
                         last["handoff"])
         counts["simulator"] = k1.launches
+        phase("the support bundle: gpu-must-gather on the chart's operator, the OLM bundle")
+        k1.launches = 0
+        must_gather_phase(ctx)
+        counts["must_gather"] = k1.launches
 
-    operator_phase(card, then=phases_13_to_17)
+    operator_phase(card, then=phases_13_to_18)
     operator_launches, gpudriver_launches = counts["operator"], counts["gpudriver"]
     health_launches, upgrade_launches = counts["health"], counts["upgrade"]
     autoscale_launches, simulator_launches = counts["autoscale"], counts["simulator"]
+    must_gather_launches = counts["must_gather"]
     check(operator_launches == 0, f"the operator path launched K1 {operator_launches} times")
     check(gpudriver_launches == 0, f"phase 13 launched K1 {gpudriver_launches} times")
     check(health_launches == 0, f"phase 14 launched K1 {health_launches} times")
     check(upgrade_launches == 0, f"phase 15 launched K1 {upgrade_launches} times")
     check(autoscale_launches == 0, f"phase 16 launched K1 {autoscale_launches} times")
     check(simulator_launches == 0, f"phase 17 launched K1 {simulator_launches} times")
+    check(must_gather_launches == 0, f"phase 18 launched K1 {must_gather_launches} times")
 
     print(json.dumps({"smoke_s": round(time.monotonic() - _T0, 1), "card": card}))
     print(json.dumps({"kernels": [{
@@ -3911,8 +4156,9 @@ def main() -> int:
         # the paths without K1 launch it no time: serving (7), the steady
         # state (9), the device plumbing (10), the last components (11), the
         # operator (12), the GPUDriver and leader phase (13), the health
-        # loop (14), the rolling upgrade (15), the capacity loop (16) and the
-        # fleet simulator (17) are checked at 0 above
+        # loop (14), the rolling upgrade (15), the capacity loop (16), the
+        # fleet simulator (17) and the support bundle (18) are checked at 0
+        # above
         "launches_by_phase": {"perf": k1_main_launches, "serving": serving_launches,
                               "steady_state": steady_state_launches,
                               "device_plumbing": plumbing_launches,
@@ -3922,7 +4168,8 @@ def main() -> int:
                               "health": health_launches,
                               "upgrade": upgrade_launches,
                               "autoscale": autoscale_launches,
-                              "simulator": simulator_launches},
+                              "simulator": simulator_launches,
+                              "must_gather": must_gather_launches},
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -12,6 +12,7 @@ same verdicts.
 import copy
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -499,3 +500,147 @@ def test_explain_reads_the_mirror_configmaps(capsys):
         srv.stop()
     assert run(["explain", "node", "node-a", "--base-url", "http://127.0.0.1:1"]) == 2
     assert "cannot reach the cluster" in capsys.readouterr().err
+
+
+# -- validate-csv: the OLM bundle (bundle-gpu/manifests/) ------------------------------
+#
+# The twins of tests/test_cfgtool.py's six validate-csv cases: each edit goes
+# to both packages' CSVs (the port's in bundle-gpu/, its images its own), and
+# the two commands must give the same exit code and the same verdict lines
+# once the package's names read ``<pkg>`` and the kinds the mapping's. The
+# port's CSV has one more: its ``replaces`` edge (the reference's first
+# release has none), :data:`PORT_EDGE`.
+
+#: the verdict on the port's shipped upgrade-graph edge
+PORT_EDGE = "<file>: replaces <pkg>.v0.1.0-rc.1: OK"
+
+REF_BUNDLE = os.path.join(REPO, "bundle", "manifests")
+PORT_BUNDLE = os.path.join(REPO, "bundle-gpu", "manifests")
+CSV_FILES = {False: os.path.join(REF_BUNDLE, "tpu-operator.clusterserviceversion.yaml"),
+             True: os.path.join(PORT_BUNDLE, "gpu-operator.clusterserviceversion.yaml")}
+
+
+def _csv_bundle(tmp_path, port, edit=None):
+    """A package's CSV (edited by ``edit(csv)``) and its CRDs, in its own
+    dir under ``tmp_path``; the CSV's path."""
+    import shutil
+
+    with open(CSV_FILES[port]) as f:
+        csv = yamlsubset.parse(f.read()) if port else yaml.safe_load(f)
+    if edit is not None:
+        edit(csv)
+    out = tmp_path / ("port" if port else "ref")
+    out.mkdir(parents=True, exist_ok=True)
+    bundle_dir = PORT_BUNDLE if port else REF_BUNDLE
+    for fname in os.listdir(bundle_dir):
+        if fname.startswith("tpu.ai_"):
+            shutil.copy(os.path.join(bundle_dir, fname), out / fname)
+    path = out / "csv.yaml"
+    path.write_text(yamlsubset.dump(csv) + "\n" if port else yaml.safe_dump(csv))
+    return str(path)
+
+
+def _verdicts(out, path):
+    """The verdict lines, the file's path and the package's names neutral."""
+    lines = []
+    for line in out.splitlines():
+        line = line.replace(path, "<file>")
+        line = re.sub(r"\S*/(?:gpu|tpu)-(operator|validator):0\.1\.0(?:@sha256:[0-9a-f]{64})?",
+                      r"<\1-image>", line)
+        line = re.sub(r"\b(gpu|tpu)-operator\b", "<pkg>", line)
+        lines.append(map_status_text(line).replace("tpudrivers", "gpudrivers"))
+    return lines
+
+
+def _csv_on_both(tmp_path, capsys, ref_edit=None, port_edit=None, paths=None):
+    ref_path = paths[0] if paths else _csv_bundle(tmp_path, False, ref_edit)
+    port_path = paths[1] if paths else _csv_bundle(tmp_path, True, port_edit or ref_edit)
+    want = ref_run(["validate-csv", ref_path])
+    want_out = _verdicts(capsys.readouterr().out, ref_path)
+    got = run(["validate-csv", port_path])
+    got_out = _verdicts(capsys.readouterr().out, port_path)
+    assert got == want
+    assert [line for line in got_out if line != PORT_EDGE] == want_out
+    return got, got_out
+
+
+def test_validate_csv_alm_examples(capsys):
+    rc, lines = _csv_on_both(None, capsys, paths=(CSV_FILES[False], CSV_FILES[True]))
+    assert rc == 0 and lines[-1] == PORT_EDGE
+    assert "<file>: alm-example ClusterPolicy/cluster-policy: OK" in lines
+    assert "<file>: alm-example GPUDriver/default: OK" in lines
+
+
+def test_validate_csv_rejects_bad_inputs(tmp_path, capsys):
+    empty = tmp_path / "empty.yaml"
+    empty.write_text("")
+    _csv_on_both(tmp_path, capsys, paths=(str(empty), str(empty)))
+    no_examples = tmp_path / "no-examples.yaml"
+    no_examples.write_text("metadata:\n  annotations: {}\n")
+    rc, lines = _csv_on_both(tmp_path, capsys, paths=(str(no_examples), str(no_examples)))
+    assert rc == 1 and lines == ["<file>: missing alm-examples annotation"]
+
+
+def test_validate_csv_shipped_bundle_images_pass(capsys):
+    rc, lines = _csv_on_both(None, capsys, paths=(CSV_FILES[False], CSV_FILES[True]))
+    assert rc == 0
+    assert "<file>: relatedImages: 2 digest-pinned image(s), all cross-referenced" in lines
+
+
+def _operator_container(csv):
+    return csv["spec"]["install"]["spec"]["deployments"][0]["spec"]["template"]["spec"][
+        "containers"][0]
+
+
+def test_validate_csv_fails_on_tag_only_image(tmp_path, capsys):
+    """A moving tag re-resolves per node: a digest dropped fails."""
+    def edit(csv):
+        ctr = _operator_container(csv)
+        ctr["image"] = ctr["image"].split("@")[0]
+
+    rc, lines = _csv_on_both(tmp_path, capsys, edit)
+    assert rc == 1 and any("not digest-pinned" in line for line in lines)
+
+
+def test_validate_csv_fails_on_missing_related_images(tmp_path, capsys):
+    def edit(csv):
+        del csv["spec"]["relatedImages"]
+
+    rc, lines = _csv_on_both(tmp_path, capsys, edit)
+    assert rc == 1 and "<file>: spec.relatedImages missing or empty" in lines
+
+
+def test_validate_csv_fails_on_uncrossreferenced_images(tmp_path, capsys):
+    """Both directions: an env image missing from relatedImages, and an
+    entry nothing references."""
+    def other_driver(csv):
+        for env in _operator_container(csv)["env"]:
+            if env["name"] == "DRIVER_IMAGE":
+                env["value"] = "registry.example/other:1.0@sha256:" + "ab" * 32
+
+    rc, lines = _csv_on_both(tmp_path / "env", capsys, other_driver)
+    assert rc == 1 and any("not listed in relatedImages" in line for line in lines)
+
+    def orphan(csv):
+        csv["spec"]["relatedImages"].append(
+            {"name": "orphan", "image": "registry.example/orphan:1.0@sha256:" + "cd" * 32})
+
+    rc, lines = _csv_on_both(tmp_path / "orphan", capsys, orphan)
+    assert rc == 1 and any("not referenced by any" in line for line in lines)
+
+
+def test_validate_csv_imports_no_torch(tmp_path):
+    """``gpuop-cfg validate-csv`` in a fresh process imports no torch (nor
+    the reference, nor yaml)."""
+    script = (
+        "import sys\n"
+        "from tpu_operator_torch.cmd.cfg import main\n"
+        f"rc = main(['validate-csv', {CSV_FILES[True]!r}])\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'tpu_operator', 'yaml', 'prometheus_client'))\n"
+        "print(rc, bad)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    result = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                            capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stderr[-2000:]
+    assert result.stdout.strip().splitlines()[-1] == "0 []"

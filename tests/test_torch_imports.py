@@ -96,7 +96,8 @@ def test_port_module_list_is_complete():
                      "utils.hash", "utils.clock", "utils.seeds", "serving.traffic",
                      "simulator", "simulator.clock", "simulator.seeds", "simulator.scenario",
                      "simulator.engine", "simulator.fuzz", "simulator.minimize",
-                     "simulator.artifacts", "cmd.sim"):
+                     "simulator.artifacts", "cmd.sim", "clusterinfo", "testing.helmlite",
+                     "testing.cluster", "cmd.must_gather"):
         assert f"tpu_operator_torch.{expected}" in names
 
 
@@ -215,7 +216,9 @@ DAEMON_MODULES = ("tpu_operator_torch.cmd.operator", "tpu_operator_torch.control
                   "tpu_operator_torch.testing.trainjob", "tpu_operator_torch.utils",
                   "tpu_operator_torch.serving.traffic", "tpu_operator_torch.simulator",
                   "tpu_operator_torch.simulator.fuzz", "tpu_operator_torch.simulator.minimize",
-                  "tpu_operator_torch.simulator.artifacts", "tpu_operator_torch.cmd.sim")
+                  "tpu_operator_torch.simulator.artifacts", "tpu_operator_torch.cmd.sim",
+                  "tpu_operator_torch.clusterinfo", "tpu_operator_torch.testing.helmlite",
+                  "tpu_operator_torch.testing.cluster", "tpu_operator_torch.cmd.must_gather")
 
 
 def test_the_node_daemons_import_no_torch(tmp_path):

@@ -726,6 +726,80 @@ def map_sim_injection(record: dict) -> dict:
             "zones": record.get("zones", [])}
 
 
+# -- the install channels and the support bundle ------------------------------------
+#
+# The chart is deployments/gpu-operator (NVIDIA's own path), the static
+# install deploy/gpu-operator.yaml, the OLM bundle bundle-gpu/manifests/: the
+# reference's objects with the port's names (``tpu-operator`` objects are
+# ``gpu-operator``, the per-pool driver kind and its resource ``GPUDriver``,
+# ``gpudrivers``; the chart key ``tpuDriver`` is ``gpuDriver``). The release
+# namespace stays ``tpu-operator``. Every file stays in the YAML subset
+# (no flow mappings, no block scalars: the CSV's alm-examples is one
+# double-quoted JSON line). Differences:
+# - the ClusterRole grants what the port's operator requests
+#   (tests/test_torch_chart.py drives it): the reference's rules lack
+#   :data:`RBAC_NOT_IN_REFERENCE`, which its own operator needs too (its
+#   autoscaler creates and deletes nodes, tpu_operator/autoscale/
+#   controller.py:482, :543; its informer cache lists and watches the
+#   namespace PSA labels);
+# - the Deployment's args carry ``--log-level`` beside ``--leader-elect``
+#   (so they never render empty), and its labels are
+#   ``app.kubernetes.io/{name,version}`` with no ``managed-by: Helm``, so
+#   that the static install is the chart's render byte for byte;
+# - the chart renders no Namespace (helm install --create-namespace makes
+#   it; helmlite's ``render_all(create_namespace=True)`` adds it);
+# - ``gpu-must-gather`` lists nodes by ``nodeinfo.is_gpu_node`` (the
+#   reference: its presence label), its summary columns are the GPU labels
+#   (presence, model, count) where the reference's are the TPU's (presence,
+#   chip type, topology), it reads ``nvidia.com/gpu`` capacity, adds
+#   ``cluster/clusterinfo.txt``, collects the port's ``DEBUG_ROUTES`` (no
+#   ``/debug/opsan``: :data:`DEBUG_ROUTES_LEFT_OUT`) and writes YAML with
+#   ``yamlsubset.dump`` (JSON where a string is outside the subset).
+
+#: (apiGroup, resource, verb) the port's operator needs that the reference's
+#: ClusterRole does not grant: the autoscaler registers and removes nodes,
+#: and the informer cache reads the namespace ``spec.psa`` labels
+RBAC_NOT_IN_REFERENCE = {("", "nodes", "create"), ("", "nodes", "delete"),
+                         ("", "namespaces", "list"), ("", "namespaces", "watch")}
+
+#: the chart's renames, before :data:`STRING_RULES`
+CHART_RULES = [
+    (r"^tpudrivers(?=$|[/.])", "gpudrivers"),
+    (r"^tpuDriver$", "gpuDriver"),
+]
+
+
+def map_chart_object(obj):
+    """A reference chart's rendered object (or any part of one) with the
+    port's names."""
+    def walk(value):
+        if isinstance(value, dict):
+            return {walk(k): walk(v) for k, v in value.items()}
+        if isinstance(value, list):
+            return [walk(v) for v in value]
+        if isinstance(value, str):
+            for pattern, repl in CHART_RULES:
+                value = re.sub(pattern, repl, value)
+            return _map_string(value)
+        return value
+
+    return walk(copy.deepcopy(obj))
+
+
+def map_chart_values(values: dict) -> dict:
+    """Reference chart values as the port's chart takes them: the
+    ``tpuDriver`` key renamed, its node selector over the GPU labels."""
+    out = {}
+    for key, value in values.items():
+        if key == "tpuDriver":
+            value = dict(value)
+            if "nodeSelector" in value:
+                value["nodeSelector"] = map_labels(value["nodeSelector"])
+            key = "gpuDriver"
+        out[key] = copy.deepcopy(value)
+    return out
+
+
 # -- the mapping's own tests ----------------------------------------------------
 
 def _renders(spec):

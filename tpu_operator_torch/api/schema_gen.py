@@ -15,10 +15,20 @@ The schemas are structural: unknown fields are refused, except where a field
 is free-form (``Dict[str, Any]`` maps to
 ``x-kubernetes-preserve-unknown-fields: true``).
 
-    python -m tpu_operator_torch.api.schema_gen --write   # rewrite api/crds/
-    python -m tpu_operator_torch.api.schema_gen --check   # exit 1 if stale
+    python -m tpu_operator_torch.api.schema_gen --write   # rewrite every copy
+    python -m tpu_operator_torch.api.schema_gen --check   # exit 1 if one is stale
 
-The files are written by :func:`~tpu_operator_torch.yamlsubset.dump`.
+The generated CRDs land in four places (:func:`outputs`), as hack/gen-crds.py
+ships the reference's:
+
+  1. tpu_operator_torch/api/crds/   canonical, loaded by the operator
+  2. deployments/gpu-operator/crds/ the chart's (Helm installs them)
+  3. bundle-gpu/manifests/          the OLM bundle's, beside the CSV
+  4. deploy/gpu-operator.yaml       the static install, between the
+                                    GENERATED markers
+
+``--repo`` names the checkout holding them (default: the one this module is
+in). The files are written by :func:`~tpu_operator_torch.yamlsubset.dump`.
 """
 
 from __future__ import annotations
@@ -241,9 +251,15 @@ def generate_crds() -> Dict[str, Dict[str, Any]]:
 
 #: where the CRD files live, beside this module (package data)
 CRD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "crds")
+#: the checkout this module is in
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 HEADER = ("# Generated by python -m tpu_operator_torch.api.schema_gen --write "
           "from the spec dataclasses. DO NOT EDIT.\n")
+
+#: the static install's generated section lies between these two lines
+BEGIN = "# --- BEGIN GENERATED CRDS (python -m tpu_operator_torch.api.schema_gen --write) ---\n"
+END = "# --- END GENERATED CRDS ---\n"
 
 
 def crd_yaml(crd: Dict[str, Any]) -> str:
@@ -252,31 +268,69 @@ def crd_yaml(crd: Dict[str, Any]) -> str:
     return HEADER + dump(crd) + "\n"
 
 
+def splice_static_install(text: str, block: str) -> str:
+    """``text`` with its generated CRD section replaced by ``block`` (or,
+    without markers, inserted after the leading comment lines)."""
+    if BEGIN in text and END in text:
+        head, _, rest = text.partition(BEGIN)
+        _, _, tail = rest.partition(END)
+        return head + BEGIN + block + END + tail
+    lines = text.splitlines(keepends=True)
+    i = 0
+    while i < len(lines) and (lines[i].startswith("#") or not lines[i].strip()):
+        i += 1
+    return "".join(lines[:i]) + BEGIN + block + END + "---\n" + "".join(lines[i:])
+
+
+def outputs(repo: str = REPO) -> Dict[str, str]:
+    """path -> the text each copy of the CRDs must hold, in ``repo`` (the
+    canonical copy is :data:`CRD_DIR` in this checkout)."""
+    crds = generate_crds()
+    canonical = CRD_DIR if repo == REPO else os.path.join(repo, "tpu_operator_torch", "api",
+                                                           "crds")
+    out = {}
+    for fname, crd in crds.items():
+        text = crd_yaml(crd)
+        for directory in (canonical, os.path.join(repo, "deployments", "gpu-operator", "crds"),
+                          os.path.join(repo, "bundle-gpu", "manifests")):
+            out[os.path.join(directory, fname)] = text
+    static = os.path.join(repo, "deploy", "gpu-operator.yaml")
+    try:
+        with open(static) as f:
+            current = f.read()
+    except FileNotFoundError:
+        current = ""
+    block = "---\n".join(crd_yaml(crd) for crd in crds.values())
+    out[static] = splice_static_install(current, block)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m tpu_operator_torch.api.schema_gen")
     mode = ap.add_mutually_exclusive_group(required=True)
     mode.add_argument("--write", action="store_true",
-                      help=f"write the CRD files into {CRD_DIR}")
+                      help="write every copy of the CRDs (api/crds/, the chart's, the "
+                           "bundle's and the static install's)")
     mode.add_argument("--check", action="store_true",
-                      help="exit 1 if a CRD file differs from what the "
-                           "dataclasses generate")
+                      help="exit 1 if a copy differs from what the dataclasses generate")
+    ap.add_argument("--repo", default=REPO,
+                    help="the checkout holding the copies (default: %(default)s)")
     args = ap.parse_args(argv)
     stale = []
-    for fname, crd in generate_crds().items():
-        path = os.path.join(CRD_DIR, fname)
-        text = crd_yaml(crd)
-        if args.write:
-            os.makedirs(CRD_DIR, exist_ok=True)
-            with open(path, "w") as f:
-                f.write(text)
-            print(f"wrote {path}")
-            continue
+    for path, text in outputs(args.repo).items():
         try:
             with open(path) as f:
                 current = f.read()
         except FileNotFoundError:
             current = None
-        if current != text:
+        if current == text:
+            continue
+        if args.write:  # only what changed: a reader never sees a half-written copy
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "w") as f:
+                f.write(text)
+            print(f"wrote {path}")
+        else:
             stale.append(path)
     for path in stale:
         print(f"STALE: {path} (run python -m tpu_operator_torch.api.schema_gen "

@@ -5,6 +5,9 @@ samples in CI).
 Subcommands:
   validate <file.yaml>...   schema- and spec-validate ClusterPolicy and
                             GPUDriver documents
+  validate-csv <csv.yaml>   validate an OLM CSV: its alm-examples, the owned
+                            CRDs beside it, image digests and relatedImages,
+                            the replaces edge
   validate-partitions <table.yaml> [--link CLASS --gpus N]
                             validate a partition table offline on an N-GPU
                             node whose every pair of GPUs has one link class
@@ -15,13 +18,16 @@ Subcommands:
                             chains from the provenance journal
 
 Files are JSON or YAML, read and written with
-:mod:`~tpu_operator_torch.yamlsubset`, not PyYAML. The reference's
-``validate-csv`` (the OLM bundle) waits for the port's bundle.
+:mod:`~tpu_operator_torch.yamlsubset`, not PyYAML (the port's CSV,
+``bundle-gpu/manifests/``, is written inside the subset).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
+import re
 import sys
 
 from .. import yamlsubset
@@ -99,6 +105,205 @@ def validate_doc(doc: dict) -> list:
     if errors:
         return errors
     return typed.from_obj(doc).spec.validate()
+
+
+def validate_csv(path: str) -> int:
+    """Validate the alm-examples CRs embedded in an OLM CSV (NVIDIA's
+    cmd/gpuop-cfg validates the same surface), and that every CRD the CSV
+    declares as owned is shipped beside it in the bundle (a CSV without them
+    is not installable by OLM); then its images and its ``replaces`` edge."""
+    try:
+        with open(path) as f:
+            csv = yamlsubset.parse(f.read())
+    except (OSError, yamlsubset.SubsetError) as e:
+        print(f"{path}: unreadable: {e}")
+        return 1
+    if not isinstance(csv, dict):
+        print(f"{path}: not a CSV document (parsed {type(csv).__name__})")
+        return 1
+
+    raw = (csv.get("metadata") or {}).get("annotations", {}).get("alm-examples")
+    if raw is None:
+        print(f"{path}: missing alm-examples annotation")
+        return 1
+    try:
+        examples = json.loads(raw)
+    except (TypeError, json.JSONDecodeError) as e:
+        print(f"{path}: alm-examples is not valid JSON: {e}")
+        return 1
+    if not examples:
+        print(f"{path}: alm-examples is empty")
+        return 1
+    failed = False
+    for doc in examples:
+        name = doc.get("metadata", {}).get("name", "?")
+        try:
+            errors = validate_doc(doc)
+        except SpecValidationError as e:
+            errors = [str(e)]
+        if errors:
+            failed = True
+            for err in errors:
+                print(f"{path}: alm-example {doc.get('kind')}/{name}: {err}")
+        else:
+            print(f"{path}: alm-example {doc.get('kind')}/{name}: OK")
+
+    # every owned CRD must ship beside the CSV, with a description
+    owned = ((csv.get("spec") or {}).get("customresourcedefinitions") or {}).get("owned") or []
+    if not owned:
+        print(f"{path}: CSV owns no CRDs")
+        failed = True
+    bundle_dir = os.path.dirname(os.path.abspath(path))
+    shipped = {}
+    for fname in os.listdir(bundle_dir):
+        if not fname.endswith((".yaml", ".yml")) or fname == os.path.basename(path):
+            continue
+        try:
+            with open(os.path.join(bundle_dir, fname)) as f:
+                docs = yamlsubset.parse_all(f.read())
+        except (OSError, yamlsubset.SubsetError):
+            continue  # an unreadable sibling is not one of the CRDs we need
+        for doc in docs:
+            if isinstance(doc, dict) and doc.get("kind") == "CustomResourceDefinition":
+                name = (doc.get("metadata") or {}).get("name")
+                if name:
+                    shipped[name] = fname
+    for entry in owned:
+        name = entry.get("name", "?")
+        if not entry.get("description"):
+            print(f"{path}: owned CRD {name}: missing description")
+            failed = True
+        if name in shipped:
+            print(f"{path}: owned CRD {name}: shipped in {shipped[name]}")
+        else:
+            print(f"{path}: owned CRD {name}: NOT shipped in bundle dir")
+            failed = True
+    if _validate_csv_images(csv, path):
+        failed = True
+    if _validate_csv_replaces(csv, path):
+        failed = True
+    return 1 if failed else 0
+
+
+#: CSV names follow <package>.v<semver>; ``replaces`` is how OLM walks the
+#: version-to-version upgrade graph
+_CSV_NAME_RE = re.compile(r"^(?P<pkg>[a-z0-9][a-z0-9.-]*)\.v"
+                          r"(?P<ver>\d+\.\d+\.\d+(?:[-+][\w.-]+)?)$")
+
+
+def _semver_key(version: str):
+    """Semver precedence: build metadata ignored; a prerelease sorts below
+    its release (0.1.0-rc.1 < 0.1.0), its identifiers compare numerically
+    when numeric, lexically otherwise (semver.org #11)."""
+    version = version.split("+")[0]
+    main, _, prerelease = version.partition("-")
+    main_key = tuple(int(part) for part in main.split("."))
+    if not prerelease:
+        return (main_key, 1, ())
+    pre_key = tuple((0, int(ident), "") if ident.isdigit() else (1, 0, ident)
+                    for ident in prerelease.split("."))
+    return (main_key, 0, pre_key)
+
+
+def _validate_csv_replaces(csv: dict, path: str) -> bool:
+    """The upgrade graph's edge, when present: ``spec.replaces`` must name
+    the same package at a strictly older version, never itself (a first
+    release has none). True when anything failed."""
+    replaces = (csv.get("spec") or {}).get("replaces")
+    name = (csv.get("metadata") or {}).get("name", "")
+    if replaces is None:
+        return False
+    own = _CSV_NAME_RE.match(name)
+    target = _CSV_NAME_RE.match(str(replaces))
+    if own is None:
+        print(f"{path}: CSV name {name!r} is not <package>.v<semver>")
+        return True
+    if target is None:
+        print(f"{path}: replaces {replaces!r} is not <package>.v<semver>")
+        return True
+    if replaces == name:
+        print(f"{path}: CSV replaces itself ({name})")
+        return True
+    if target.group("pkg") != own.group("pkg"):
+        print(f"{path}: replaces {replaces!r} names package "
+              f"{target.group('pkg')!r}, not {own.group('pkg')!r}")
+        return True
+    if _semver_key(target.group("ver")) >= _semver_key(own.group("ver")):
+        print(f"{path}: replaces {replaces!r} is not older than {name!r} "
+              f"(the upgrade graph must point backward)")
+        return True
+    print(f"{path}: replaces {replaces}: OK")
+    return False
+
+
+#: registry/path[:tag]@sha256:<64 hex>: an OLM install is reproducible only
+#: when every image is digest-pinned (a moving tag re-resolves per node)
+_DIGEST_RE = re.compile(r"@sha256:[0-9a-f]{64}$")
+
+
+def _image_digest_error(image) -> str:
+    """An error string when the image reference is not digest-pinned."""
+    if not image or not isinstance(image, str):
+        return "empty image reference"
+    if not _DIGEST_RE.search(image):
+        return f"not digest-pinned (expected @sha256:<64 hex>): {image}"
+    return ""
+
+
+def _validate_csv_images(csv: dict, path: str) -> bool:
+    """relatedImages and the Deployment's images (NVIDIA's
+    cmd/gpuop-cfg/validate/csv/images.go resolves each from the registry;
+    offline, each must be digest-pinned, and relatedImages and the
+    deployments' container and ``*_IMAGE`` env images must name each other
+    exactly: a mirrored install sees only relatedImages, and an entry
+    nothing references is dead weight). True when anything failed."""
+    failed = False
+    spec = csv.get("spec") or {}
+    related = spec.get("relatedImages") or []
+    if not related:
+        print(f"{path}: spec.relatedImages missing or empty")
+        return True
+    related_images = set()
+    for entry in related:
+        name = entry.get("name", "?")
+        image = entry.get("image")
+        if not entry.get("name"):
+            print(f"{path}: relatedImages entry without a name: {entry}")
+            failed = True
+        err = _image_digest_error(image)
+        if err:
+            print(f"{path}: relatedImages {name}: {err}")
+            failed = True
+        else:
+            related_images.add(image)
+
+    deployments = ((spec.get("install") or {}).get("spec") or {}).get("deployments") or []
+    referenced = set()
+    for deployment in deployments:
+        pod_spec = ((deployment.get("spec") or {}).get("template") or {}).get("spec") or {}
+        containers = (pod_spec.get("containers") or []) + (pod_spec.get("initContainers") or [])
+        for ctr in containers:
+            for what, image in [(f"container {ctr.get('name', '?')}", ctr.get("image"))] + \
+                    [(f"env {env.get('name')}", env.get("value"))
+                     for env in ctr.get("env") or []
+                     if env.get("name", "").endswith("_IMAGE")]:
+                err = _image_digest_error(image)
+                if err:
+                    print(f"{path}: {what}: {err}")
+                    failed = True
+                    continue
+                referenced.add(image)
+                if image not in related_images:
+                    print(f"{path}: {what}: image not listed in relatedImages: {image}")
+                    failed = True
+    for image in sorted(related_images - referenced):
+        print(f"{path}: relatedImages entry not referenced by any deployment image or "
+              f"*_IMAGE env: {image}")
+        failed = True
+    if not failed:
+        print(f"{path}: relatedImages: {len(related_images)} digest-pinned image(s), "
+              f"all cross-referenced")
+    return failed
 
 
 def validate_partitions(path: str, link: str, gpus: int) -> int:
@@ -413,8 +618,6 @@ def _status(client, namespace, out) -> int:
 def _documents(text: str) -> list:
     """The documents of a file: one JSON document (the port's samples), else
     the ``---`` documents of YAML in the subset."""
-    import json
-
     try:
         return [json.loads(text)]
     except ValueError:
@@ -426,6 +629,8 @@ def run(argv=None) -> int:
     sub = p.add_subparsers(dest="cmd", required=True)
     v = sub.add_parser("validate")
     v.add_argument("files", nargs="+")
+    vc = sub.add_parser("validate-csv", help="validate an OLM ClusterServiceVersion")
+    vc.add_argument("csv")
     vp = sub.add_parser("validate-partitions",
                         help="validate a partition table on an N-GPU node "
                              "of one link class")
@@ -467,6 +672,9 @@ def run(argv=None) -> int:
         return explain(args.kind, args.name, base_url=args.base_url,
                        token=args.token, namespace=args.namespace,
                        journal_path=args.journal_path)
+
+    if args.cmd == "validate-csv":
+        return validate_csv(args.csv)
 
     if args.cmd == "validate-partitions":
         return validate_partitions(args.table, args.link, args.gpus)

@@ -55,6 +55,10 @@ class _Router:
         else:
             api_version, rest = f"{parts[1]}/{parts[2]}", parts[3:]
         namespace = None
+        if rest[:1] == ["namespaces"] and (len(rest) == 2 or rest[2:3] in (["status"],
+                                                                             ["finalize"])):
+            # a Namespace itself (and its subresources), not a namespaced path
+            return api_version, "Namespace", None, rest[1], (rest[2] if len(rest) > 2 else None)
         if rest and rest[0] == "namespaces" and len(rest) > 1:
             namespace, rest = rest[1], rest[2:]
         if not rest:
@@ -150,8 +154,10 @@ class MiniApiServer:
 
             def _body(self) -> dict:
                 length = int(self.headers.get("Content-Length", 0))
+                raw = self.rfile.read(length) if length else b""
+                self._consumed = self.headers  # this request's body is off the socket
                 try:
-                    return json.loads(self.rfile.read(length)) if length else {}
+                    return json.loads(raw) if raw else {}
                 except ValueError:
                     raise ApiError("malformed JSON request body", 400)
 
@@ -166,6 +172,11 @@ class MiniApiServer:
                 self.wfile.write(payload)
 
             def _fail(self, err: ApiError) -> None:
+                # a request refused before its body was read (an unroutable
+                # path) leaves the body on the keep-alive socket, where it
+                # would be parsed as the next request: read it first
+                if getattr(self, "_consumed", None) is not self.headers:
+                    self._body_unread()
                 headers = {}
                 if isinstance(err, TooManyRequestsError) and err.retry_after is not None:
                     headers["Retry-After"] = format(err.retry_after, "g")
@@ -182,11 +193,15 @@ class MiniApiServer:
                 # read the unread body first: the connection is keep-alive,
                 # and bytes left on the socket would corrupt the next
                 # request's framing
+                self._body_unread()
+                self._fail(ApiError("injected fault: apiserver brownout", int(code)))
+                return True
+
+            def _body_unread(self) -> None:
                 length = int(self.headers.get("Content-Length", 0))
                 if length:
                     self.rfile.read(length)
-                self._fail(ApiError("injected fault: apiserver brownout", int(code)))
-                return True
+                self._consumed = self.headers
 
             def do_GET(self):
                 if self._faulted("GET"):

@@ -649,8 +649,8 @@ class KubeletSimulator:
     """The DaemonSet controller and the kubelets of many nodes, in memory:
     nothing runs. Every (DaemonSet, node) its selector matches has a Pod,
     running and ready at once, and the DaemonSet's status counts them; the
-    device plugin's DaemonSet gives its nodes :data:`GPUS_PER_NODE` of
-    ``nvidia.com/gpu``; the validator's spawned pods finish ``Succeeded``. A
+    device plugin's DaemonSet gives its nodes ``gpus_per_node`` (default
+    :data:`GPUS_PER_NODE`) of ``nvidia.com/gpu``; the validator's spawned pods finish ``Succeeded``. A
     pod's template governs it as the DaemonSet controller's would: under
     ``RollingUpdate`` an outdated pod is replaced, under ``OnDelete`` it
     stays until someone (the upgrade machine) deletes it. A pod is outdated
@@ -671,10 +671,11 @@ class KubeletSimulator:
     def __init__(self, client, namespace: str = consts.DEFAULT_NAMESPACE,
                  interval: float = 0.05,
                  node_filter: Optional[Callable[[dict], bool]] = None,
-                 write_ds_status: bool = True):
+                 write_ds_status: bool = True, gpus_per_node: int = GPUS_PER_NODE):
         self.client = client
         self.namespace = namespace
         self.interval = interval
+        self.gpus_per_node = gpus_per_node
         self.node_filter = node_filter
         self.write_ds_status = write_ds_status
         #: node name -> the migrate agent's settings, run every tick
@@ -845,7 +846,7 @@ class KubeletSimulator:
             self.client.update_status(pod)
 
     def _register_gpus(self, node: dict) -> None:
-        want = str(GPUS_PER_NODE)
+        want = str(self.gpus_per_node)
         if deep_get(node, "status", "capacity", consts.GPU_RESOURCE_NAME) == want:
             return
         live = self.client.get("v1", "Node", node["metadata"]["name"])

@@ -12,6 +12,7 @@ from .. import consts
 from .hash import fnv32a, object_hash, template_fingerprint
 from .objects import (
     deep_get,
+    deep_merge,
     json_merge_patch,
     parse_quantity,
     pod_requests_resource,
@@ -20,6 +21,7 @@ from .objects import (
 
 __all__ = [
     "deep_get",
+    "deep_merge",
     "fnv32a",
     "json_merge_patch",
     "object_hash",

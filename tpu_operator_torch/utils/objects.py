@@ -23,6 +23,17 @@ def rfc3339_now() -> str:
     return time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime())
 
 
+def deep_merge(base: dict, overlay: Mapping) -> dict:
+    """Merge ``overlay`` into ``base`` in place: mappings merge per key, any
+    other value (lists included) replaces."""
+    for key, value in overlay.items():
+        if isinstance(value, Mapping) and isinstance(base.get(key), dict):
+            deep_merge(base[key], value)
+        else:
+            base[key] = value if not isinstance(value, Mapping) else dict(value)
+    return base
+
+
 def json_merge_patch(target: dict, patch: Mapping) -> dict:
     """RFC 7386 JSON merge patch: null deletes, mappings recurse, the rest
     replaces."""
