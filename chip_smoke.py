@@ -202,6 +202,17 @@ Phases, each of which exits non-zero on failure:
    exporters. Then ``gpuop-cfg validate-csv`` of the OLM bundle and
    ``schema_gen --check`` in torch-free processes, each exiting 0. No
    hand-written kernel (K1's count under ``must_gather`` is 0).
+19. after phase 18, outside the operator's cluster (:func:`lint_phase`):
+   the port's static checker, ``gpuop-lint`` (its console script), in
+   fresh processes that must map neither torch nor libcuda, over this
+   tree: exit 0 with no new, baselined or stale finding, under the
+   reference's 30 s budget; ``--list-rules`` names the reference's 17
+   rules; ``--format json`` and ``--format sarif`` parse and the SARIF run
+   names ``gpuop-lint``; and a copy of the tree with the in-place
+   suppression in ``client/rest.py`` removed exits 1, naming that rule and
+   file. ``--changed`` needs a git checkout, which this tree need not be:
+   it is tested on the CPU. No hand-written kernel (K1's count under
+   ``lint`` is 0).
 
 Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Needs a CUDA device and the rest of the repository beside this file.
@@ -3880,6 +3891,110 @@ def must_gather_phase(ctx) -> dict:
     return numbers
 
 
+#: the reference's 17 rule names (``tpu_operator/analysis/checkers/``)
+LINT_RULES = ("annotation-registry", "api-bypass", "blocking-call", "breaker-swallow",
+              "deadline-propagation", "exactly-once-event", "exception-hygiene",
+              "lock-discipline", "lock-order-inversion", "metrics-discipline", "operand-dag",
+              "provenance-discipline", "span-discipline", "state-before-actuation",
+              "unbatched-sweep-write", "unfenced-write", "untracked-shared-state")
+#: the reference's budget for a full-tree lint (tests/test_analysis_graph.py)
+LINT_BUDGET_S = 30.0
+#: the in-place suppression the seeded violation removes, and what it hides
+LINT_SEED = ("tpu_operator_torch/client/rest.py", "exception-hygiene")
+
+
+def lint_phase(ctx) -> dict:
+    """Phase 19, after phase 18 and outside the operator's cluster: the
+    port's static checker over this tree.
+
+    1. ``gpuop-lint --format json`` (its console script, in a fresh process
+       that maps neither torch nor libcuda): exit 0, no new, baselined or
+       stale finding, the committed baseline empty, the wall time under
+       :data:`LINT_BUDGET_S`.
+    2. ``--list-rules``: the reference's 17 names (:data:`LINT_RULES`).
+    3. ``--format sarif``: parses, its run's tool is ``gpuop-lint``, no
+       result.
+    4. A copy of the tree whose :data:`LINT_SEED` file has lost its
+       suppression comment (made first: a seed that names no suppression
+       fails before any lint runs): exit 1, the finding naming that rule
+       and file.
+
+    ``ctx``: ``repo``, ``work`` (a scratch directory), ``card`` and
+    ``operator_env`` (the processes' environment)."""
+    started = time.monotonic()
+    numbers = {"card": ctx.card}
+    lint = console_script(ctx.repo, "gpuop-lint")
+
+    def run(*argv, root=ctx.repo) -> dict:
+        result = _module_process(ctx, [*lint, f"--root={root}", *argv], timeout=300)
+        check(result["maps_line"] == "MAPS False False False",
+              f"gpuop-lint {' '.join(argv)} maps torch or libcuda: {result['maps_line']}")
+        return result
+
+    # the gate's teeth: one suppression taken out of a copy of the tree
+    seeded = os.path.join(ctx.work, "lint-seeded")
+    shutil.copytree(os.path.join(ctx.repo, "tpu_operator_torch"),
+                    os.path.join(seeded, "tpu_operator_torch"),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    os.makedirs(os.path.join(seeded, "docs"))
+    shutil.copy(os.path.join(ctx.repo, "docs", "operations.md"), os.path.join(seeded, "docs"))
+    shutil.copy(os.path.join(ctx.repo, ".gpuop-lint-baseline.json"), seeded)
+    path, rule = LINT_SEED
+    with open(os.path.join(seeded, path)) as f:
+        text = f.read()
+    marker = f"  # opalint: disable={rule}"
+    lines = text.splitlines(keepends=True)
+    hit = [i for i, line in enumerate(lines) if marker in line]
+    check(len(hit) == 1, f"{path} holds {len(hit)} suppressions of {rule}, not 1")
+    lines[hit[0]] = lines[hit[0]].split(marker)[0] + "\n"
+    with open(os.path.join(seeded, path), "w") as f:
+        f.write("".join(lines))
+
+    full = run("--format=json")
+    check(full["rc"] == 0, f"gpuop-lint over the tree exited {full['rc']}: "
+                           f"{full['out'][-3000:]}{full['err'][-2000:]}")
+    report = json.loads(full["out"])
+    numbers["full_tree"] = {"rc": full["rc"], "wall_s": full["wall_s"],
+                            "files": report["files"], "new": len(report["findings"]),
+                            "baselined": report["baselined"],
+                            "suppressed": report["suppressed"],
+                            "stale": len(report["stale_baseline"])}
+    check(report["findings"] == [] and report["baselined"] == 0
+          and report["stale_baseline"] == [], f"gpuop-lint findings: {numbers['full_tree']}")
+    with open(os.path.join(ctx.repo, ".gpuop-lint-baseline.json")) as f:
+        check(json.load(f)["findings"] == [], "the committed baseline holds findings")
+    check(full["wall_s"] < LINT_BUDGET_S,
+          f"the full-tree lint took {full['wall_s']} s, over {LINT_BUDGET_S} s")
+
+    listed = run("--list-rules")
+    check(listed["rc"] == 0, f"--list-rules exited {listed['rc']}: {listed['err'][-2000:]}")
+    names = tuple(sorted(line.split(":", 1)[0] for line in listed["out"].splitlines()
+                         if line.strip()))
+    numbers["rules"] = len(names)
+    check(names == LINT_RULES, f"--list-rules names {names}, not the reference's 17")
+
+    sarif = run("--format=sarif")
+    check(sarif["rc"] == 0, f"--format sarif exited {sarif['rc']}: {sarif['err'][-2000:]}")
+    doc = json.loads(sarif["out"])
+    [sarif_run] = doc["runs"]
+    numbers["sarif"] = {"version": doc["version"], "tool": sarif_run["tool"]["driver"]["name"],
+                        "results": len(sarif_run["results"])}
+    check(numbers["sarif"]["tool"] == "gpuop-lint" and numbers["sarif"]["results"] == 0,
+          f"the SARIF run: {numbers['sarif']}")
+
+    # the gate's teeth, on the copy made above
+    bad = run("--format=json", root=seeded)
+    found = json.loads(bad["out"])["findings"] if bad["out"].strip() else []
+    numbers["seeded"] = {"rc": bad["rc"], "wall_s": bad["wall_s"],
+                         "findings": [f"{f['path']}:{f['line']} [{f['rule']}]" for f in found]}
+    check(bad["rc"] == 1, f"the seeded tree exited {bad['rc']}, not 1: {bad['err'][-2000:]}")
+    check([(f["rule"], f["path"], f["line"]) for f in found] == [(rule, path, hit[0] + 1)],
+          f"the seeded tree's findings: {numbers['seeded']['findings']}")
+    numbers["phase_s"] = round(time.monotonic() - started, 3)
+    print(json.dumps({"lint": numbers}))
+    return numbers
+
+
 def _try_scrape(port: int):
     try:
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=2) as r:
@@ -4140,6 +4255,14 @@ def main() -> int:
     check(simulator_launches == 0, f"phase 17 launched K1 {simulator_launches} times")
     check(must_gather_launches == 0, f"phase 18 launched K1 {must_gather_launches} times")
 
+    phase("the port's static checker: gpuop-lint over this tree, and a seeded violation")
+    k1.launches = 0
+    lint_phase(types.SimpleNamespace(
+        repo=os.path.dirname(os.path.abspath(__file__)), card=card,
+        work=tempfile.mkdtemp(prefix="chip-smoke-lint-"), operator_env=dict(os.environ)))
+    lint_launches = k1.launches
+    check(lint_launches == 0, f"phase 19 launched K1 {lint_launches} times")
+
     print(json.dumps({"smoke_s": round(time.monotonic() - _T0, 1), "card": card}))
     print(json.dumps({"kernels": [{
         "name": "stream_copy",
@@ -4157,8 +4280,8 @@ def main() -> int:
         # state (9), the device plumbing (10), the last components (11), the
         # operator (12), the GPUDriver and leader phase (13), the health
         # loop (14), the rolling upgrade (15), the capacity loop (16), the
-        # fleet simulator (17) and the support bundle (18) are checked at 0
-        # above
+        # fleet simulator (17), the support bundle (18) and the static
+        # checker (19) are checked at 0 above
         "launches_by_phase": {"perf": k1_main_launches, "serving": serving_launches,
                               "steady_state": steady_state_launches,
                               "device_plumbing": plumbing_launches,
@@ -4169,7 +4292,8 @@ def main() -> int:
                               "upgrade": upgrade_launches,
                               "autoscale": autoscale_launches,
                               "simulator": simulator_launches,
-                              "must_gather": must_gather_launches},
+                              "must_gather": must_gather_launches,
+                              "lint": lint_launches},
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

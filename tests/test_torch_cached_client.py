@@ -200,6 +200,40 @@ def test_a_write_applied_after_its_object_s_delete_does_not_bring_it_back():
     assert cached.get("v1", "Node", "n1")["metadata"]["name"] == "n1"
 
 
+def test_a_relist_answered_before_a_write_keeps_the_write():
+    """A relist whose LIST was answered before a write, applied after the
+    write's response reached the cache (the informer relists while a
+    sweep writes), keeps the newer object until the watch, resumed at the
+    list's rv, delivers the write: the reference's informer swaps the older
+    listed object back in, and a sweep reads the object from before its
+    own write (a DaemonSet's old template: the upgrade reads a driver pod
+    as current). Objects the list holds newer are taken, as ever."""
+    def scenario(m):
+        backend = m.Fake()
+        backend.create(_node("n0", labels={"template": "old"}))
+        backend.create(_node("n1"))
+        cached = m.cache.CachedClient(backend)
+        cached.get("v1", "Node", "n0")  # the Node informer, synced
+        listed = backend.list("v1", "Node")  # answered before the write
+        listed_rv = max(port_cache._rv_int(o) for o in listed)
+        node = cached.get("v1", "Node", "n0")
+        node["metadata"]["labels"] = {"template": "new"}
+        cached.update(node)  # the write's response reaches the cache
+        newer_n1 = backend.patch("v1", "Node", "n1", {"metadata": {"labels": {"a": "b"}}})
+        informer = next(iter(cached._informers.values()))
+        informer._on_relist(listed, str(listed_rv))
+        seen = (cached.get("v1", "Node", "n0")["metadata"]["labels"]["template"],
+                cached.get("v1", "Node", "n1")["metadata"].get("labels"))
+        # a relist at or past the write takes the listed objects
+        informer._on_relist(backend.list("v1", "Node"),
+                            str(port_cache._rv_int(newer_n1)))
+        return seen, cached.get("v1", "Node", "n1")["metadata"].get("labels")
+
+    ref = scenario(REF)
+    assert ref[0][0] == "old"  # the reference's cache went back
+    assert scenario(PORT) == (("new", {"a": "b"}), {"a": "b"})
+
+
 def test_shared_informer_watch_replays_and_streams():
     def scenario(m):
         backend = m.Fake()

@@ -19,8 +19,11 @@ upgrade the port does not copy; :data:`DEBUG_ROUTES_LEFT_OUT` the
 ``/debug`` routes the port does not serve; the autoscale section the
 autoscaler's two differences (``nvidia.com/gpu`` capacity, a GPU count by
 default) and the names of the nodes it registers; the client-chain section
-three faults of the reference's the port repairs; the simulator section the
-fleet simulator's GPU fleet and the traffic mix's fallback layout. The tests at the end hold the mapping itself: it changes nothing the
+four faults of the reference's the port repairs; the simulator section the
+fleet simulator's GPU fleet and the traffic mix's fallback layout; the
+static-checker section each linter's names, the two rules whose idiom the
+port maps and what "registered" means for the port's own metric families.
+The tests at the end hold the mapping itself: it changes nothing the
 port already renders, and it leaves no TPU name behind in what it maps.
 """
 
@@ -501,7 +504,7 @@ def map_registered_name(name: str) -> str:
 
 # -- the client chain ------------------------------------------------------------
 #
-# Three faults of the reference's the port does not copy. Its write batcher's
+# Four faults of the reference's the port does not copy. Its write batcher's
 # flush patches below the read cache and never hands the result back
 # (tpu_operator/client/batch.py:_apply_one), so until the watch delivers the
 # write a sweep reads its node from before it, re-derives a health transition
@@ -525,6 +528,12 @@ def map_registered_name(name: str) -> str:
 # and of its last relist and drops a write no newer
 # (tests/test_torch_cached_client.py::
 # test_a_write_applied_after_its_object_s_delete_does_not_bring_it_back).
+# And a relist whose LIST was answered before a write but applied after the
+# write's response swaps the older listed object back in, until the watch
+# delivers the write: a sweep reads a DaemonSet's old template after its own
+# update. The port's relist keeps an object the cache holds newer than the
+# list (tests/test_torch_cached_client.py::
+# test_a_relist_answered_before_a_write_keeps_the_write).
 
 
 def map_crd(crd: dict) -> dict:
@@ -798,6 +807,72 @@ def map_chart_values(values: dict) -> dict:
             key = "gpuDriver"
         out[key] = copy.deepcopy(value)
     return out
+
+
+# -- the static checker (gpuop-lint) ----------------------------------------------
+
+#: what each linter lints, reads and is called: the package tree (the
+#: whole-program graph's and ``--changed``'s), its manifests, the key
+#: registry module, the console script, the baseline file and how it is
+#: regenerated. ``docs/operations.md`` is read by both: the port's metric
+#: families and keys keep the reference's names
+LINT_NAMES = {
+    "reference": {"tree": "tpu_operator", "manifests": "tpu_operator/manifests",
+                  "consts": "tpu_operator.consts", "tool": "opalint",
+                  "baseline": ".opalint-baseline.json",
+                  "regenerate": "make lint-baseline"},
+    "port": {"tree": "tpu_operator_torch", "manifests": "tpu_operator_torch/manifests",
+             "consts": "tpu_operator_torch.consts", "tool": "gpuop-lint",
+             "baseline": ".gpuop-lint-baseline.json",
+             "regenerate": "gpuop-lint --write-baseline"},
+}
+
+#: the two rules whose idiom the port maps; every other rule is the
+#: reference's, word for word, over the mapped names. ``api-bypass``: the
+#: port's client speaks ``http.client``, so a raw
+#: ``http.client.HTTPConnection``/``HTTPSConnection`` (or the bare name
+#: imported from ``http.client``) built outside ``client/`` is the bypass
+#: the reference's ``requests.<verb>()`` is (still flagged too), and
+#: ``RestClient(...)`` stays allowed in ``client/`` and the composition
+#: roots (``cmd/``, ``simulator/``); a ``urlopen`` scrape stays unflagged.
+#: ``metrics-discipline``: the port has no ``prometheus_client``; its
+#: families are the classes of ``controllers/metrics.py`` and
+#: ``validator/metrics.py`` (imported, absolute or relative, or defined
+#: there), held to the same "documented" and "bounded cardinality" checks
+LINT_IDIOM_RULES = ("api-bypass", "metrics-discipline")
+
+#: "registered" for the port's own families. The reference requires
+#: ``registry=`` so no metric lands on the process-global registry, shared
+#: by every component and test of a process. The port has no registry
+#: object: a family is exposed by the owner that keeps it (``add(...)`` in
+#: ``OperatorMetrics``, ``NodeMetrics.families()``, ``TelemetryMetrics``'s
+#: scrape), each owner one per component. The same failure mode is a family
+#: built outside any owner (module level, a free function): so a port family
+#: is registered when it is constructed inside a class that defines
+#: ``scrape()``, and flagged otherwise
+LINT_REGISTERED_MEANS = "constructed inside a class that defines scrape()"
+
+#: the reference's committed baseline is not empty: it grandfathers the two
+#: step-down handlers of ``LeaderElector._loop`` (``on_started``'s and
+#: ``on_stopped``'s broad excepts, breaker-swallow). The port's baseline is
+#: empty; the same two sites carry in-place suppressions with their reason
+LINT_REFERENCE_BASELINED = {("breaker-swallow", "tpu_operator/controllers/leader.py", 2)}
+
+
+def map_lint_text(text: str) -> str:
+    """A reference fixture's path or source as the port's: the package's
+    name (``tpu_operator`` -> ``tpu_operator_torch``; ``tpu.ai/`` keys
+    and every other name stay)."""
+    return re.sub(r"\btpu_operator\b", "tpu_operator_torch", text)
+
+
+def unmap_lint_text(text: str) -> str:
+    """A port linter's path, message or output in the reference's names:
+    the package, the tool, its baseline file and how it is regenerated."""
+    port, ref = LINT_NAMES["port"], LINT_NAMES["reference"]
+    for key in ("regenerate", "baseline", "tool"):
+        text = text.replace(port[key], ref[key])
+    return text.replace("tpu_operator_torch", "tpu_operator")
 
 
 # -- the mapping's own tests ----------------------------------------------------

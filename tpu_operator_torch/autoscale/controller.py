@@ -508,6 +508,7 @@ class AutoscaleReconciler(Reconciler):
         # resize record was cleared by _persist_states above), and the
         # protocol announcement is the content-addressed RetilePlanned
         # record_once at episode start.
+        # opalint: disable=exactly-once-event
         events.record(self.client, self.namespace, policy.obj,
                       events.NORMAL, REASON_SCALED_DOWN,
                       f"pool {pool}: drained and removed {name} "
@@ -553,6 +554,7 @@ class AutoscaleReconciler(Reconciler):
                 # crash-point matrix); persisting cooldown first would
                 # instead strand a crash window where capacity was
                 # ordered but never created.
+                # opalint: disable=state-before-actuation
                 self.client.create(obj)
             except AlreadyExistsError:
                 pass  # crash replay: this node already landed
@@ -580,6 +582,7 @@ class AutoscaleReconciler(Reconciler):
         # the existing Event's count (same reason/message stem), and
         # scale-up multiplicity is not protocol-bearing — no peer acts
         # on this announcement.
+        # opalint: disable=exactly-once-event
         events.record(self.client, self.namespace, policy.obj,
                       events.NORMAL, REASON_SCALED_UP,
                       f"pool {pool}: registered {len(created)} node(s): "
@@ -710,6 +713,7 @@ class AutoscaleReconciler(Reconciler):
             # only) whose repeats across operator restarts are *wanted*:
             # saturation is an ongoing operator-attention condition, not
             # an episode step.
+            # opalint: disable=exactly-once-event
             events.record(self.client, self.namespace, policy.obj,
                           events.WARNING, REASON_SATURATED,
                           "demand exceeds every pool's maxNodes ceiling; "

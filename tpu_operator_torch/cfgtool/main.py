@@ -355,7 +355,7 @@ def status(base_url=None, namespace="tpu-operator", out=None,
         # the plain REST client: a triage tool reads once and exits, and
         # the cluster's own answer beats a retry layer masking it
         if base_url:
-            client = RestClient(base_url=base_url, token=token)
+            client = RestClient(base_url=base_url, token=token)  # opalint: disable=api-bypass — raw RestClient by design: a triage CLI reads once and exits
         else:
             client = RestClient.from_env()
         return _status(client, namespace, out)
@@ -395,7 +395,7 @@ def explain(kind, name, base_url=None, token=None, namespace="tpu-operator",
         from ..client.rest import RestClient
 
         try:
-            client = (RestClient(base_url=base_url, token=token) if base_url
+            client = (RestClient(base_url=base_url, token=token) if base_url  # opalint: disable=api-bypass — raw RestClient by design: read-once triage CLI, same rationale as `status`
                       else RestClient.from_env())
             for cm in client.list("v1", "ConfigMap", namespace):
                 if consts.PROVENANCE_LABEL not in (cm.get("metadata", {}).get("labels") or {}):

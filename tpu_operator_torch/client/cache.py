@@ -193,12 +193,21 @@ class _Informer:
             self._deliver(sub, event)
 
     def _on_relist(self, items: List[dict], rv: str) -> None:
+        listed_rv = _rv_int({"metadata": {"resourceVersion": rv}})
         with self._lock:
             old = self._store
-            # wholesale swap: the relist is the new truth
-            self._store = {self._key(o): o for o in items}
+            # wholesale swap: the relist is the new truth, but for a
+            # write-through newer than the list (its write landed after the
+            # list was answered): swapped out, the cache would read the
+            # listed version until the watch, resumed at the list's rv,
+            # delivers the write's event
+            store = {self._key(o): o for o in items}
+            for key, obj in old.items():
+                if listed_rv >= 0 and _rv_int(obj) > max(listed_rv, _rv_int(store.get(key, {}))):
+                    store[key] = obj
+            self._store = store
             self._gone = {}
-            self._listed_rv = _rv_int({"metadata": {"resourceVersion": rv}})
+            self._listed_rv = listed_rv
             self.max_rv = max(self.max_rv, self._listed_rv)
             vanished = [obj for key, obj in old.items()
                         if key not in self._store]
@@ -210,7 +219,7 @@ class _Informer:
         for obj in vanished:
             self._fanout("DELETED", obj)
         for item in items:
-            self._fanout("ADDED", item)
+            self._fanout("ADDED", store[self._key(item)])
 
     def _on_event(self, event: WatchEvent) -> None:
         self.apply(event.type, event.object)

@@ -100,7 +100,7 @@ class FencedClient(Client):
             if self.on_fenced is not None:
                 try:
                     self.on_fenced(verb)
-                except Exception:
+                except Exception:  # opalint: disable=exception-hygiene — telemetry must never break the request path
                     pass
             held = getattr(fence, "epoch", None)
             log.warning("fenced write rejected: %s %s/%s by deposed replica "

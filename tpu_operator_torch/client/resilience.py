@@ -179,7 +179,7 @@ class CircuitBreaker:
         if hook is not None and old != new_state:
             try:
                 hook(old, new_state)
-            except Exception:
+            except Exception:  # opalint: disable=exception-hygiene — telemetry must never break the request path
                 pass
 
     # -- call protocol ---------------------------------------------------------
@@ -273,7 +273,7 @@ class RetryingClient(Client):
         if self.on_retry is not None:
             try:
                 self.on_retry(verb, reason)
-            except Exception:
+            except Exception:  # opalint: disable=exception-hygiene — telemetry must never break the request path
                 pass
 
     def _call(self, verb: str, fn: Callable, retry_429: bool = True):
@@ -299,7 +299,7 @@ class RetryingClient(Client):
                 if waited > 0 and self.on_throttle is not None:
                     try:
                         self.on_throttle(waited)
-                    except Exception:
+                    except Exception:  # opalint: disable=exception-hygiene — telemetry must never break the request path
                         pass
                 try:
                     if attempt == 1:

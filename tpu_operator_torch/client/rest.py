@@ -248,7 +248,7 @@ class RestClient(Client):
         if self.on_response is not None:
             try:
                 self.on_response(method, code)
-            except Exception:  # telemetry never breaks the request path
+            except Exception:  # opalint: disable=exception-hygiene — telemetry must never break the request path
                 pass
 
     def _request(self, method: str, path: str, params: Optional[dict] = None,

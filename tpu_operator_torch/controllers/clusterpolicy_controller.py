@@ -444,7 +444,7 @@ class ClusterPolicyReconciler(Reconciler):
             # (in memory only: no apiserver call can fail here)
             try:
                 self.join_profiler.observe(policy, label_result.nodes, results)
-            except Exception:
+            except Exception:  # opalint: disable=breaker-swallow — observe() is in-memory only (no API calls), so no BreakerOpenError can arrive; profiling must never fail a reconcile
                 log.debug("join profiler observation failed", exc_info=True)
         # after the (crash-prone) state sweep, right before the status
         # writes: an exception between the Warning Event and the condition

@@ -213,7 +213,7 @@ class LeaderElector:
             start = time.monotonic()
             try:
                 acquired = self.try_acquire_or_renew()
-            except Exception:
+            except Exception:  # opalint: disable=breaker-swallow — elector survives open breakers too; rationale below
                 # the elector thread must survive ANY apiserver failure
                 # (transport error, 500, 429): a dead elector is the worst
                 # outcome — a leader that reconciles forever without
@@ -230,7 +230,7 @@ class LeaderElector:
                     self.is_leader.set()
                     try:
                         on_started()
-                    except Exception:
+                    except Exception:  # opalint: disable=breaker-swallow — not swallowed: the leader that failed to start steps down loudly and stops (below)
                         # a leader that failed to start MUST step down loudly
                         # — swallowing this leaves a renewed lease held by a
                         # replica that reconciles nothing, and an unguarded
@@ -241,7 +241,7 @@ class LeaderElector:
                         self.is_leader.clear()
                         try:
                             on_stopped()
-                        except Exception:
+                        except Exception:  # opalint: disable=breaker-swallow — the step-down path: logged, and the elector stops either way
                             log.exception("on_stopped also failed")
                         self._stop.set()  # this instance is done (prod exits)
                         return

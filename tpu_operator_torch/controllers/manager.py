@@ -376,7 +376,7 @@ def run_operator(args) -> int:
                                "[trace=%(trace_id)s]: %(message)s")
     log.info("gpu-operator %s starting", __version__)
     if args.api_server:
-        direct = RestClient(base_url=args.api_server, token=args.token,
+        direct = RestClient(base_url=args.api_server, token=args.token,  # opalint: disable=api-bypass — composition root: the raw transport, wrapped in the resilience layer below
                             default_timeout=args.api_timeout)
     else:
         direct = RestClient.from_env(default_timeout=args.api_timeout)
@@ -417,7 +417,7 @@ def run_operator(args) -> int:
     else:
         app.start()
     log.info("metrics :%s health :%s", args.metrics_port, args.health_port)
-    stop.wait()
+    stop.wait()  # opalint: disable=blocking-call — main thread parks until the shutdown signal; not a reconcile worker
     log.info("shutting down")
     if elector is not None:
         elector.release()

@@ -302,6 +302,7 @@ class Controller:
         together in ``/debug/traces``)."""
         if self._tracer is None:
             return contextlib.nullcontext(None)
+        # opalint: disable=span-discipline — factory method: _worker's serve loop enters this with `with self._trace_ctx(...)` on its only call site
         return self._tracer.trace(
             "reconcile", controller=self.reconciler.name,
             request=self.queue._request_key(request),

@@ -120,6 +120,7 @@ class UpgradeReconciler(Reconciler):
                         node, "metadata", "annotations",
                         consts.UPGRADE_STATE_SINCE_ANNOTATION) == since):
                     break
+                # opalint: disable=blocking-call — bounded (OWN_WRITES_WAIT_S) wait for the sweep's own writes (ROADMAP Queue 3, settled: "An upgrade sweep waits (at most 2 s) for its own writes")
                 time.sleep(0.02)
             else:
                 log.warning("upgrade: the cache never showed node %s at %r", name, state)

@@ -37,6 +37,7 @@ from typing import Callable, Optional
 
 from .. import consts
 from ..client import preconditioned_patch
+from ..client.errors import BreakerOpenError
 from ..health import drain
 from ..partitioner import topology
 from ..utils import deep_get
@@ -102,11 +103,14 @@ def _stamp_barrier(status, key: str, record: dict) -> None:
 
 
 def _node(client, node_name: str) -> Optional[dict]:
-    # the reference re-raises its client's BreakerOpenError here (its loop
-    # backs off); the port's client has no circuit breaker, so every read
-    # failure is transient trouble, retried next pass
+    # the validator's client has no circuit breaker (ROADMAP Queue 3,
+    # settled: "The migrate agent's loop and client"), so every read
+    # failure is transient trouble, retried next pass; a client behind a
+    # breaker surfaces degraded mode to the loop, as the reference's does
     try:
         return client.get("v1", "Node", node_name)
+    except BreakerOpenError:
+        raise  # degraded mode: the caller's loop backs off, not a failure
     except Exception as e:
         log.debug("migrate agent: node read failed (%s)", e)
         return None
@@ -241,11 +245,11 @@ def run(client, node_name: str, status, sleep_interval: float = 60.0,
         try:
             snapshot_once(client, node_name, status)
             restore_once(client, node_name, status, links=links)
-        except Exception:
+        except Exception:  # opalint: disable=breaker-swallow — the node agent's own loop, not a reconcile worker (ROADMAP Queue 3, settled: "The migrate agent's loop and client")
             # one bad pass must not crash-loop the agent; the operator's
             # deadline path stays live regardless
             log.exception("migrate-agent pass failed; retrying next interval")
         count += 1
         if iterations is not None and count >= iterations:
             return 0
-        time.sleep(sleep_interval)
+        time.sleep(sleep_interval)  # opalint: disable=blocking-call — the node agent's own loop, not a reconcile worker (ROADMAP Queue 3, settled: "The migrate agent's loop and client")

@@ -309,6 +309,7 @@ class MigrationReconciler(Reconciler):
             # started (no durable state written yet): record() aggregates
             # the re-fires into one Event's count, which is the desired
             # "still blocked" signal.
+            # opalint: disable=exactly-once-event
             events.record(self.client, self.namespace, node,
                           events.WARNING, REASON_BLOCKED,
                           f"{name}: migration requested but no eligible "
@@ -503,6 +504,7 @@ class MigrationReconciler(Reconciler):
             # unchanged, retried in 2 s) and record()'s count aggregation
             # is the desired "still waiting for an eligible destination"
             # signal, not a protocol step.
+            # opalint: disable=exactly-once-event
             events.record(self.client, self.namespace, node,
                           events.WARNING, REASON_BLOCKED,
                           f"{state['src']}: destination {lost} vanished "

@@ -452,6 +452,7 @@ class FleetSimulator:
                         frontier_schema.encode_annotation(fr),
                 }}}
                 # environment fault, not an operator sweep
+                # opalint: disable=unbatched-sweep-write
                 if self.feed(lambda n=name, b=body: self.feeder.patch(
                         "v1", "Node", n, b), "frontier-drift"):
                     victims.append(name)
@@ -527,7 +528,7 @@ class FleetSimulator:
             try:
                 self.op_client.stop()
             # teardown: the server is already past its last event, there is
-            # nothing left to requeue
+            # nothing left to requeue  # opalint: disable=breaker-swallow
             except Exception:
                 log.debug("op_client.stop failed during teardown",
                           exc_info=True)
@@ -752,6 +753,7 @@ class _AutoscaleDriver(_Driver):
                 continue
             if drain_protocol.node_acked_plan(n) == plan.fingerprint:
                 continue
+            # opalint: disable=unbatched-sweep-write — N independent external actors, not an operator sweep
             self.sim.feed(lambda n=n, fp=plan.fingerprint: self.sim.feeder.patch(
                 "v1", "Node", n["metadata"]["name"],
                 {"metadata": {"annotations": {
@@ -781,6 +783,7 @@ class _AutoscaleDriver(_Driver):
                 consts.SERVING_FRONTIER_ANNOTATION:
                     self._healthy_frontier_value(),
             }}}
+            # opalint: disable=unbatched-sweep-write — N independent node-side actors, not an operator sweep
             self.sim.feed(lambda n=name, b=body: self.sim.feeder.patch(
                 "v1", "Node", n, b), "frontier-probe")
 
@@ -1126,7 +1129,7 @@ class _UpgradeDriver(_Driver):
                 pod = dict(pod, status={"phase": "Succeeded"})
                 # feeder-side external-actor write (the job's OWN status
                 # transition), not an operator sweep — the batcher does not
-                # apply here
+                # apply here  # opalint: disable=unbatched-sweep-write
                 self.sim.feed(lambda p=pod: self.sim.feeder.update_status(p),
                               "job-finish")
 

@@ -99,7 +99,7 @@ def run_fuzz(seed: int, budget: int, out_dir: str,
             report = sim.run()
         # the fuzz harness deliberately captures EVERY crash (incl. an
         # escaped BreakerOpenError — itself a finding: the engine should
-        # have absorbed it) as a red run
+        # have absorbed it) as a red run  # opalint: disable=breaker-swallow
         except Exception as e:
             # an engine crash is a failure too — but not minimizable the
             # same way; record it with its repro line and keep sweeping

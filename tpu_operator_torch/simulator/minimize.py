@@ -56,7 +56,7 @@ def minimize(scenario: Scenario, seed: int,
                 return True
         # the minimizer probes candidates that may crash in arbitrary ways
         # (incl. an escaped BreakerOpenError); any non-reproduction is
-        # equally discarded
+        # equally discarded  # opalint: disable=breaker-swallow
         except Exception:
             # a candidate that errors out is not a *reproduction* — keep
             # the last known-failing scenario and move on

@@ -11,6 +11,7 @@ import logging
 from typing import List, Optional, Protocol
 
 from .. import tracing
+from ..client.errors import BreakerOpenError
 from .skel import SyncState
 
 log = logging.getLogger(__name__)
@@ -73,6 +74,13 @@ class Manager:
             with tracing.span(f"state.{state.name}", kind="state") as sp:
                 try:
                     result = state.sync(catalog)
+                except BreakerOpenError:
+                    # folding this into a StateResult ERROR made an open
+                    # breaker look like N failed states (error'd conditions,
+                    # a counted reconcile error, backoff growth) when NOTHING
+                    # this sweep does can land. Propagate: the runtime
+                    # worker requeues quietly after the breaker's cooldown.
+                    raise
                 except Exception as e:  # a state crash must not kill the sweep
                     log.exception("state %s errored", state.name)
                     result = StateResult(state.name, SyncState.ERROR, str(e))

@@ -503,8 +503,8 @@ class ProcessKubelet:
     def _delete_pod_object(self, ds_name: str) -> None:
         try:
             self.client.delete("v1", "Pod", self._pod_name(ds_name), self.namespace)
-        except Exception:  # gone already (or collected with its DaemonSet)
-            pass
+        except Exception as e:  # gone already (or collected with its DaemonSet)
+            log.debug("kubelet: pod of %s not deleted (%s)", ds_name, e)
 
     def _sync_daemonset(self, ds: dict, labels: dict) -> None:
         name = ds["metadata"]["name"]
@@ -637,7 +637,7 @@ class ProcessKubelet:
 # -- many nodes, in memory -------------------------------------------------------
 
 #: label on a simulated DaemonSet pod naming its DaemonSet
-SIM_DS_LABEL = "tpu.ai/kubelet-sim-ds"
+SIM_DS_LABEL = consts.KUBELET_SIM_DS_LABEL
 #: the GPUs each simulated node's device plugin registers
 GPUS_PER_NODE = 8
 #: the app labels of the pods the validator spawns, run to completion here
