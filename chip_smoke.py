@@ -213,6 +213,21 @@ Phases, each of which exits non-zero on failure:
    file. ``--changed`` needs a git checkout, which this tree need not be:
    it is tested on the CPU. No hand-written kernel (K1's count under
    ``lint`` is 0).
+20. after phase 19 (:func:`opsan_phase`): a sanitized join. A fresh
+   one-node cluster as phase 12's (:func:`join_cluster`), its
+   ``gpu-operator`` run under the race sanitizer (``GPU_OPERATOR_OPSAN``,
+   its schedule perturber, ``OPSAN_SEED=20260807``, a report directory),
+   the validators on the card. At ``ready``: ``/debug/opsan`` answers
+   enabled, tracking the structures the join reaches, with no race, and
+   ``/metrics`` counts tracked accesses and no race; the operator maps
+   neither torch nor libcuda. SIGTERM: it exits 0 through its shutdown path
+   and dumps one report. A 3-scenario ``gpu-sim fuzz`` under the same
+   switches adds its own. ``python -m tpu_operator_torch.cmd.opsan check``
+   over both exits 0 (no race, no dynamic-only lock edge without its
+   committed fixture) in a process that maps neither; over a planted race
+   (two threads writing one registered dict with no lock) it exits 1,
+   naming the variable. The sanitized ``ready`` seconds print beside phase
+   12's. No hand-written kernel (K1's count under ``opsan`` is 0).
 
 Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Needs a CUDA device and the rest of the repository beside this file.
@@ -1709,48 +1724,95 @@ def deployment_process(repo: str, deployment: dict) -> tuple:
     return [*console_script(repo, script), *ctr.get("args", [])], env
 
 
-def operator_phase(card, then=None) -> dict:
-    """Phase 12: ``gpu-operator`` reconciles the port's sample ClusterPolicy
-    onto this machine as a one-node cluster, and a process kubelet runs the
-    DaemonSets it renders, the validation chain and its spawned workload pod
-    on the card. ``then(ctx)``, when given, runs on that cluster once it is
-    ``ready`` again (phase 13, :func:`gpudriver_phase`)."""
-    import shutil
-
+def card_node(work: str) -> dict:
+    """This machine as a one-node cluster's node for :func:`join_cluster`:
+    its name (the host's), its GPU count (NVML's), the validator's command
+    line, the kubelet's modes (every operand run, the device plugin's init
+    alone) and the driver image's content (the machine's own driver
+    libraries, linked into ``work``)."""
     from tpu_operator_torch import consts, nvml
-    from tpu_operator_torch.testing import helmlite
-    from tpu_operator_torch.testing.apiserver import MiniApiServer
-    from tpu_operator_torch.testing.kubelet import INIT, RUN, ProcessKubelet
+    from tpu_operator_torch.testing.kubelet import INIT, RUN
     from tpu_operator_torch.validator import driver
 
-    repo = os.path.dirname(os.path.abspath(__file__))
-    work = tempfile.mkdtemp(prefix="chip-smoke-operator-")
     node_name = re.sub(r"[^a-z0-9.-]", "-", socket.gethostname().lower()).strip("-.") or "node"
     with nvml.session() as s:
         gpu_count = len(s.gpus())
-    # the driver image's content: the machine's own driver libraries
     host_dir = os.path.dirname(driver.find_host_driver() or fail("no host libcuda.so.1"))
     bundle = os.path.join(work, "bundle")
     os.makedirs(bundle)
     for name in consts.DRIVER_LIB_FILES:
         os.symlink(os.path.realpath(os.path.join(host_dir, name)), os.path.join(bundle, name))
+    return {"node_name": node_name, "gpu_count": gpu_count,
+            "validator": [sys.executable, "-m", "tpu_operator_torch.cmd.validator"],
+            "modes": {"gpu-driver": RUN, "gpu-operator-validator": RUN,
+                      "gpu-device-plugin": INIT, "gpu-feature-discovery": RUN,
+                      "gpu-telemetry-exporter": RUN, "gpu-node-status-exporter": RUN},
+            "driver_env": {consts.DRIVER_SRC_ENV: bundle}}
+
+
+def join_cluster(repo: str, work: str, node: dict) -> types.SimpleNamespace:
+    """The one-node cluster of phases 12 and 20: the port's chart rendered
+    with :func:`chart_values` (its ClusterPolicy must pass the CRD's
+    schema), a MiniApiServer holding the node (``node`` as
+    :func:`card_node` gives it) and every rendered object but the
+    ClusterPolicy (``helm install``; the join starts when the caller creates
+    it), and a process kubelet on the node, not yet started, which runs the
+    DaemonSets the operator renders, the validation chain and its spawned
+    workload pod. Returns ``srv``, ``base``, ``kubelet``, ``cp``,
+    ``deployment``, ``argv`` and ``env`` (the Deployment's process here),
+    ``rendered`` and ``status_dir``."""
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.testing import helmlite
+    from tpu_operator_torch.testing.apiserver import MiniApiServer
+    from tpu_operator_torch.testing.kubelet import ProcessKubelet
+
     status_dir = os.path.join(work, "status")
     rendered = install_from_chart(repo, chart_values(work, status_dir), consts.DEFAULT_NAMESPACE)
     cp = next(o for o in rendered if o["kind"] == "ClusterPolicy")
     deployment = next(o for o in rendered if o["kind"] == "Deployment")
     argv, deployment_env = deployment_process(repo, deployment)
-    print(json.dumps({"chart_install": {
-        "objects": [f"{o['kind']}/{o['metadata']['name']}" for o in rendered],
-        "operator_argv": argv[1:], "operator_env": deployment_env}}))
-
     srv = MiniApiServer()
     base = srv.start()
     srv.backend.create({"apiVersion": "v1", "kind": "Node", "metadata": {
-        "name": node_name, "labels": {consts.NFD_NVIDIA_PCI_LABEL: "true",
-                                      "kubernetes.io/hostname": node_name}}})
-    # helm install: every rendered object but the custom resource now, the
-    # ClusterPolicy at the join's start below
+        "name": node["node_name"], "labels": {consts.NFD_NVIDIA_PCI_LABEL: "true",
+                                              "kubernetes.io/hostname": node["node_name"]}}})
     helmlite.apply(srv.backend, rendered, skip_kinds=("ClusterPolicy",))
+    base_env = {k: os.environ[k] for k in ("PATH", "HOME", "TMPDIR", "LD_LIBRARY_PATH",
+                                           "CUDA_HOME") if k in os.environ}
+    base_env.update(PYTHONPATH=repo, KUBE_API_URL=base)
+    kubelet = ProcessKubelet(
+        srv.backend, node["node_name"], consts.DEFAULT_NAMESPACE, os.path.join(work, "logs"),
+        base_env, {"gpu-validator": node["validator"]}, modes=node["modes"],
+        image_env={"gpu-driver": node["driver_env"]},
+        capacity_app="gpu-device-plugin", gpu_count=node["gpu_count"],
+        path_map={"/var/cache/gpu-kernels": os.path.join(work, "kernel-cache")})
+    return types.SimpleNamespace(srv=srv, base=base, kubelet=kubelet, cp=cp,
+                                 deployment=deployment, argv=argv, env=deployment_env,
+                                 rendered=rendered, status_dir=status_dir)
+
+
+def operator_phase(card, then=None) -> dict:
+    """Phase 12: ``gpu-operator`` reconciles the port's sample ClusterPolicy
+    onto this machine as a one-node cluster (:func:`join_cluster`), and a
+    process kubelet runs the DaemonSets it renders, the validation chain and
+    its spawned workload pod on the card. ``then(ctx)``, when given, runs on
+    that cluster once it is ``ready`` again (phase 13, :func:`gpudriver_phase`)."""
+    import shutil
+
+    from tpu_operator_torch import consts
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="chip-smoke-operator-")
+    machine = card_node(work)
+    node_name, gpu_count = machine["node_name"], machine["gpu_count"]
+    cluster = join_cluster(repo, work, machine)
+    srv, base, kubelet, cp = cluster.srv, cluster.base, cluster.kubelet, cluster.cp
+    deployment, argv, deployment_env = cluster.deployment, cluster.argv, cluster.env
+    status_dir = cluster.status_dir
+    print(json.dumps({"chart_install": {
+        "objects": [f"{o['kind']}/{o['metadata']['name']}" for o in cluster.rendered],
+        "operator_argv": argv[1:], "operator_env": deployment_env}}))
+
     metrics_port, health_port = free_port(), free_port()
     operator_log = os.path.join(work, "operator.log")
     operator_env = dict({k: v for k, v in os.environ.items() if not k.startswith("GPU_")},
@@ -1763,18 +1825,6 @@ def operator_phase(card, then=None) -> dict:
     # the join's apiserver load: the operator's (through its informer cache)
     # and the node agents'; the kubelet reads the backend in process
     srv.requests.clear()
-    base_env = {k: os.environ[k] for k in ("PATH", "HOME", "TMPDIR", "LD_LIBRARY_PATH",
-                                           "CUDA_HOME") if k in os.environ}
-    base_env.update(PYTHONPATH=repo, KUBE_API_URL=base)
-    kubelet = ProcessKubelet(
-        srv.backend, node_name, consts.DEFAULT_NAMESPACE, os.path.join(work, "logs"), base_env,
-        {"gpu-validator": [sys.executable, "-m", "tpu_operator_torch.cmd.validator"]},
-        modes={"gpu-driver": RUN, "gpu-operator-validator": RUN, "gpu-device-plugin": INIT,
-               "gpu-feature-discovery": RUN, "gpu-telemetry-exporter": RUN,
-               "gpu-node-status-exporter": RUN},
-        image_env={"gpu-driver": {consts.DRIVER_SRC_ENV: bundle}},
-        capacity_app="gpu-device-plugin", gpu_count=gpu_count,
-        path_map={"/var/cache/gpu-kernels": os.path.join(work, "kernel-cache")})
 
     def policy_state():
         live = srv.backend.get("tpu.ai/v1", "ClusterPolicy", "cluster-policy")
@@ -1924,7 +1974,7 @@ def operator_phase(card, then=None) -> dict:
             then(types.SimpleNamespace(
                 srv=srv, base=base, kubelet=kubelet, namespace=consts.DEFAULT_NAMESPACE,
                 node_name=node_name, repo=repo, work=work, card=card, operator=operator,
-                operator_env=operator_env, driver_env={consts.DRIVER_SRC_ENV: bundle},
+                operator_env=operator_env, driver_env=machine["driver_env"],
                 deployment=deployment, gpu_count=gpu_count, status_dir=status_dir,
                 exporter_urls=[f"http://127.0.0.1:{spec[key]['metricsPort']}/metrics"
                                for key in ("nodeStatusExporter", "telemetry")]))
@@ -3995,6 +4045,203 @@ def lint_phase(ctx) -> dict:
     return numbers
 
 
+#: the sanitized run's root seed (the race-soak lane's)
+OPSAN_SEED = 20260807
+#: the fuzz slice under the sanitizer
+OPSAN_FUZZ_BUDGET = 3
+#: registered structures every sanitized join reaches (``/debug/opsan``'s
+#: ``tracked_vars``, ``#<n>`` suffixes aside): the read cache, the write
+#: batcher, the flight recorder and the ClusterPolicy sweep's
+OPSAN_JOIN_TRACKED = ("CachedClient._informers", "ClusterPolicyController._last_slice_state",
+                      "FlightRecorder._traces", "Informer[ClusterPolicy]._store",
+                      "Informer[Node]._store", "WriteBatcher._pending")
+#: a race planted for the gate's teeth: two threads write one registered
+#: dict with no lock, under the sanitizer; the process dumps its report
+OPSAN_PLANTED = ("import threading\n"
+                 "from tpu_operator_torch.utils.locks import register_shared\n"
+                 "shared = register_shared('smoke.planted', {})\n"
+                 "def write(key):\n"
+                 "    for i in range(20):\n"
+                 "        shared[key] = i\n"
+                 "threads = [threading.Thread(target=write, args=(k,)) for k in 'ab']\n"
+                 "for t in threads:\n"
+                 "    t.start()\n"
+                 "for t in threads:\n"
+                 "    t.join()\n")
+
+
+def opsan_env(env: dict, report_dir: str) -> dict:
+    """``env`` with the race sanitizer's three switches and its seed."""
+    out = {k: v for k, v in env.items() if not k.startswith("GPU_OPERATOR_OPSAN")}
+    out.update(GPU_OPERATOR_OPSAN="1", GPU_OPERATOR_OPSAN_PERTURB="1",
+               GPU_OPERATOR_OPSAN_REPORT=report_dir, OPSAN_SEED=str(OPSAN_SEED))
+    return out
+
+
+def opsan_gate(ctx, reports: str) -> dict:
+    """``python -m tpu_operator_torch.cmd.opsan check --json`` over
+    ``reports`` with the committed fixtures, in a fresh process: its exit
+    code, its result and its maps line."""
+    out = _module_process(ctx, [sys.executable, "-m", "tpu_operator_torch.cmd.opsan", "check",
+                                "--reports", reports, "--root", ctx.repo, "--json", "--fixtures",
+                                os.path.join(ctx.repo, "tests", "cases", "torch_opsan",
+                                             "dynamic_edges.json")], timeout=300)
+    try:
+        result = json.loads(out["out"])
+    except ValueError:
+        result = None
+    check(result is not None, f"opsan check printed no JSON (rc {out['rc']}): "
+                              f"{out['out'][-2000:]}{out['err'][-2000:]}")
+    check(out["maps_line"] == "MAPS False False False",
+          f"opsan check maps torch or libcuda: {out['maps_line']!r}")
+    return {"rc": out["rc"], "result": result, "wall_s": out["wall_s"]}
+
+
+def opsan_phase(ctx) -> dict:
+    """Phase 20, after phase 19: the operator's join under the race
+    sanitizer, then the gate over its reports.
+
+    1. A fresh one-node cluster as phase 12's (:func:`join_cluster` on
+       ``ctx.node``), its ``gpu-operator`` (the chart's Deployment as a
+       process) with the three switches, the seed and a report directory
+       (passed explicitly: the operator's environment holds no ``GPU_*``
+       otherwise). The ClusterPolicy goes in; the validators run on the
+       card; the join must reach ``ready``.
+    2. At ``ready``: ``/debug/opsan`` answers ``enabled: true``, its
+       ``tracked_vars`` hold :data:`OPSAN_JOIN_TRACKED` and its ``races``
+       is empty; ``/metrics`` counts tracked accesses above 0 and races at
+       0; the operator maps neither torch nor libcuda.
+    3. SIGTERM: the operator exits 0 through its shutdown path, and its
+       at-exit hook writes one report.
+    4. ``gpu-sim fuzz --budget`` :data:`OPSAN_FUZZ_BUDGET` under the same
+       switches (its own report).
+    5. ``cmd.opsan check`` over the two reports exits 0: no race, no
+       dynamic-only lock edge without a fixture (:func:`opsan_gate`).
+    6. The gate's teeth: :data:`OPSAN_PLANTED` under the switches, then the
+       gate over its report exits 1 and names ``smoke.planted``.
+
+    ``ctx``: ``repo``, ``work``, ``card``, ``node`` (:func:`card_node`'s
+    dict), ``operator_env`` (a torch-free process's environment),
+    ``phase12_ready_s`` (phase 12's unsanitized ``ready``, printed beside
+    this one) and ``join_timeout_s``."""
+    started = time.monotonic()
+    numbers = {"card": ctx.card}
+    reports = os.path.join(ctx.work, "opsan-reports")
+    os.makedirs(reports)
+    cluster = join_cluster(ctx.repo, ctx.work, ctx.node)
+    env = opsan_env(dict({k: v for k, v in ctx.operator_env.items()
+                          if not k.startswith("GPU_")}, **cluster.env), reports)
+    metrics_port, health_port = free_port(), free_port()
+    log_path = os.path.join(ctx.work, "operator-opsan.log")
+    operator = subprocess.Popen(
+        [*cluster.argv, f"--api-server={cluster.base}", f"--metrics-port={metrics_port}",
+         f"--health-port={health_port}"], cwd=ctx.repo, stdout=open(log_path, "w"),
+        stderr=subprocess.STDOUT, start_new_session=True, env=env)
+    srv, kubelet = cluster.srv, cluster.kubelet
+
+    def policy_state():
+        live = srv.backend.get("tpu.ai/v1", "ClusterPolicy", "cluster-policy")
+        return (live.get("status") or {}).get("state")
+
+    try:
+        # -- 1. the sanitized join ---------------------------------------------------------
+        kubelet.start()
+        t0 = time.time()
+        srv.backend.create(cluster.cp)
+        _wait_for(lambda: policy_state() == "ready", ctx.join_timeout_s,
+                  "the sanitized join's ClusterPolicy ready")
+        ready_s = round(time.time() - t0, 3)
+        numbers["join"] = {"ready_s": ready_s, "phase12_ready_s": ctx.phase12_ready_s}
+        print(json.dumps({"opsan_join": numbers["join"], "card": ctx.card}))
+
+        # -- 2. the live report and the counters at ready --------------------------------------
+        page = _debug_json(health_port, "/debug/opsan") or {}
+        check(page.get("enabled") is True, f"/debug/opsan under the switch: {page}")
+        # a structure registered again (a relist, a flush, a second instance)
+        # is tracked as ``name#<n>``
+        tracked = {v.split("#", 1)[0] for v in page.get("tracked_vars") or ()}
+        missing = sorted(set(OPSAN_JOIN_TRACKED) - tracked)
+        check(not missing, f"/debug/opsan tracks none of {missing}: {page.get('tracked_vars')}")
+        check(page.get("races") == [], f"races in the sanitized join: {page.get('races')}")
+        samples = scrape_samples(_try_scrape(metrics_port) or "")
+        accesses = samples.get("tpu_operator_opsan_tracked_accesses_total", 0)
+        races = samples.get("tpu_operator_opsan_races_total")
+        check(accesses > 0 and races == 0,
+              f"/metrics: {accesses} tracked accesses, {races} races")
+        maps = _maps(operator.pid)
+        check(maps == (False, False), f"the sanitized operator maps torch or libcuda: {maps}")
+        numbers["live"] = {"tracked_vars": len(page["tracked_vars"]),
+                           "locks": len(page["locks"]), "lock_edges": len(page["lock_edges"]),
+                           "accesses_total": page["accesses_total"],
+                           "metric_accesses": accesses, "metric_races": races}
+        print(json.dumps({"opsan_live": numbers["live"], "card": ctx.card}))
+
+        # -- 3. SIGTERM: the shutdown path and the at-exit report ----------------------------
+        operator.send_signal(signal.SIGTERM)
+        rc = operator.wait(timeout=60)
+        check(rc == 0, f"the sanitized operator exited {rc} on SIGTERM")
+        dumped = sorted(os.listdir(reports))
+        check(len(dumped) == 1 and dumped[0].startswith(f"opsan-{operator.pid}-"),
+              f"the operator's report: {dumped}")
+    except SystemExit:
+        with open(log_path) as f:
+            print(f"-- sanitized operator log:\n{f.read()[-6000:]}", file=sys.stderr)
+        print(f"-- kubelet events: {kubelet.events}", file=sys.stderr)
+        raise
+    finally:
+        kubelet.stop()
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(operator.pid, signal.SIGKILL)
+        operator.wait(timeout=60)
+        srv.stop()
+
+    # -- 4. the fuzz slice under the same switches -------------------------------------------
+    sanitized = types.SimpleNamespace(repo=ctx.repo, operator_env=env)
+    fuzz = _module_process(sanitized, [*console_script(ctx.repo, "gpu-sim"), "fuzz",
+                                       "--budget", str(OPSAN_FUZZ_BUDGET)])
+    check(fuzz["rc"] == 0 and f"fuzz done: {OPSAN_FUZZ_BUDGET}/{OPSAN_FUZZ_BUDGET} passed"
+          in fuzz["out"], f"sanitized gpu-sim fuzz exited {fuzz['rc']}: "
+                          f"{fuzz['out'][-2000:]}{fuzz['err'][-2000:]}")
+    check(fuzz["maps_line"] == "MAPS False False False",
+          f"sanitized gpu-sim fuzz: {fuzz['maps_line']!r}")
+    check(len(os.listdir(reports)) == 2, f"the reports: {sorted(os.listdir(reports))}")
+    numbers["fuzz"] = {"budget": OPSAN_FUZZ_BUDGET, "wall_s": fuzz["wall_s"]}
+
+    # -- 5. the gate ---------------------------------------------------------------------------
+    plain = types.SimpleNamespace(repo=ctx.repo, operator_env={
+        k: v for k, v in env.items() if not k.startswith("GPU_OPERATOR_OPSAN")})
+    gate = opsan_gate(plain, reports)
+    result = gate["result"]
+    numbers["gate"] = {"rc": gate["rc"], "wall_s": gate["wall_s"],
+                       "coverage": result["coverage"],
+                       "static_edges": len(result["static_edges"]),
+                       "dynamic_edges": len(result["dynamic_edges"]),
+                       "dynamic_only": len(result["dynamic_only"]),
+                       "unfixtured": result["unfixtured"],
+                       "stale_fixtures": len(result["stale_fixtures"]),
+                       "races": len(result["races"])}
+    print(json.dumps({"opsan_gate": numbers["gate"], "card": ctx.card}))
+    check(gate["rc"] == 0 and result["ok"],
+          f"opsan check over the sanitized run: {numbers['gate']} {result['races']}")
+
+    # -- 6. the gate's teeth: a planted race -------------------------------------------------
+    planted_dir = os.path.join(ctx.work, "opsan-planted")
+    out = subprocess.run([sys.executable, "-c", OPSAN_PLANTED], cwd=ctx.repo,
+                         env=dict(opsan_env(plain.operator_env, planted_dir),
+                                  PYTHONPATH=ctx.repo),
+                         capture_output=True, text=True, timeout=120)
+    check(out.returncode == 0, f"the planted race's process: {out.stderr[-2000:]}")
+    teeth = opsan_gate(plain, planted_dir)
+    named = [r["var"] for r in teeth["result"]["races"]]
+    numbers["planted"] = {"rc": teeth["rc"], "races": named}
+    check(teeth["rc"] == 1 and named == ["smoke.planted"],
+          f"opsan check over the planted race: {numbers['planted']}")
+    numbers["phase_s"] = round(time.monotonic() - started, 3)
+    print(json.dumps({"opsan": {k: numbers[k] for k in ("join", "fuzz", "planted", "phase_s")},
+                      "card": ctx.card}))
+    return numbers
+
+
 def _try_scrape(port: int):
     try:
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=2) as r:
@@ -4242,7 +4489,7 @@ def main() -> int:
         must_gather_phase(ctx)
         counts["must_gather"] = k1.launches
 
-    operator_phase(card, then=phases_13_to_18)
+    phase12 = operator_phase(card, then=phases_13_to_18)
     operator_launches, gpudriver_launches = counts["operator"], counts["gpudriver"]
     health_launches, upgrade_launches = counts["health"], counts["upgrade"]
     autoscale_launches, simulator_launches = counts["autoscale"], counts["simulator"]
@@ -4263,6 +4510,17 @@ def main() -> int:
     lint_launches = k1.launches
     check(lint_launches == 0, f"phase 19 launched K1 {lint_launches} times")
 
+    phase("a sanitized join: gpu-operator under opsan, the gate and a planted race")
+    k1.launches = 0
+    opsan_work = tempfile.mkdtemp(prefix="chip-smoke-opsan-")
+    opsan_phase(types.SimpleNamespace(
+        repo=os.path.dirname(os.path.abspath(__file__)), card=card, work=opsan_work,
+        node=card_node(opsan_work), operator_env=dict(os.environ), join_timeout_s=600,
+        phase12_ready_s=phase12["join_s"]["ClusterPolicy ready"]))
+    opsan_launches = k1.launches
+    check(opsan_launches == 0, f"phase 20 launched K1 {opsan_launches} times")
+    shutil.rmtree(opsan_work, ignore_errors=True)
+
     print(json.dumps({"smoke_s": round(time.monotonic() - _T0, 1), "card": card}))
     print(json.dumps({"kernels": [{
         "name": "stream_copy",
@@ -4280,8 +4538,8 @@ def main() -> int:
         # state (9), the device plumbing (10), the last components (11), the
         # operator (12), the GPUDriver and leader phase (13), the health
         # loop (14), the rolling upgrade (15), the capacity loop (16), the
-        # fleet simulator (17), the support bundle (18) and the static
-        # checker (19) are checked at 0 above
+        # fleet simulator (17), the support bundle (18), the static checker
+        # (19) and the sanitized join (20) are checked at 0 above
         "launches_by_phase": {"perf": k1_main_launches, "serving": serving_launches,
                               "steady_state": steady_state_launches,
                               "device_plumbing": plumbing_launches,
@@ -4293,7 +4551,8 @@ def main() -> int:
                               "autoscale": autoscale_launches,
                               "simulator": simulator_launches,
                               "must_gather": must_gather_launches,
-                              "lint": lint_launches},
+                              "lint": lint_launches,
+                              "opsan": opsan_launches},
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,11 +1,12 @@
 """The port's ``/debug`` routes on the operator's health port
 (tpu_operator_torch/controllers/manager.py), over HTTP against the port's
-MiniApiServer: the route set is the reference's but for the two the
-mapping names (``DEBUG_ROUTES_LEFT_OUT``), ``debug_endpoints=False``
+MiniApiServer: the route set is the reference's (the mapping's
+``DEBUG_ROUTES_LEFT_OUT`` is empty), ``debug_endpoints=False``
 (``--no-debug-endpoints``) serves none of them while the probes stay,
 ``/debug/timeline`` filters the journal as the reference's does, and
 ``/debug/queue``, ``/debug/state``, ``/debug/traces`` and
-``/debug/join-traces`` have the reference's shapes after one sweep.
+``/debug/join-traces`` have the reference's shapes after one sweep, and
+``/debug/opsan`` answers as the reference's with its sanitizer off and on.
 """
 
 import json
@@ -170,3 +171,64 @@ def test_queue_state_traces_and_join_traces_after_a_sweep(cluster):
     text = app.metrics.scrape().decode()
     assert 'tpu_operator_reconcile_phase_seconds_count{controller="clusterpolicy",' \
            'phase="sync-state"}' in text
+
+
+def _opsan_page(pkg: str, env: str, on: bool, monkeypatch) -> tuple:
+    """``/debug/opsan`` (and ``/debug/state`` before it, which reads the
+    app's registered structures) of ``pkg``'s operator app over its own
+    MiniApiServer, with its sanitizer's switch ``env`` on or off; the
+    hooks a sanitized build installs are taken out again."""
+    import importlib
+
+    manager = importlib.import_module(f"{pkg}.controllers.manager")
+    rest = importlib.import_module(f"{pkg}.client.rest")
+    apiserver = importlib.import_module(f"{pkg}.testing.apiserver")
+    for name in ("TPU_OPERATOR_OPSAN", "GPU_OPERATOR_OPSAN"):
+        for suffix in ("", "_PERTURB", "_REPORT"):
+            monkeypatch.delenv(name + suffix, raising=False)
+    if on:
+        monkeypatch.setenv(env, "1")
+    srv = apiserver.MiniApiServer()
+    base = srv.start()
+    app = manager.OperatorApp(rest.RestClient(base_url=base), health_port=_free_port())
+    try:
+        app.start_servers()
+        assert get(app._health_port, "/debug/state")[0] == 200
+        code, page = get(app._health_port, "/debug/opsan")
+        return code, page, app.metrics.scrape().decode()
+    finally:
+        app.stop()
+        srv.stop()
+        monkeypatch.delenv(env, raising=False)
+        if on:
+            sanitizer = importlib.import_module(f"{pkg}.sanitizer")
+            sanitizer.uninstall()
+            sanitizer.reset_runtime()
+
+
+@pytest.mark.parametrize("on", [False, True], ids=["off", "on"])
+def test_debug_opsan_answers_as_the_reference_s(on, monkeypatch):
+    """Off, both answer ``{"enabled": false}``. On, both answer the live
+    report with ``"enabled": true``: the same keys, the same tracked
+    structures after the same ``/debug/state`` read, no race, and the app's
+    ``/metrics`` counting the accesses."""
+    pages = {}
+    for pkg, env in (("tpu_operator", "TPU_OPERATOR_OPSAN"),
+                     ("tpu_operator_torch", "GPU_OPERATOR_OPSAN")):
+        code, page, text = _opsan_page(pkg, env, on, monkeypatch)
+        assert code == 200, pkg
+        pages[pkg] = page
+        if on:
+            accesses = [line for line in text.splitlines()
+                        if line.startswith("tpu_operator_opsan_tracked_accesses_total ")]
+            assert accesses and float(accesses[0].split()[1]) > 0, pkg
+    ref, port = pages["tpu_operator"], pages["tpu_operator_torch"]
+    if not on:
+        assert ref == port == {"enabled": False}
+        return
+    assert set(port) == set(ref) == {"enabled", "version", "accesses_total", "tracked_vars",
+                                     "locks", "lock_edges", "races", "suppressions"}
+    assert port["enabled"] is ref["enabled"] is True
+    assert port["races"] == ref["races"] == []
+    assert port["tracked_vars"] == ref["tracked_vars"]
+    assert {"DecisionJournal._records", "FlightRecorder._traces"} <= set(port["tracked_vars"])

@@ -97,7 +97,10 @@ def test_port_module_list_is_complete():
                      "simulator", "simulator.clock", "simulator.seeds", "simulator.scenario",
                      "simulator.engine", "simulator.fuzz", "simulator.minimize",
                      "simulator.artifacts", "cmd.sim", "clusterinfo", "testing.helmlite",
-                     "testing.cluster", "cmd.must_gather"):
+                     "testing.cluster", "cmd.must_gather", "utils.locks", "sanitizer",
+                     "sanitizer.core", "sanitizer.hooks", "sanitizer.locks",
+                     "sanitizer.perturb", "sanitizer.registry", "sanitizer.crosscheck",
+                     "cmd.opsan"):
         assert f"tpu_operator_torch.{expected}" in names
 
 

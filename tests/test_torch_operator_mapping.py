@@ -27,9 +27,11 @@ The tests at the end hold the mapping itself: it changes nothing the
 port already renders, and it leaves no TPU name behind in what it maps.
 """
 
+import ast
 import copy
 import json
 import re
+from pathlib import Path
 
 import yaml
 
@@ -456,10 +458,10 @@ def upgrade_cordon_record(state: str, unschedulable: bool) -> dict:
     return {}
 
 
-#: the reference's /debug routes the port's health server does not answer:
-#: /debug/opsan, the reference's race sanitizer's, which the port does not
-#: have (tpu_operator/controllers/manager.py:DEBUG_ROUTES)
-DEBUG_ROUTES_LEFT_OUT = {"/debug/opsan"}
+#: the reference's /debug routes the port's health server does not answer
+#: (tpu_operator/controllers/manager.py:DEBUG_ROUTES): none, since the port
+#: has the race sanitizer and its /debug/opsan
+DEBUG_ROUTES_LEFT_OUT: set = set()
 
 
 # -- the autoscaler, the capacity collector and the migration controller ----------
@@ -761,8 +763,8 @@ def map_sim_injection(record: dict) -> dict:
 #   reference: its presence label), its summary columns are the GPU labels
 #   (presence, model, count) where the reference's are the TPU's (presence,
 #   chip type, topology), it reads ``nvidia.com/gpu`` capacity, adds
-#   ``cluster/clusterinfo.txt``, collects the port's ``DEBUG_ROUTES`` (no
-#   ``/debug/opsan``: :data:`DEBUG_ROUTES_LEFT_OUT`) and writes YAML with
+#   ``cluster/clusterinfo.txt``, collects the port's ``DEBUG_ROUTES`` (the
+#   reference's, :data:`DEBUG_ROUTES_LEFT_OUT` being empty) and writes YAML with
 #   ``yamlsubset.dump`` (JSON where a string is outside the subset).
 
 #: (apiGroup, resource, verb) the port's operator needs that the reference's
@@ -948,3 +950,166 @@ def test_the_mapping_leaves_no_tpu_name_in_a_render():
             mapped["spec"] = {k: v for k, v in mapped["spec"].items() if k != "groups"}
         walk(mapped)
     assert not leftovers, sorted(leftovers)[:10]
+
+
+# -- the race sanitizer's hook sites -------------------------------------------------
+#
+# Every lock of the operator is built through ``utils.locks.make_lock`` /
+# ``make_rlock`` under its static lock-graph label, and every shared structure
+# the reference registers with ``register_shared`` the port registers under the
+# same name. Renamed: the device plugin's class (``GPUDevicePlugin``).
+
+#: the reference's hook-site class names as the port's
+HOOK_CLASS_RENAMES = {"TPUDevicePlugin": "GPUDevicePlugin"}
+#: (relpath, label) of the port's factory-built locks the reference does not
+#: have: the ``http.client`` watch connection (the reference's rides
+#: ``requests``), the port's own Prometheus families, the process kubelet
+PORT_ONLY_LOCKS = {
+    ("tpu_operator_torch/client/rest.py", "_RestWatch._conn_lock"),
+    ("tpu_operator_torch/controllers/metrics.py", "_Child._lock"),
+    ("tpu_operator_torch/controllers/metrics.py", "_Family._lock"),
+    ("tpu_operator_torch/testing/kubelet.py", "ProcessKubelet._events_lock"),
+    ("tpu_operator_torch/testing/kubelet.py", "ProcessKubelet._spawn_lock"),
+    ("tpu_operator_torch/testing/kubelet.py", "ProcessKubelet._lock"),
+}
+#: (relpath, label) of the locks the port builds raw on purpose, and why:
+#: node-side locks, which never run in the operator's process, and the work
+#: queue's Condition, for which neither package has a factory (the
+#: reference's, tpu_operator/controllers/runtime.py, is raw too)
+RAW_LOCKS = {
+    ("tpu_operator_torch/kernels/_build.py", "_build._lock"):
+        "node side: the kernels' nvcc build in the validator's process",
+    ("tpu_operator_torch/validator/metrics.py", "Gauge._lock"):
+        "node side: the node-status exporter's Python families",
+    ("tpu_operator_torch/validator/metrics.py", "Counter._lock"):
+        "node side: the node-status exporter's Python families",
+    ("tpu_operator_torch/controllers/runtime.py", "RateLimitingQueue._cond"):
+        "a Condition: no factory in either package, raw in the reference too",
+}
+HOOK_FACTORIES = ("make_lock", "make_rlock", "register_shared")
+RAW_FACTORIES = ("Lock", "RLock", "Condition", "Semaphore", "BoundedSemaphore")
+
+
+def _label_text(node) -> str:
+    """A hook's label argument as written; an f-string's fields as ``{}``."""
+    if isinstance(node, ast.Constant):
+        return node.value
+    return "".join(v.value if isinstance(v, ast.Constant) else "{}" for v in node.values)
+
+
+def hook_sites(root: str, package: str) -> list:
+    """Every lock built and structure registered in ``package`` outside the
+    sanitizer and the factory: ``(call, label, relpath, class, target)`` where
+    ``call`` is a hook (:data:`HOOK_FACTORIES`) or a raw ``threading``
+    factory (label None), ``class`` the enclosing class (None at module
+    level) and ``target`` the attribute or name the value is assigned to."""
+    sites = []
+    for path in sorted(Path(root, package).rglob("*.py")):
+        relpath = path.relative_to(root).as_posix()
+        if relpath.startswith((f"{package}/sanitizer/", f"{package}/analysis/")) or \
+                relpath == f"{package}/utils/locks.py":
+            continue
+        tree = ast.parse(path.read_text(encoding="utf-8"))
+
+        def visit(node, cls, target):
+            if isinstance(node, ast.ClassDef):
+                cls = node.name
+            if isinstance(node, ast.Assign) and len(node.targets) == 1:
+                tgt = node.targets[0]
+                name = (tgt.attr if isinstance(tgt, ast.Attribute)
+                        else tgt.id if isinstance(tgt, ast.Name) else None)
+                for child in ast.iter_child_nodes(node):
+                    visit(child, cls, name)
+                return
+            if isinstance(node, ast.Call):
+                func = node.func.attr if isinstance(node.func, ast.Attribute) else getattr(
+                    node.func, "id", "")
+                if func in HOOK_FACTORIES and node.args:
+                    sites.append((func, _label_text(node.args[0]), relpath, cls, target))
+                elif func in RAW_FACTORIES and isinstance(node.func, ast.Attribute) and \
+                        getattr(node.func.value, "id", "") == "threading":
+                    sites.append((func, None, relpath, cls, target))
+            for child in ast.iter_child_nodes(node):
+                visit(child, cls, target)
+
+        visit(tree, None, None)
+    return sites
+
+
+def map_hook_site(site: tuple) -> tuple:
+    """A reference hook site's ``(call, label, relpath)`` in the port's names."""
+    call, label, relpath = site[:3]
+    head, _, tail = label.partition(".")
+    return call, f"{HOOK_CLASS_RENAMES.get(head, head)}.{tail}", map_lint_text(relpath)
+
+
+def test_every_reference_hook_site_has_its_counterpart_in_the_port():
+    """Each ``make_lock``, ``make_rlock`` and ``register_shared`` of the
+    reference is in the port, in the mirrored module under the mapped label,
+    as many times (a structure swapped wholesale is registered again); the
+    port adds only :data:`PORT_ONLY_LOCKS`."""
+    import collections
+
+    repo = Path(__file__).resolve().parents[1]
+    ref = collections.Counter(map_hook_site(s) for s in hook_sites(repo, "tpu_operator")
+                              if s[1] is not None)
+    port = collections.Counter(s[:3] for s in hook_sites(repo, "tpu_operator_torch")
+                               if s[1] is not None)
+    extra = collections.Counter((call, label, relpath) for call, label, relpath in port
+                                if (relpath, label) in PORT_ONLY_LOCKS)
+    assert len(ref) >= 20 and sum(ref.values()) >= 25
+    assert port - extra == ref
+    assert {(relpath, label) for _, label, relpath in extra} == PORT_ONLY_LOCKS
+
+
+def test_every_port_lock_label_is_its_static_label():
+    """A lock's name is what the port's ``LockNode.label()`` gives for its
+    attribute (``ClassName._attr``; ``module._name`` at module level, which
+    the static graph does not model), so the cross-check lines the dynamic
+    edges up with the static ones."""
+    from tpu_operator_torch.analysis import graph, runner
+    from tpu_operator_torch.analysis.core import LintConfig
+
+    repo = str(Path(__file__).resolve().parents[1])
+    project = runner._build_project(repo, runner._AstCache(repo), LintConfig())
+    checked = 0
+    for call, label, relpath, cls, target in hook_sites(repo, "tpu_operator_torch"):
+        if call not in ("make_lock", "make_rlock"):
+            continue
+        modname = graph.module_name(relpath)
+        if cls is None:
+            assert label == f"{modname.rsplit('.', 1)[-1]}.{target}", (relpath, label)
+        else:
+            info = project.classes[f"{modname}:{cls}"]
+            assert target in info.lock_attrs, (relpath, cls, target)
+            assert graph.LockNode(cid=info.cid, attr=target).label() == label, (relpath, label)
+        checked += 1
+    assert checked == 21
+
+
+def test_no_lock_of_the_operator_is_built_raw():
+    """Every lock the port's static lock graph sees, and every module-level
+    lock, is built through the factory, but for :data:`RAW_LOCKS`."""
+    from tpu_operator_torch.analysis import graph, runner
+    from tpu_operator_torch.analysis.core import LintConfig
+
+    repo = str(Path(__file__).resolve().parents[1])
+    project = runner._build_project(repo, runner._AstCache(repo), LintConfig())
+    raw = {}
+    sites = hook_sites(repo, "tpu_operator_torch")
+    for call, _, relpath, cls, target in sites:
+        if call not in RAW_FACTORIES:
+            continue
+        modname = graph.module_name(relpath)
+        owner = modname.rsplit(".", 1)[-1] if cls is None else cls
+        if cls is not None:
+            assert target in project.classes[f"{modname}:{cls}"].lock_attrs, (relpath, target)
+        raw[(relpath, f"{owner}.{target}")] = call
+    assert set(raw) == set(RAW_LOCKS)
+    # the sites are every class lock the graph sees, but the sanitizer's own
+    # (raw on purpose: the sanitizer does not sanitize itself)
+    seen = {(c.cid, lock) for c in project.classes.values() for lock in c.lock_attrs
+            if not c.modname.startswith("tpu_operator_torch.sanitizer")}
+    built = {(f"{graph.module_name(relpath)}:{cls}", target)
+             for call, _, relpath, cls, target in sites if cls and call != "register_shared"}
+    assert seen == built and len(seen) == 23

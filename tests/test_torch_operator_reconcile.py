@@ -275,11 +275,13 @@ def _samples(text):
     return samples, types
 
 
-#: the reference's metric families the port leaves out: the race
-#: sanitizer's (ROADMAP Queue 1), as their ``# TYPE`` lines name them
-FAMILIES_LEFT_OUT = ("tpu_operator_opsan_races_total", "tpu_operator_opsan_races_created",
-                     "tpu_operator_opsan_tracked_accesses_total",
-                     "tpu_operator_opsan_tracked_accesses_created")
+#: the reference's metric families the port leaves out, as their ``# TYPE``
+#: lines name them: none, the race sanitizer's included
+FAMILIES_LEFT_OUT: tuple = ()
+#: the race sanitizer's families, which every scrape carries, switch on or off
+OPSAN_FAMILIES = ("tpu_operator_opsan_races_total", "tpu_operator_opsan_races_created",
+                  "tpu_operator_opsan_tracked_accesses_total",
+                  "tpu_operator_opsan_tracked_accesses_created")
 
 
 def test_the_metrics_text_is_prometheus_clients_for_the_same_values():
@@ -302,11 +304,10 @@ def test_the_metrics_text_is_prometheus_clients_for_the_same_values():
         m.rest_requests.labels(method="GET", code="200").inc(2)
     want, want_types = _samples(ref.scrape().decode())
     got, got_types = _samples(port.scrape().decode())
-    # every family of the reference but the race sanitizer's, which the port
-    # does not have yet (ROADMAP Queue 1)
-    assert got_types == {t for t in want_types
-                         if not any(f" {name}" in t for name in FAMILIES_LEFT_OUT)}
-    assert FAMILIES_LEFT_OUT and all(any(f" {name}" in t for t in want_types)
-                                     for name in FAMILIES_LEFT_OUT)
+    # every family of the reference, the race sanitizer's included
+    assert got_types == want_types
+    assert not FAMILIES_LEFT_OUT
+    assert all(any(t.endswith(f" {name} counter") or t.endswith(f" {name} gauge")
+                   for t in got_types) for name in OPSAN_FAMILIES)
     assert got == {k: v for k, v in want.items() if k in got}
     assert len(got) >= 20

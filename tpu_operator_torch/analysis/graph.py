@@ -41,7 +41,7 @@ from .core import LintConfig, dotted_name
 LOCK_FACTORIES = {"Lock", "RLock", "Condition", "Semaphore",
                   "BoundedSemaphore",
                   # the opsan-instrumentable factory seam
-                  # (tpu_operator_torch.utils.locks, once it exists)
+                  # (tpu_operator_torch.utils.locks)
                   "make_lock", "make_rlock"}
 #: attribute-name fragments treated as locks even without a visible factory
 LOCKISH_NAMES = ("lock", "cond", "mutex")

@@ -52,6 +52,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 from .errors import ConflictError
 from .interface import Client, WatchHandle
+from ..utils.locks import make_lock, register_shared
 
 log = logging.getLogger(__name__)
 
@@ -138,10 +139,10 @@ class WriteBatcher(Client):
         self._attempts = attempts
         self._sleep = sleep
         self._flush_workers = max(1, flush_workers)
-        self._lock = threading.Lock()
+        self._lock = make_lock("WriteBatcher._lock")
         self._depth = 0  # open windows (ref-counted across controllers)
         self._pending: Dict[Tuple[str, str, str, str], _Pending] = (
-            {})
+            register_shared("WriteBatcher._pending", {}))
         #: outermost read client, bound after chain assembly: the read cache
         #: above the batcher makes flush re-reads hits, and takes each
         #: flushed object back (its ``absorb``)
@@ -231,7 +232,8 @@ class WriteBatcher(Client):
                 for k in due:
                     del self._pending[k]
             else:
-                due, self._pending = self._pending, {}
+                due, self._pending = self._pending, register_shared(
+                    "WriteBatcher._pending", {})
         if not due:
             return
         def attempt(pending: _Pending) -> Optional[BaseException]:

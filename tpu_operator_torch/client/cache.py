@@ -38,6 +38,7 @@ from .errors import NotFoundError
 from .fake import match_field_selector, match_label_selector
 from .interface import Client, WatchEvent, WatchHandle
 from .scheme import Scheme, default_scheme
+from ..utils.locks import make_lock, register_shared
 
 log = logging.getLogger(__name__)
 
@@ -97,7 +98,8 @@ class _Informer:
         self.api_version = api_version
         self.kind = kind
         self.namespace = namespace
-        self._store: Dict[Tuple[str, str], dict] = {}
+        self._store: Dict[Tuple[str, str], dict] = register_shared(
+            f"Informer[{kind}]._store", {})
         #: the rv each deleted object's DELETED event carried, and the last
         #: relist's rv (below which an object absent from the list was
         #: deleted): a write made before the delete, whose response is
@@ -111,7 +113,7 @@ class _Informer:
         #: the cache, which would mark the kind caught up past events the
         #: watch still owes
         self.max_rv = -1
-        self._lock = threading.Lock()
+        self._lock = make_lock("_Informer._lock")
         self.synced = threading.Event()
         #: set after a full sync-timeout expired once: later reads stop
         #: paying the timeout and degrade to direct reads immediately
@@ -205,12 +207,16 @@ class _Informer:
             for key, obj in old.items():
                 if listed_rv >= 0 and _rv_int(obj) > max(listed_rv, _rv_int(store.get(key, {}))):
                     store[key] = obj
-            self._store = store
+            # the replacement is a new shared structure: registered again,
+            # two generations (the old map draining, the new one filling)
+            # are tracked apart
+            self._store = register_shared(f"Informer[{self.kind}]._store", store)
             self._gone = {}
             self._listed_rv = listed_rv
             self.max_rv = max(self.max_rv, self._listed_rv)
             vanished = [obj for key, obj in old.items()
                         if key not in self._store]
+            added = [store[self._key(item)] for item in items]
         self.synced.set()
         # controller-runtime Replace semantics: subscribers get ADDED for the
         # surviving set AND tombstone DELETEDs for objects removed during the
@@ -218,8 +224,8 @@ class _Informer:
         # in a watch outage would only ever surface via periodic resync
         for obj in vanished:
             self._fanout("DELETED", obj)
-        for item in items:
-            self._fanout("ADDED", store[self._key(item)])
+        for obj in added:
+            self._fanout("ADDED", obj)
 
     def _on_event(self, event: WatchEvent) -> None:
         self.apply(event.type, event.object)
@@ -283,8 +289,9 @@ class CachedClient(Client):
     def __init__(self, inner: Client, scheme: Optional[Scheme] = None):
         self.inner = inner
         self.scheme = scheme or getattr(inner, "scheme", None) or default_scheme()
-        self._informers: Dict[Tuple[str, str, Optional[str]], _Informer] = {}
-        self._lock = threading.Lock()
+        self._informers: Dict[Tuple[str, str, Optional[str]], _Informer] = (
+            register_shared("CachedClient._informers", {}))
+        self._lock = make_lock("CachedClient._lock")
 
     # -- informer plumbing ---------------------------------------------------
     def _scope(self, api_version: str, kind: str, namespace: Optional[str],

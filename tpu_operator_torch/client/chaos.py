@@ -29,12 +29,12 @@ from __future__ import annotations
 
 import dataclasses
 import random
-import threading
 import time
 from typing import Dict, List, Optional
 
 from .errors import ApiError, TooManyRequestsError
 from .interface import Client, WatchHandle
+from ..utils.locks import make_lock
 
 
 @dataclasses.dataclass
@@ -61,7 +61,7 @@ class ChaosPolicy:
 
     def __post_init__(self):
         self.rng = random.Random(self.seed)
-        self._lock = threading.Lock()
+        self._lock = make_lock("ChaosPolicy._lock")
         #: injected faults by kind: a run asserts the chaos happened
         self.injected: Dict[str, int] = {}
 
@@ -339,7 +339,7 @@ class CrashPointClient(Client):
         self._seen: set = set()
         self.fired = False
         self.dead = False
-        self._lock = threading.Lock()
+        self._lock = make_lock("CrashPointClient._lock")
 
     def _alive(self) -> None:
         if self.dead:

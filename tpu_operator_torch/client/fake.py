@@ -18,11 +18,11 @@ from __future__ import annotations
 
 import copy
 import queue
-import threading
 import uuid
 from typing import Callable, Dict, List, Optional, Tuple
 
 from ..utils import deep_get, json_merge_patch, rfc3339_now
+from ..utils.locks import make_rlock
 from .errors import (
     AlreadyExistsError,
     ApiError,
@@ -116,7 +116,7 @@ class _FakeWatch(WatchHandle):
 class FakeClient(Client):
     def __init__(self, scheme: Optional[Scheme] = None, objects: Optional[List[dict]] = None):
         self.scheme = scheme or default_scheme()
-        self._lock = threading.RLock()
+        self._lock = make_rlock("FakeClient._lock")
         self._store: Dict[Key, dict] = {}
         self._rv = 0
         # last rv at which an event was emitted, per (apiVersion, kind,

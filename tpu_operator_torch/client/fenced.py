@@ -35,11 +35,11 @@ the newer leader's writes invalidate.
 from __future__ import annotations
 
 import logging
-import threading
 from typing import Callable, List, Optional
 
 from .errors import FencedError
 from .interface import Client, WatchHandle
+from ..utils.locks import make_lock
 
 log = logging.getLogger(__name__)
 
@@ -60,7 +60,7 @@ class FencedClient(Client):
         self._fence = fence
         #: hook(verb) per rejection — feeds tpu_operator_fenced_writes_total
         self.on_fenced = on_fenced
-        self._lock = threading.Lock()
+        self._lock = make_lock("FencedClient._lock")
         #: rejections since construction, by verb (split-brain soak + /debug)
         self.fenced_total = 0
         self.fenced_by_verb: dict = {}

@@ -43,7 +43,6 @@ from __future__ import annotations
 import dataclasses
 import logging
 import random
-import threading
 import time
 from typing import Callable, List, Optional
 
@@ -57,6 +56,7 @@ from .errors import (
     is_transient,
 )
 from .interface import Client, WatchHandle
+from ..utils.locks import make_lock
 
 log = logging.getLogger(__name__)
 
@@ -97,7 +97,7 @@ class TokenBucket:
         self.burst = max(1, burst)
         self._clock = clock
         self._sleep = sleep
-        self._lock = threading.Lock()
+        self._lock = make_lock("TokenBucket._lock")
         self._tokens = float(self.burst)
         self._last = clock()
 
@@ -138,7 +138,7 @@ class CircuitBreaker:
         self.threshold = max(1, threshold)
         self.cooldown_s = cooldown_s
         self._clock = clock
-        self._lock = threading.Lock()
+        self._lock = make_lock("CircuitBreaker._lock")
         self._state = CLOSED
         self._consecutive_failures = 0
         self._open_until = 0.0

@@ -37,6 +37,7 @@ from .errors import (
 )
 from .interface import Client, WatchEvent, WatchHandle
 from .scheme import Scheme, default_scheme
+from ..utils.locks import make_lock
 
 log = logging.getLogger(__name__)
 
@@ -364,7 +365,7 @@ class _RestWatch(WatchHandle):
         self._relist_handler = relist_handler
         self._stopped = threading.Event()
         self._conn: Optional[http.client.HTTPConnection] = None
-        self._conn_lock = threading.Lock()
+        self._conn_lock = make_lock("_RestWatch._conn_lock")
         self._queue: "queue.Queue[WatchEvent]" = queue.Queue()
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name=f"watch-{kind}")

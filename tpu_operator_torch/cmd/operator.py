@@ -46,7 +46,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--debug-endpoints", action=argparse.BooleanOptionalAction,
                    default=True,
                    help="serve /debug/{traces,join-traces,queue,state,informers,capacity,"
-                        "threads,timeline} on the health port "
+                        "threads,timeline,opsan} on the health port "
                         "(--no-debug-endpoints disables)")
     p.add_argument("--version", action="version", version=f"gpu-operator {__version__}")
     return p

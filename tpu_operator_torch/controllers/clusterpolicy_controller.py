@@ -62,7 +62,7 @@ from ..state.manager import (
 )
 from ..state.nodepool import NodePool, get_node_pools, shard_by_pools
 from ..state.operands import cluster_policy_states
-from ..utils import deep_get
+from ..utils import deep_get, register_shared
 from .metrics import OperatorMetrics
 from .predicates import filtered_node_mapper
 from .runtime import Controller, Reconciler, Request, Result
@@ -107,9 +107,11 @@ class ClusterPolicyReconciler(Reconciler):
         #: last-seen tpu.ai/slice.config.state per node: the retile counter
         #: ticks on a transition INTO "retiled", not on every sweep that
         #: sees it
-        self._last_slice_state: dict = {}
+        self._last_slice_state: dict = register_shared(
+            "ClusterPolicyController._last_slice_state", {})
         #: the last sweep's health rollup and serving failures (/debug/queue)
-        self._last_health_counts: dict = {}
+        self._last_health_counts: dict = register_shared(
+            "ClusterPolicyController._last_health_counts", {})
         self._last_serving_failing: list = []
 
     def debug_state(self) -> dict:

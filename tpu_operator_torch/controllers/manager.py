@@ -14,8 +14,10 @@ The app also builds the operator's black box: the decision-provenance
 journal (on the client chain, so its mirror writes are fenced), the flight
 recorder (``--trace-buffer-size``) and its tracer, and the join profiler,
 and serves them on the health port under ``/debug`` (:data:`DEBUG_ROUTES`;
-``--no-debug-endpoints`` serves none). The reference's ``/debug/opsan``
-belongs to a race sanitizer the port does not have.
+``--no-debug-endpoints`` serves none). ``/debug/opsan`` serves the race
+sanitizer's live report (``{"enabled": false}`` unless the process runs with
+``GPU_OPERATOR_OPSAN=1``), whose two counters the app then wires into
+``/metrics``.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from ..client.resilience import (
     find_resilience,
 )
 from ..client.rest import RestClient
+from ..utils.locks import opsan_on
 from .clusterpolicy_controller import (
     ClusterPolicyReconciler,
     setup_clusterpolicy_controller,
@@ -55,7 +58,7 @@ log = logging.getLogger(__name__)
 #: every /debug route the health server answers
 DEBUG_ROUTES = ("/debug/informers", "/debug/traces", "/debug/join-traces",
                 "/debug/queue", "/debug/state", "/debug/threads",
-                "/debug/timeline", "/debug/capacity")
+                "/debug/timeline", "/debug/capacity", "/debug/opsan")
 
 
 def _query_int(query: dict, key: str, default: int) -> int:
@@ -138,6 +141,14 @@ def serve_health_and_metrics(metrics: OperatorMetrics, metrics_port: int,
                 # the capacity collector: pool curves from the nodes' serving
                 # frontiers, staleness and open drift episodes
                 return app.capacity.debug_state()
+            if path == "/debug/opsan":
+                # the race sanitizer's live report: tracked structures,
+                # dynamic lock edges, races, suppressions
+                if not opsan_on():
+                    return {"enabled": False}
+                from ..sanitizer.core import runtime as opsan_runtime
+
+                return dict(opsan_runtime().report(), enabled=True)
             # /debug/threads: every thread's stack, as a goroutine dump
             frames = sys._current_frames()
             lines = []
@@ -265,6 +276,11 @@ class OperatorApp:
         if self.batcher is not None:
             self.batcher.bind_read_client(client)
             self.metrics.wire_batching(self.batcher)
+        # under the race sanitizer: its race and access counters on /metrics
+        if opsan_on():
+            from ..sanitizer.core import runtime as opsan_runtime
+
+            self.metrics.wire_opsan(opsan_runtime())
         self._metrics_port = metrics_port
         self._health_port = health_port
         self._servers: list = []

@@ -14,9 +14,11 @@ text exposition format as that library does (counters as ``_total`` with a
 from __future__ import annotations
 
 import math
-import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
+
+from ..utils.locks import make_lock
+
 
 def _format(value: float) -> str:
     """A sample value as Go's float formatting writes it (1e+06 and up go
@@ -55,7 +57,7 @@ class _Child:
         self.counts = [0] * len(buckets)
         self.sum = 0.0
         self.count = 0
-        self._lock = threading.Lock()
+        self._lock = make_lock("_Child._lock")
 
     def inc(self, amount: float = 1.0) -> None:
         with self._lock:
@@ -91,7 +93,7 @@ class _Family:
         self.labelnames = tuple(labelnames)
         self.buckets = tuple(buckets)
         self._children: Dict[Tuple[str, ...], _Child] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("_Family._lock")
         if not self.labelnames:
             self._children[()] = _Child(self.buckets)
 
@@ -419,6 +421,19 @@ class OperatorMetrics:
             "tpu_operator_write_batch_size",
             "Deferred writes folded into one flushed PATCH, per object",
             buckets=(1, 2, 3, 5, 8, 13, 21, 34)))
+        # opsan, the race sanitizer: nonzero only in a process run with
+        # GPU_OPERATOR_OPSAN=1 (the race-soak lane, the smoke's sanitized
+        # join, or a live repro of a suspected race)
+        self.opsan_races = add(Counter(
+            "tpu_operator_opsan_races_total",
+            "Unsuppressed data races reported by the opsan lockset "
+            "sanitizer (candidate lockset emptied on a shared-modified "
+            "access); any nonzero value fails the race-soak lane"))
+        self.opsan_tracked_accesses = add(Counter(
+            "tpu_operator_opsan_tracked_accesses_total",
+            "Reads/writes of register_shared()-tracked structures observed "
+            "by opsan (a zero here under GPU_OPERATOR_OPSAN=1 means the "
+            "sanitizer saw nothing)"))
 
     def _add(self, family):
         self.families.append(family)
@@ -475,6 +490,13 @@ class OperatorMetrics:
         """The WriteBatcher's hooks: deferred writes and batch sizes."""
         batcher.on_batched = self.batched_writes.inc
         batcher.on_flush = self.write_batch_size.observe
+
+    def wire_opsan(self, rt) -> None:
+        """The opsan runtime's hooks: tracked-access volume and the
+        unsuppressed-race counter. Nothing fires while opsan is off: the
+        hooks run from tracked proxies, which do not exist then."""
+        rt.on_access = self.opsan_tracked_accesses.inc
+        rt.on_race = lambda report: self.opsan_races.inc()
 
     def scrape(self) -> bytes:
         lines: List[str] = []

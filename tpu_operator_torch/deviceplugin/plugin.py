@@ -54,6 +54,7 @@ from ..partitioner.topology import Links, link_cost
 from ..validator.cdi import qualified_name
 from ..validator.driver import control_nodes, driver_lib_files, gpu_node
 from ..validator.status import StatusFiles, failed_local_chips, partial_sweep
+from ..utils.locks import make_lock
 
 log = logging.getLogger(__name__)
 
@@ -256,7 +257,7 @@ class GPUDevicePlugin:
         #: NVML could not tell, and preferred allocations are lexical)
         self._links: Optional[Links] = None
         self._watchers: List["queue.Queue[List[Unit]]"] = []
-        self._lock = threading.Lock()
+        self._lock = make_lock("GPUDevicePlugin._lock")
         self._server = None
         self._stop = threading.Event()
 

@@ -28,13 +28,13 @@ schedulable once it has ``nvidia.com/gpu`` capacity.
 from __future__ import annotations
 
 import logging
-import threading
 import time
 from collections import OrderedDict, deque
 from typing import List, Optional
 
 from .. import consts, tracing
 from ..utils import deep_get
+from ..utils.locks import make_lock
 from .critical_path import attribute, phase_of, record_intervals
 from .records import decode_annotation
 
@@ -50,7 +50,7 @@ class JoinProfiler:
                  latency_window: int = 512, max_sweeps: int = 512):
         self.metrics = metrics
         self.max_nodes = max_nodes
-        self._lock = threading.Lock()
+        self._lock = make_lock("JoinProfiler._lock")
         #: reconcile root durations (all controllers) for the p50/p99 summary
         self._latency: deque = deque(maxlen=latency_window)
         #: (start_unix, end_unix, controller, trace_id) per finalized root

@@ -43,7 +43,7 @@ from ..controllers.runtime import Controller, Reconciler, Request, Result
 from ..health import drain as drain_protocol
 from ..nodeinfo import is_gpu_node
 from ..provenance import DecisionJournal, episode_id
-from ..utils import deep_get
+from ..utils import deep_get, register_shared
 from .checkpoint import dumps_compact
 
 log = logging.getLogger(__name__)
@@ -129,7 +129,8 @@ class MigrationReconciler(Reconciler):
         #: process-local census of in-flight episodes (src -> phase) for
         #: the migrations_in_progress gauge; rebuilt from annotations as
         #: requests arrive, so a restart under-counts for at most one sweep
-        self._active: Dict[str, str] = {}
+        self._active: Dict[str, str] = register_shared(
+            "MigrationController._active", {})
         #: the seq of the last state row this process persisted per source,
         #: and when: the row waits in the write batcher while other
         #: controllers hold their windows open (up to its 2 s deadline), and

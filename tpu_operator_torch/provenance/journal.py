@@ -28,7 +28,6 @@ import dataclasses
 import json
 import logging
 import os
-import threading
 import time
 from typing import Dict, List, Optional
 
@@ -36,6 +35,7 @@ from .. import tracing
 from ..client.errors import AlreadyExistsError, ApiError
 from ..client.fenced import find_fenced
 from ..utils import object_hash
+from ..utils.locks import make_rlock, register_shared
 
 log = logging.getLogger(__name__)
 
@@ -139,10 +139,12 @@ class DecisionJournal:
         self._path = path
         self._bound = max(1, int(bound))
         self._now = now
-        self._lock = threading.RLock()
+        self._lock = make_rlock("DecisionJournal._lock")
         # rid -> record (insertion order)
-        self._records: Dict[str, DecisionRecord] = {}
-        self._episodes: Dict[str, _Episode] = {}
+        self._records: Dict[str, DecisionRecord] = register_shared(
+            "DecisionJournal._records", {})
+        self._episodes: Dict[str, _Episode] = register_shared(
+            "DecisionJournal._episodes", {})
         self.recorded_total = 0
         self.replayed_total = 0   # dedupe hits: crash replay / double record
         self.pruned_total = 0

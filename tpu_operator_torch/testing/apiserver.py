@@ -24,6 +24,7 @@ from urllib.parse import parse_qs, urlparse
 from ..client.errors import ApiError, TooManyRequestsError
 from ..client.fake import FakeClient
 from ..client.scheme import Scheme, default_scheme
+from ..utils.locks import make_lock
 
 
 def _parse_selector(raw: str) -> dict:
@@ -112,7 +113,7 @@ class MiniApiServer:
         self.requests: "collections.Counter[Tuple[str, str]]" = collections.Counter()
         #: every eviction request: (unix time, namespace, pod, HTTP status)
         self.evictions: list = []
-        self._count_lock = threading.Lock()
+        self._count_lock = make_lock("MiniApiServer._count_lock")
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
 

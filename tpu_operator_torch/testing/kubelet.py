@@ -62,6 +62,7 @@ from typing import Callable, Dict, List, Optional
 
 from .. import consts
 from ..utils import deep_get, template_fingerprint
+from ..utils.locks import make_lock
 
 log = logging.getLogger(__name__)
 
@@ -322,7 +323,7 @@ class ProcessKubelet:
         #: test's fault injection); None: nothing added
         self.pod_env: Optional[Dict[str, str]] = None
         self.events: List[dict] = []
-        self._events_lock = threading.Lock()
+        self._events_lock = make_lock("ProcessKubelet._events_lock")
         self._pods: Dict[str, _PodRun] = {}
         self._spawned: Dict[str, List[_Container]] = {}
         #: uids of spawned pods whose Pod object went: their processes are
@@ -330,11 +331,11 @@ class ProcessKubelet:
         self._killed: set = set()
         #: guards the two above; never held across a client call (the
         #: watch handler runs under the apiserver backend's own lock)
-        self._spawn_lock = threading.Lock()
+        self._spawn_lock = make_lock("ProcessKubelet._spawn_lock")
         self._watch = None
         self._capacity_set = False
         self._stopped = threading.Event()
-        self._lock = threading.Lock()
+        self._lock = make_lock("ProcessKubelet._lock")
         self._thread: Optional[threading.Thread] = None
         os.makedirs(log_dir, exist_ok=True)
 

@@ -26,13 +26,13 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import logging
-import threading
 import time
 import uuid
 from collections import deque
 from typing import Dict, Iterator, List, Optional
 
 from .consts import TRACE_ID_ANNOTATION, TRACE_PARENT_ENV  # noqa: F401  (re-exported)
+from .utils.locks import make_lock, register_shared
 
 #: the flight recorder's default capacity (``--trace-buffer-size``)
 DEFAULT_BUFFER_SIZE = 256
@@ -46,7 +46,7 @@ _remote_sink: contextvars.ContextVar[Optional[tuple]] = contextvars.ContextVar(
     "tpu_operator_torch_remote_sink", default=None)
 
 #: spans discarded because no trace was active on the calling thread
-_dropped_lock = threading.Lock()
+_dropped_lock = make_lock("tracing._dropped_lock")
 _dropped_spans = 0
 
 
@@ -339,9 +339,11 @@ class FlightRecorder:
         self.size = max(1, int(size))
         self.error_size = max(1, int(error_size if error_size is not None
                                      else self.size // 4 or 1))
-        self._lock = threading.Lock()
-        self._traces: deque = deque(maxlen=self.size)
-        self._errors: deque = deque(maxlen=self.error_size)
+        self._lock = make_lock("FlightRecorder._lock")
+        self._traces: deque = register_shared(
+            "FlightRecorder._traces", deque(maxlen=self.size))
+        self._errors: deque = register_shared(
+            "FlightRecorder._errors", deque(maxlen=self.error_size))
         self.recorded_total = 0
         self.error_total = 0
 

@@ -1,7 +1,8 @@
 """Helpers of the validator and the operator (counterpart of
 tpu_operator/utils/): object helpers (:mod:`.objects`), object hashing
-(:mod:`.hash`), the injectable wall clock (:mod:`.clock`) and scenario
-seeding (:mod:`.seeds`), plus the CUDA device-order pin every sweep process
+(:mod:`.hash`), the injectable wall clock (:mod:`.clock`), scenario
+seeding (:mod:`.seeds`) and the lock factory the race sanitizer sees the
+operator through (:mod:`.locks`), plus the CUDA device-order pin every sweep process
 gets. Torch-free: the node daemons import it."""
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from typing import MutableMapping
 
 from .. import consts
 from .hash import fnv32a, object_hash, template_fingerprint
+from .locks import make_lock, make_rlock, register_shared
 from .objects import (
     deep_get,
     deep_merge,
@@ -24,10 +26,13 @@ __all__ = [
     "deep_merge",
     "fnv32a",
     "json_merge_patch",
+    "make_lock",
+    "make_rlock",
     "object_hash",
     "parse_quantity",
     "pin_device_order",
     "pod_requests_resource",
+    "register_shared",
     "rfc3339_now",
     "template_fingerprint",
 ]
