@@ -228,6 +228,19 @@ Phases, each of which exits non-zero on failure:
    (two threads writing one registered dict with no lock) it exits 1,
    naming the variable. The sanitized ``ready`` seconds print beside phase
    12's. No hand-written kernel (K1's count under ``opsan`` is 0).
+21. after phase 20 (:func:`lanes_phase`): the port's test lanes on the
+   card's machine, with its own ``python3``, ``bash`` and ``curl`` (the
+   phase fails naming whichever is missing). The shell e2e
+   (``tests/scripts/torch/end-to-end.sh``: the cluster harness,
+   ``gpu-operator --leader-elect`` as a process, the seven cases of
+   ``tests/cases/torch/``) must print a PASS for every case; each case's
+   seconds and the total print. The envtest driver
+   (``tests/torch_envtest_driver.py --mini-apiserver``) must pass all five
+   steps. ``tests/e2e-envtest-gpu.sh`` and ``tests/e2e-kind-gpu.sh`` must
+   exit 77 with their skip records written into a temp dir, where the
+   machine has no ``kube-apiserver``/``etcd`` or ``kind``/``docker``/
+   ``kubectl`` (where it has them, they run and must exit 0). No
+   hand-written kernel (K1's count under ``lanes`` is 0).
 
 Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Needs a CUDA device and the rest of the repository beside this file.
@@ -2883,12 +2896,29 @@ def upgrade_phase(ctx) -> dict:
     # the driver pods' deletions as the apiserver takes them, with what
     # nvidia-smi shows at that instant (the handler runs inside the delete)
     driver_deleted = []
+    # every driver pod event with its template hash, readiness and restarts:
+    # what a U2 that leaves upgrade-failed early is read against
+    driver_events = []
 
     def on_pod(event):
         labels = (event.object.get("metadata") or {}).get("labels") or {}
-        if event.type == "DELETED" and labels.get("app.kubernetes.io/component") == "gpu-driver":
+        if labels.get("app.kubernetes.io/component") != "gpu-driver":
+            return
+        status = event.object.get("status") or {}
+        driver_events.append({
+            "t": time.time(), "type": event.type, "pod": event.object["metadata"]["name"],
+            "hash": labels.get(consts.TEMPLATE_HASH_LABEL), "phase": status.get("phase"),
+            "ready": any(c.get("type") == "Ready" and c.get("status") == "True"
+                         for c in status.get("conditions") or []),
+            "restarts": [c.get("restartCount") for c in status.get("containerStatuses") or []]})
+        if event.type == "DELETED":
             driver_deleted.append({"t": time.time(),
                                    "used_mib": _smi_used_mib() if on_gpu else None})
+
+    def driver_view(after):
+        template = deep_get(driver_ds(), "spec", "template", "metadata", "labels", default={})
+        return {"ds_hash": (template or {}).get(consts.TEMPLATE_HASH_LABEL),
+                "pod_events": [e for e in driver_events if e["t"] >= after]}
 
     op = _Operator(ctx, os.path.join(ctx.work, "operator-upgrade.log"))
     trail = watch = None
@@ -3030,11 +3060,12 @@ def upgrade_phase(ctx) -> dict:
             _upgrade_gauges(op.metrics_port)), 30, "tpu_operator_nodes_upgrades_failed 1")
         status = _gpuop_cfg(ctx, "status", "--base-url", ctx.base)
         print(status["out"])
-        check("upgrade-failed" in status["out"], "gpuop-cfg status shows no upgrade-failed")
+        check("upgrade-failed" in status["out"], f"gpuop-cfg status shows no upgrade-failed; "
+              f"states {trail.states(t_u2)}, the driver since U2 {driver_view(t_u2)}")
         # sticky while the pod crash-loops in place, ready between its crashes
         time.sleep(3.0)
         check(trail.states(t_u2)[-1] == "upgrade-failed", f"U2 left upgrade-failed: "
-                                                          f"{trail.states(t_u2)}")
+              f"{trail.states(t_u2)}, the driver since U2 {driver_view(t_u2)}")
         t_r = time.time()
         u2["failed_held_s"] = round(t_r - t_u2 - u2["upgrade-failed_s"], 3)
         _patch_policy(ctx, {"driver": {"env": U1_ENV}})
@@ -3986,8 +4017,9 @@ def lint_phase(ctx) -> dict:
     shutil.copytree(os.path.join(ctx.repo, "tpu_operator_torch"),
                     os.path.join(seeded, "tpu_operator_torch"),
                     ignore=shutil.ignore_patterns("__pycache__"))
-    os.makedirs(os.path.join(seeded, "docs"))
-    shutil.copy(os.path.join(ctx.repo, "docs", "operations.md"), os.path.join(seeded, "docs"))
+    os.makedirs(os.path.join(seeded, "docs", "gpu"))
+    shutil.copy(os.path.join(ctx.repo, "docs", "gpu", "operations.md"),
+                os.path.join(seeded, "docs", "gpu"))
     shutil.copy(os.path.join(ctx.repo, ".gpuop-lint-baseline.json"), seeded)
     path, rule = LINT_SEED
     with open(os.path.join(seeded, path)) as f:
@@ -4239,6 +4271,83 @@ def opsan_phase(ctx) -> dict:
     numbers["phase_s"] = round(time.monotonic() - started, 3)
     print(json.dumps({"opsan": {k: numbers[k] for k in ("join", "fuzz", "planted", "phase_s")},
                       "card": ctx.card}))
+    return numbers
+
+
+#: the envtest driver's five steps and its verdict, each of which must pass
+LANES_ENVTEST_STEPS = ("crd-install", "schema-422", "structural-pruning",
+                       "reconcile-to-ready", "ownerref-gc", "overall")
+#: the shell e2e's outer bound (its cases' own waits are the detectors)
+LANES_E2E_TIMEOUT_S = 600
+
+
+def lanes_phase(ctx) -> dict:
+    """Phase 21, after phase 20: the port's test lanes outside the package,
+    run on this machine.
+
+    1. ``bash`` and ``curl`` must be found (the shell e2e's two tools).
+    2. ``tests/scripts/torch/end-to-end.sh``, every case: exit 0 and a
+       ``PASS: <case> (<s> s)`` line for each ``tests/cases/torch/*.sh``.
+    3. ``tests/torch_envtest_driver.py --mini-apiserver --expect-gc yes``:
+       exit 0 and every step of :data:`LANES_ENVTEST_STEPS` ``pass`` in its
+       ``results.jsonl``.
+    4. ``tests/e2e-envtest-gpu.sh`` and ``tests/e2e-kind-gpu.sh``: exit 77
+       with their skip record in ``ctx.work``, or exit 0 where their tools
+       exist.
+
+    ``ctx``: ``repo``, ``work`` (a scratch directory), ``card`` and
+    ``operator_env`` (the processes' environment)."""
+    started = time.monotonic()
+    numbers = {"card": ctx.card}
+    tools = {tool: shutil.which(tool) for tool in ("bash", "curl")}
+    check(all(tools.values()), f"the lanes need bash and curl; missing: "
+          f"{sorted(t for t, path in tools.items() if not path)}")
+    env = dict(ctx.operator_env, TMPDIR=ctx.work)
+
+    t = time.monotonic()
+    e2e = subprocess.run(["bash", os.path.join("tests", "scripts", "torch", "end-to-end.sh")],
+                         cwd=ctx.repo, env=env, capture_output=True, text=True,
+                         timeout=LANES_E2E_TIMEOUT_S)
+    total_s = round(time.monotonic() - t, 3)
+    cases = sorted(os.path.basename(p)
+                   for p in glob.glob(os.path.join(ctx.repo, "tests", "cases", "torch", "*.sh")))
+    passed = dict(re.findall(r"=== PASS: (\S+) \(([\d.]+) s\) ===", e2e.stdout))
+    check(e2e.returncode == 0 and sorted(passed) == cases and len(cases) == 7,
+          f"the shell e2e exited {e2e.returncode} with {sorted(passed)} of {cases} passed:\n"
+          f"{e2e.stdout[-3000:]}\n{e2e.stderr[-3000:]}")
+    numbers["shell_e2e"] = {"case_s": {c: float(passed[c]) for c in cases}, "total_s": total_s}
+
+    evidence = os.path.join(ctx.work, "envtest-evidence")
+    t = time.monotonic()
+    envtest = subprocess.run(
+        [sys.executable, os.path.join("tests", "torch_envtest_driver.py"), "--mini-apiserver",
+         "--expect-gc", "yes", "--timeout", "120", "--evidence-dir", evidence],
+        cwd=ctx.repo, env=env, capture_output=True, text=True, timeout=300)
+    steps = {}
+    if os.path.exists(os.path.join(evidence, "results.jsonl")):
+        with open(os.path.join(evidence, "results.jsonl")) as f:
+            steps = {r["step"]: r["status"] for r in map(json.loads, f)}
+    check(envtest.returncode == 0 and steps == {s: "pass" for s in LANES_ENVTEST_STEPS},
+          f"the envtest driver exited {envtest.returncode} with {steps}:\n"
+          f"{envtest.stdout[-2000:]}\n{envtest.stderr[-2000:]}")
+    numbers["envtest"] = {"steps": steps, "wall_s": round(time.monotonic() - t, 3)}
+
+    for script, record_env in (("e2e-envtest-gpu.sh", "ENVTEST_SKIP_RECORD"),
+                               ("e2e-kind-gpu.sh", "KIND_SKIP_RECORD")):
+        record = os.path.join(ctx.work, f"{script}.skip.json")
+        out = subprocess.run(["bash", os.path.join("tests", script)], cwd=ctx.repo,
+                             env=dict(env, **{record_env: record}), capture_output=True,
+                             text=True, timeout=1800)
+        skipped = out.returncode == 77 and os.path.exists(record)
+        if skipped:
+            with open(record) as f:
+                skipped = json.load(f).get("skipped") is True
+        check(skipped or out.returncode == 0,
+              f"{script} exited {out.returncode} (77 with a skip record, or 0, expected):\n"
+              f"{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+        numbers[script] = "skipped (77)" if skipped else "ran (0)"
+    numbers["phase_s"] = round(time.monotonic() - started, 3)
+    print(json.dumps({"lanes": numbers}))
     return numbers
 
 
@@ -4521,6 +4630,16 @@ def main() -> int:
     check(opsan_launches == 0, f"phase 20 launched K1 {opsan_launches} times")
     shutil.rmtree(opsan_work, ignore_errors=True)
 
+    phase("the port's lanes: the shell e2e, the envtest driver, the kind and envtest skips")
+    k1.launches = 0
+    lanes_work = tempfile.mkdtemp(prefix="chip-smoke-lanes-")
+    lanes_phase(types.SimpleNamespace(
+        repo=os.path.dirname(os.path.abspath(__file__)), card=card, work=lanes_work,
+        operator_env=dict(os.environ)))
+    lanes_launches = k1.launches
+    check(lanes_launches == 0, f"phase 21 launched K1 {lanes_launches} times")
+    shutil.rmtree(lanes_work, ignore_errors=True)
+
     print(json.dumps({"smoke_s": round(time.monotonic() - _T0, 1), "card": card}))
     print(json.dumps({"kernels": [{
         "name": "stream_copy",
@@ -4539,7 +4658,8 @@ def main() -> int:
         # operator (12), the GPUDriver and leader phase (13), the health
         # loop (14), the rolling upgrade (15), the capacity loop (16), the
         # fleet simulator (17), the support bundle (18), the static checker
-        # (19) and the sanitized join (20) are checked at 0 above
+        # (19), the sanitized join (20) and the lanes (21) are checked at 0
+        # above
         "launches_by_phase": {"perf": k1_main_launches, "serving": serving_launches,
                               "steady_state": steady_state_launches,
                               "device_plumbing": plumbing_launches,
@@ -4552,7 +4672,8 @@ def main() -> int:
                               "simulator": simulator_launches,
                               "must_gather": must_gather_launches,
                               "lint": lint_launches,
-                              "opsan": opsan_launches},
+                              "opsan": opsan_launches,
+                              "lanes": lanes_launches},
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,8 +10,10 @@ process, like the node daemons and the fleet simulator, imports no
 torch."""
 
 import ast
+import glob
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 
@@ -116,6 +118,32 @@ def test_no_forbidden_import_in_source(path):
             continue
         for root in roots:
             assert root not in FORBIDDEN, f"{path}:{node.lineno} imports {root}"
+
+
+def _lane_files():
+    """The port's files outside the package: its shell e2e, envtest and
+    kind lanes, images, make file, workflow, real-hardware lane and runbook."""
+    globs = ("tests/scripts/torch/*.sh", "tests/cases/torch/*.sh", "tests/*-gpu.sh",
+             "tests/gpu-ci.yaml", "tests/torch_envtest_driver.py", "docker/gpu-*.Dockerfile",
+             "multi-arch-gpu.mk", ".github/workflows/ci-gpu.yaml", "docs/gpu/*.md")
+    return sorted({p for g in globs for p in glob.glob(os.path.join(REPO, g))})
+
+
+def test_the_lane_file_list_is_complete():
+    names = {os.path.relpath(p, REPO) for p in _lane_files()}
+    assert len(names) == 22
+    assert {"tests/e2e-envtest-gpu.sh", "tests/e2e-kind-gpu.sh", "tests/ci-run-e2e-gpu.sh",
+            "docker/gpu-validator.Dockerfile", "tests/cases/torch/gpudriver.sh"} <= names
+
+
+@pytest.mark.parametrize("path", _lane_files(), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_lane_file_names_the_reference(path):
+    """The port's lanes run the port only: no script, case, image, make file
+    or workflow names the reference's package or its ``tpuop-`` tools."""
+    with open(path) as f:
+        text = f.read()
+    hit = re.search(r"\btpu_operator[./]|tpuop-", text)
+    assert hit is None, f"{os.path.relpath(path, REPO)} names {hit[0]!r}"
 
 
 

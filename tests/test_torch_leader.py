@@ -188,6 +188,54 @@ def test_unsatisfiable_retry_period_rejected():
     assert refused and 2.0 <= deadline < 15.0
 
 
+def test_a_slow_start_keeps_renewing_and_its_writes_pass_the_fence():
+    """The port's repair: a start longer than the renew deadline (informer
+    syncs on a loaded host) runs on its own thread while the elector keeps
+    renewing, so the writes it triggers pass the replica's own fence. Run
+    inline, as the reference runs it, the hold window lapsed during the start
+    and the port's fence refused the install's first writes with the lease
+    still held (tests/test_torch_split_brain.py's port case under load)."""
+    client = FakeClient()
+    e = elector(PORT, client, "a", lease_duration=2.0)  # renew deadline 0.5 s
+    fence = fenced.FencedClient(client)
+    fence.bind(e)
+    seen = []
+
+    def on_started():
+        for _ in range(8):  # 1.2 s in all, past the deadline
+            time.sleep(0.15)
+            seen.append(e.current_epoch())
+        fence.create(_node())
+
+    e.run(on_started=on_started, on_stopped=lambda: None)
+    try:
+        assert _wait(lambda: fence.dispatched_total + fence.fenced_total == 1, 5)
+        assert seen == [1] * 8
+        assert (fence.dispatched_total, fence.fenced_total) == (1, 0)
+        assert e.current_epoch() == 1
+    finally:
+        e.release()
+
+
+def test_a_failed_start_steps_down_and_stops():
+    """``on_started`` raising on its thread: the elector steps down loudly
+    (``is_leader`` cleared, ``on_stopped`` called once) and its loop ends."""
+    stopped = []
+    e = elector(PORT, FakeClient(), "a")
+
+    def on_started():
+        raise RuntimeError("controllers failed to start")
+
+    e.run(on_started=on_started, on_stopped=lambda: stopped.append(True))
+    try:
+        assert _wait(lambda: stopped == [True], 5)
+        assert not e.is_leader.is_set() and e.current_epoch() is None
+        e._thread.join(timeout=5)
+        assert not e._thread.is_alive()
+    finally:
+        e.release()
+
+
 def test_the_production_defaults_are_15_5_and_2_seconds():
     for m in (REF, PORT):
         e = m.leader.LeaderElector(m.Fake(), NS, identity="a")

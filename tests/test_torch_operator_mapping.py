@@ -134,6 +134,11 @@ def map_object(obj: dict) -> dict:
         env = out["spec"]["template"]["spec"]["containers"][0]["env"]
         if not any(e["name"] == "GPU_REVALIDATE_INTERVAL" for e in env):
             env.append({"name": "GPU_REVALIDATE_INTERVAL", "value": "0"})
+    if out.get("kind") == "PrometheusRule" and out["metadata"]["name"] == "gpu-operator-alerts":
+        for group in out["spec"]["groups"]:
+            for rule in group["rules"]:
+                rule["annotations"] = {k: map_alert_text(v)
+                                       for k, v in rule["annotations"].items()}
     tpl = out.get("spec", {}).get("template")
     labels = (tpl or {}).get("metadata", {}).get("labels") or {}
     if consts.TEMPLATE_HASH_LABEL in labels:
@@ -816,17 +821,18 @@ def map_chart_values(values: dict) -> dict:
 #: what each linter lints, reads and is called: the package tree (the
 #: whole-program graph's and ``--changed``'s), its manifests, the key
 #: registry module, the console script, the baseline file and how it is
-#: regenerated. ``docs/operations.md`` is read by both: the port's metric
-#: families and keys keep the reference's names
+#: regenerated, and the runbook whose tables it reads (the port's metric
+#: families and keys keep the reference's names, but the port's runbook is
+#: its own, docs/gpu/operations.md)
 LINT_NAMES = {
     "reference": {"tree": "tpu_operator", "manifests": "tpu_operator/manifests",
                   "consts": "tpu_operator.consts", "tool": "opalint",
                   "baseline": ".opalint-baseline.json",
-                  "regenerate": "make lint-baseline"},
+                  "regenerate": "make lint-baseline", "docs": "docs/operations.md"},
     "port": {"tree": "tpu_operator_torch", "manifests": "tpu_operator_torch/manifests",
              "consts": "tpu_operator_torch.consts", "tool": "gpuop-lint",
              "baseline": ".gpuop-lint-baseline.json",
-             "regenerate": "gpuop-lint --write-baseline"},
+             "regenerate": "gpuop-lint --write-baseline", "docs": "docs/gpu/operations.md"},
 }
 
 #: the two rules whose idiom the port maps; every other rule is the
@@ -870,11 +876,90 @@ def map_lint_text(text: str) -> str:
 
 def unmap_lint_text(text: str) -> str:
     """A port linter's path, message or output in the reference's names:
-    the package, the tool, its baseline file and how it is regenerated."""
+    the package, the tool, its baseline file, how it is regenerated and
+    the runbook it reads."""
     port, ref = LINT_NAMES["port"], LINT_NAMES["reference"]
-    for key in ("regenerate", "baseline", "tool"):
+    for key in ("docs", "regenerate", "baseline", "tool"):
         text = text.replace(port[key], ref[key])
     return text.replace("tpu_operator_torch", "tpu_operator")
+
+
+# -- the test and release lanes outside the package ---------------------------------
+#
+# The port's lanes sit beside the reference's and run the port only. Their
+# files: tests/scripts/torch/ and tests/cases/torch/ (the shell e2e, one
+# level below the reference's, whose orchestrator runs ``ls *.sh`` in
+# tests/cases), tests/torch_envtest_driver.py with tests/e2e-envtest-gpu.sh,
+# docs/gpu/operations.md (the runbook ``gpuop-lint`` reads), the images
+# docker/gpu-{operator,validator}.Dockerfile with multi-arch-gpu.mk,
+# tests/e2e-kind-gpu.sh, .github/workflows/ci-gpu.yaml and the real-hardware
+# lane tests/ci-run-e2e-gpu.sh, tests/gpu-ci.yaml,
+# tests/scripts/torch/verify-real-cluster.sh. Their names:
+# - nodes ``gpu-node-<i>`` (the reference's ``tpu-node-<i>``), the operand
+#   DaemonSets :data:`LANE_DAEMONSETS`' values, a per-pool driver
+#   ``gpu-driver-<instance>-<pool>``, the sample GPUDriver ``default``;
+# - the install reads the port's JSON samples (no ``yaml2json``), and the
+#   port's harness always makes pods (no ``--create-pods``);
+# - the env-only upgrade rolls ``GPU_HOST_DRIVER_PATHS`` (the port's driver
+#   container reads it) where the reference's rolls ``LIBTPU_INIT_ARGS``;
+# - the envtest skip record defaults to tests/e2e-envtest-gpu-SKIPPED.json,
+#   which is not committed; the reference's script writes its committed
+#   tests/e2e-envtest-SKIPPED.json;
+# - the kind lane's stub node plants ``libcuda.so.1``/``libnvidia-ml.so.1``
+#   where :data:`tpu_operator_torch.validator.driver.HOST_DRIVER_PATHS`
+#   looks, and ``/dev/nvidia*`` (the reference's: ``libtpu.so``,
+#   ``/dev/accel*``); its status check is ``gpuop-cfg status``;
+# - the images are ``gpu-operator`` (amd64, arm64) and ``gpu-validator``
+#   (amd64 only: a CUDA payload); the reference's ``tpu-operator`` and
+#   ``tpu-validator``.
+# - the operator's alerts name ``gpuop-cfg`` and docs/gpu/operations.md
+#   where the reference's name ``tpuop-cfg`` and docs/operations.md; the
+#   alert names and expressions are the reference's.
+
+#: the runbook each package's tooling and alerts name
+RUNBOOKS = {name: names["docs"] for name, names in LINT_NAMES.items()}
+
+#: the alerts' summaries and descriptions: the port's tool and runbook, and
+#: GPU words where the port's nodes differ; alert names, expressions, label
+#: keys and metric families stay the reference's
+ALERT_TEXT_RULES = [
+    (r"tpuop-cfg", "gpuop-cfg"),
+    (r"docs/operations\.md", RUNBOOKS["port"]),
+    (r"\bTPU (operator|nodes?|fleet)\b", r"GPU \1"),
+    (r"the node's physical chip grid cannot realize",
+     "the node's GPUs and their NVLink/PCIe links cannot realize"),
+    (r"a node's chip grid", "a node's GPUs"),
+    (r"the rolling libtpu upgrade", "the rolling GPU driver upgrade"),
+    (r"have chips quarantined", "have GPUs quarantined"),
+    (r"\bchip-health remediation", "health remediation"),
+    (r"\bchip (failures|demand)", r"GPU \1"),
+    (r"\bthe chips back", "the GPUs back"),
+    (r"around unhealthy chips", "around unhealthy GPUs"),
+]
+
+
+def map_alert_text(text: str) -> str:
+    for pattern, repl in ALERT_TEXT_RULES:
+        text = re.sub(pattern, repl, text)
+    return text
+
+
+#: the reference's shell case -> the port's, where the name differs
+SHELL_CASES = {"tpudriver.sh": "gpudriver.sh"}
+
+#: the reference's operand DaemonSets (what its verify step waits for) ->
+#: the port's
+LANE_DAEMONSETS = {
+    "libtpu-driver": "gpu-driver",
+    "tpu-operator-validator": "gpu-operator-validator",
+    "tpu-device-plugin": "gpu-device-plugin",
+    "tpu-feature-discovery": "gpu-feature-discovery",
+    "tpu-telemetry-exporter": "gpu-telemetry-exporter",
+    "tpu-node-status-exporter": "gpu-node-status-exporter",
+}
+
+def test_the_lane_daemonsets_are_the_mapped_names():
+    assert {k: _map_string(k) for k in LANE_DAEMONSETS} == LANE_DAEMONSETS
 
 
 # -- the mapping's own tests ----------------------------------------------------

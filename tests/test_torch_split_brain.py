@@ -5,7 +5,10 @@ tests (``test_split_brain_old_leader_fully_fenced`` and
 Two live replicas of one package's operator, each wired as the operator's
 composition root wires it (``CachedClient → WriteBatcher → RetryingClient →
 FencedClient → RestClient``, the elector on its own direct client, the fence
-bound to the elector), share one MiniApiServer, one node and its agents.
+bound to the elector), share one MiniApiServer, one node and its agents. The
+controllers start off the elector's thread in both cases: the port's elector
+does that itself, and the harness does it for the reference's, whose inline
+start let a loaded host starve the renew deadline at install.
 Replica A leads, then loses the coordination API only (an asymmetric
 partition). A must depose itself before the lease can expire for B; B's
 takeover bumps the leader epoch exactly once; every write A attempts after
@@ -89,6 +92,7 @@ class Replica:
     elector."""
 
     def __init__(self, s, base, ident):
+        self.s = s
         c = s.crash
         self.direct = LeasePartitionedClient(c.Rest(base_url=base))
         self.fenced = s.Fenced(c.Rest(base_url=base))
@@ -110,7 +114,18 @@ class Replica:
     def start(self):
         def on_started():
             self.acquired_at = time.monotonic()
-            self.app.start_controllers()
+            if self.s.name == "reference":
+                # the reference's elector runs on_started inline, so a slow
+                # controller start (a loaded host) starves its 0.5 s renew
+                # deadline and leadership churns at install; the port's
+                # elector runs it on its own thread and keeps renewing
+                # (controllers/leader.py:_start). The harness gives the
+                # reference's start the port's thread, so both cases meet
+                # the partition with a steady leader
+                threading.Thread(target=self.app.start_controllers, daemon=True,
+                                 name="reference-start").start()
+            else:
+                self.app.start_controllers()
 
         def on_stopped():
             # the deposed app stays alive: the window between lost

@@ -14,7 +14,7 @@ holds the port's control plane to the invariants that are
   never swallow ``BreakerOpenError`` (``exception-hygiene``,
   ``breaker-swallow``)
 * every metric is kept by its owner, documented in
-  ``docs/operations.md``, and bounded-cardinality (``metrics-discipline``)
+  ``docs/gpu/operations.md``, and bounded-cardinality (``metrics-discipline``)
 
 Entry points: ``gpuop-lint`` / ``python -m tpu_operator_torch.cmd.lint``.
 Inline suppression: ``# opalint: disable=<rule>[,<rule>...] — <why>`` on

@@ -14,7 +14,7 @@ apiVersion strings (``tpu.ai/v1``, ``tpu.ai/v1alpha1``) are a separate
 class (Kubernetes group/version, not a metadata key) and are exempt.
 
 Inside the registry module itself the rule inverts: each registered value
-must appear in docs/operations.md (the registry table), keeping code and
+must appear in docs/gpu/operations.md (the registry table), keeping code and
 doc from drifting apart.
 """
 
@@ -62,7 +62,7 @@ class AnnotationRegistry(Checker):
                     node, self,
                     f"registered key {value!r} ({label}) is missing from "
                     f"the annotation-key registry table in "
-                    f"docs/operations.md")
+                    f"docs/gpu/operations.md")
             else:
                 names = project.const_names_by_value.get(value, [])
                 if names:

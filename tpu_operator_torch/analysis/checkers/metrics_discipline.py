@@ -2,7 +2,7 @@
 
 Subsumes (and extends to the AST level) the invariant behind the
 reference's ``tests/test_metrics_docs.py``: a metric an operator cannot
-look up in ``docs/operations.md`` is a metric they cannot act on. Three
+look up in ``docs/gpu/operations.md`` is a metric they cannot act on. Three
 checks per metric instantiation:
 
 * **registered** — for a ``prometheus_client`` class, ``registry=`` must
@@ -141,7 +141,7 @@ def _kwarg(call: ast.Call, name: str) -> Optional[ast.AST]:
 class MetricsDiscipline(Checker):
     name = "metrics-discipline"
     description = ("metrics must pass registry= (the port's: be built by "
-                   "their owner), be documented in docs/operations.md, and "
+                   "their owner), be documented in docs/gpu/operations.md, and "
                    "carry bounded-cardinality labels")
 
     def check(self, ctx: FileContext) -> Iterator[Finding]:
@@ -192,7 +192,7 @@ class MetricsDiscipline(Checker):
                     yield ctx.finding(
                         node, self,
                         f"metric {exposition!r} is not documented in "
-                        f"docs/operations.md — add a row to the metrics "
+                        f"docs/gpu/operations.md — add a row to the metrics "
                         f"reference table (an operator cannot act on an "
                         f"undocumented metric)")
             yield from self._check_labels(ctx, node, label)

@@ -54,7 +54,7 @@ class LintConfig:
     """Per-run configuration shared by every file's context."""
 
     root: str = "."
-    #: docs/operations.md content; None (file absent) disables only the
+    #: docs/gpu/operations.md content; None (file absent) disables only the
     #: documented-metric check — registration/cardinality still apply
     docs_text: Optional[str] = None
     #: manifest template texts keyed by posix relpath (e.g.

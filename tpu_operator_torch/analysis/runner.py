@@ -42,7 +42,7 @@ from .core import (
     suppressions,
 )
 
-DOCS_RELPATH = os.path.join("docs", "operations.md")
+DOCS_RELPATH = os.path.join("docs", "gpu", "operations.md")
 MANIFESTS_RELPATH = os.path.join("tpu_operator_torch", "manifests")
 #: the package tree the whole-program graph is always built from
 PROJECT_TREE = "tpu_operator_torch"

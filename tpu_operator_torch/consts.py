@@ -26,10 +26,8 @@ SPEC_HASH_ANNOTATION = "tpu.ai/operator-spec-hash"
 #: consecutive drift heals of one object (the damper's counter)
 DRIFT_HEALS_ANNOTATION = "tpu.ai/operator-drift-heals"
 #: set on GPU nodes (NVIDIA's operator: nvidia.com/gpu.present)
-# opalint: disable=annotation-registry — renamed on purpose (ROADMAP Queue 3, settled: "Operator differences"); docs/operations.md is the reference's and names tpu.present
 GPU_PRESENT_LABEL = "tpu.ai/gpu.present"
 #: per-operand node kill switches (NVIDIA's: nvidia.com/gpu.deploy.<operand>)
-# opalint: disable=annotation-registry — renamed on purpose (ROADMAP Queue 3, settled: "Operator differences"); docs/operations.md is the reference's and names tpu.deploy.<operand>
 DEPLOY_LABEL_PREFIX = "tpu.ai/gpu.deploy."
 #: which stack provides the component on a node: "host" records adoption
 #: of a platform-preinstalled driver or device plugin
@@ -91,11 +89,9 @@ UPGRADE_REVALIDATED_ANNOTATION = "tpu.ai/tpu-driver-upgrade-revalidated-for"
 #: node was schedulable when its upgrade first cordoned it; "false": it was
 #: cordoned already, by an admin or the health machine, and stays so).
 #: Written once per stay in the machine, dropped when the node leaves it
-# opalint: disable=annotation-registry — a port-only key (ROADMAP Queue 3, settled: "The upgrade keeps an admin's cordon"); docs/operations.md is the reference's
 UPGRADE_CORDONED_ANNOTATION = "tpu.ai/tpu-driver-upgrade-cordoned"
 #: port only: the upgrade's own decision episode on the node, apart from
 #: the health machine's :data:`PROVENANCE_EPISODE_ANNOTATION`
-# opalint: disable=annotation-registry — a port-only key (ROADMAP Queue 3, settled: "the upgrade keeps its own episode id"); docs/operations.md is the reference's
 UPGRADE_EPISODE_ANNOTATION = "tpu.ai/upgrade-episode-id"
 #: port only: a container that restarted more than this many times counts
 #: as crash-looping, as one waiting in ``CrashLoopBackOff`` does: a driver

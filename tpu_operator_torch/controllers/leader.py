@@ -109,6 +109,8 @@ class LeaderElector:
         self._renewed_at = float("-inf")
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        #: what ``on_started`` raised on its own thread (see :meth:`_start`)
+        self._start_error: Optional[BaseException] = None
 
     # -- fencing view ---------------------------------------------------------
     def current_epoch(self) -> Optional[int]:
@@ -227,24 +229,7 @@ class LeaderElector:
                 last_renew = start
                 if not self.is_leader.is_set():
                     log.info("leader election: %s acquired leadership", self.identity)
-                    self.is_leader.set()
-                    try:
-                        on_started()
-                    except Exception:  # opalint: disable=breaker-swallow — not swallowed: the leader that failed to start steps down loudly and stops (below)
-                        # a leader that failed to start MUST step down loudly
-                        # — swallowing this leaves a renewed lease held by a
-                        # replica that reconciles nothing, and an unguarded
-                        # raise kills the elector thread with is_leader set
-                        # (zombie split-brain)
-                        log.exception("leader election: on_started failed; "
-                                      "relinquishing %s", self.identity)
-                        self.is_leader.clear()
-                        try:
-                            on_stopped()
-                        except Exception:  # opalint: disable=breaker-swallow — the step-down path: logged, and the elector stops either way
-                            log.exception("on_stopped also failed")
-                        self._stop.set()  # this instance is done (prod exits)
-                        return
+                    self._start(on_started)
                 self._stop.wait(self.renew_period)
             elif (acquired is None and self.is_leader.is_set()
                   and now - last_renew < self.renew_deadline):
@@ -260,6 +245,41 @@ class LeaderElector:
                     self.is_leader.clear()
                     on_stopped()
                 self._stop.wait(self.retry_period)
+        if self._start_error is not None and self.is_leader.is_set():
+            # a leader that failed to start MUST step down loudly —
+            # swallowing this leaves a renewed lease held by a replica
+            # that reconciles nothing (zombie split-brain)
+            log.error("leader election: on_started failed; relinquishing %s",
+                      self.identity, exc_info=self._start_error)
+            self.is_leader.clear()
+            try:
+                on_stopped()
+            except Exception:  # opalint: disable=breaker-swallow — the step-down path: logged, and the elector stops either way
+                log.exception("on_stopped also failed")
+
+    def _start(self, on_started: Callable[[], None]) -> None:
+        """Set leadership and run ``on_started`` on their own thread, as
+        client-go runs OnStartedLeading, and wait for it at most one renew
+        period. A quick start ends inside the wait; a slow one (informer
+        syncs on a loaded host) goes on while this loop keeps renewing. Run
+        inline, a start longer than the renew deadline lapses the hold
+        window, and this replica's own fence refuses the very writes the
+        start triggers, though no peer could have taken the lease. A
+        failure is handed to the loop, which stops and steps down."""
+        def run():
+            # leadership is set on this thread, right before on_started, as
+            # the reference sets it on the elector's
+            self.is_leader.set()
+            try:
+                on_started()
+            except Exception as e:  # opalint: disable=breaker-swallow — not swallowed: handed to the loop, which steps down loudly and stops
+                self._start_error = e
+                self._stop.set()  # this instance is done (prod exits)
+
+        starter = threading.Thread(target=run, daemon=True, name="leader-start")
+        starter.start()
+        self.is_leader.wait(timeout=self.renew_period)  # the starter's first statement
+        starter.join(timeout=self.renew_period)
 
     def release(self) -> None:
         """Voluntary hand-off on clean shutdown (fast failover)."""
