@@ -241,6 +241,22 @@ Phases, each of which exits non-zero on failure:
    machine has no ``kube-apiserver``/``etcd`` or ``kind``/``docker``/
    ``kubectl`` (where it has them, they run and must exit 0). No
    hand-written kernel (K1's count under ``lanes`` is 0).
+22. after phase 21 (:func:`outage_phase`): a join through an apiserver
+   outage. A fresh one-node cluster as phase 12's whose ``gpu-operator``
+   keeps the chart's ``--leader-elect`` (a 15 s lease, a 5 s renew). Once
+   the validation chain runs on the card (the driver barrier written, the
+   node's GPUs advertised, the ClusterPolicy not yet ``ready``) the
+   apiserver stops, cutting every live connection, for 6 s; meanwhile the
+   ``gpu-device-plugin`` DaemonSet is deleted from its store and the
+   process kubelet takes the node's GPUs back. A new apiserver over the
+   same store then listens on the same port. The same operator process
+   must still hold the Lease under the same epoch; the DaemonSet comes
+   back and its pod runs, the node advertises NVML's GPU count again, the
+   workload barrier passes and the ClusterPolicy is ``ready``, within the
+   phase's 120 s. The outage's length, the seconds from the restart to
+   each milestone, the operator's counters and the workload's
+   ``elapsed_s`` print. No hand-written kernel (K1's count under
+   ``outage`` is 0).
 
 Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Needs a CUDA device and the rest of the repository beside this file.
@@ -1763,7 +1779,8 @@ def card_node(work: str) -> dict:
             "driver_env": {consts.DRIVER_SRC_ENV: bundle}}
 
 
-def join_cluster(repo: str, work: str, node: dict) -> types.SimpleNamespace:
+def join_cluster(repo: str, work: str, node: dict,
+                 leader_elect: bool = False) -> types.SimpleNamespace:
     """The one-node cluster of phases 12 and 20: the port's chart rendered
     with :func:`chart_values` (its ClusterPolicy must pass the CRD's
     schema), a MiniApiServer holding the node (``node`` as
@@ -1773,14 +1790,17 @@ def join_cluster(repo: str, work: str, node: dict) -> types.SimpleNamespace:
     DaemonSets the operator renders, the validation chain and its spawned
     workload pod. Returns ``srv``, ``base``, ``kubelet``, ``cp``,
     ``deployment``, ``argv`` and ``env`` (the Deployment's process here),
-    ``rendered`` and ``status_dir``."""
+    ``rendered`` and ``status_dir``. ``leader_elect`` keeps the chart's
+    default, ``--leader-elect`` on the Deployment (phase 22)."""
     from tpu_operator_torch import consts
     from tpu_operator_torch.testing import helmlite
     from tpu_operator_torch.testing.apiserver import MiniApiServer
     from tpu_operator_torch.testing.kubelet import ProcessKubelet
 
     status_dir = os.path.join(work, "status")
-    rendered = install_from_chart(repo, chart_values(work, status_dir), consts.DEFAULT_NAMESPACE)
+    values = chart_values(work, status_dir)
+    values["operator"]["leaderElect"] = leader_elect
+    rendered = install_from_chart(repo, values, consts.DEFAULT_NAMESPACE)
     cp = next(o for o in rendered if o["kind"] == "ClusterPolicy")
     deployment = next(o for o in rendered if o["kind"] == "Deployment")
     argv, deployment_env = deployment_process(repo, deployment)
@@ -2425,9 +2445,15 @@ def join_critical_path(health_port: int, metrics_port: int, node_name: str, t0: 
 NOT_READY_SWEEP_S = 5.0
 
 #: phase 14's ClusterPolicy health settings: the schema's shortest
-#: remediation wait, two attempts, a 5 s drain window, cordon on quarantine
+#: remediation wait (episode B's), two attempts, a 5 s drain window, cordon
+#: on quarantine
 HEALTH_SPEC = {"enabled": True, "cordonOnQuarantine": True, "maxRemediationAttempts": 2,
                "remediationWaitS": 30, "drainDeadlineS": 5}
+#: episode A's remediation wait: attempt 1 must have time to produce its
+#: verdict, and the validator's rerun on the card (the init chain and the
+#: workload pod) takes 24 s to over 30 s, so the schema's shortest wait
+#: raced it and a second attempt could fire on a node already passing
+EPISODE_A_REMEDIATION_WAIT_S = 90
 #: what each health episode's decision chain holds, in order
 EPISODE_A = ["drain-plan", "drain-force", "remediate", "health-recover"]
 EPISODE_B = ["drain-plan", "drain-force", "remediate", "remediate", "health-failed"]
@@ -2537,9 +2563,10 @@ def health_phase(ctx) -> dict:
     gets no GPU (``ctx.fault_env``), the node walks degraded and
     quarantined (cordoned), the drain plan waits out its 5 s deadline with
     no ack, the operator recycles the validator pod, and the fault, cleared
-    at once, lets the kubelet's rerun pass: recovered, then healthy. Episode
-    B, a persistent fault: attempt 1, attempt 2 (the driver pod too) 30 s
-    later, sticky ``failed`` 30 s after that, with ``NodeHealthDegraded``
+    at once, lets the kubelet's rerun pass within the episode's 90 s
+    remediation wait: recovered, then healthy. Episode B, with the wait
+    patched to the schema's shortest, a persistent fault: attempt 1,
+    attempt 2 (the driver pod too) 30 s later, sticky ``failed`` 30 s after that, with ``NodeHealthDegraded``
     on the ClusterPolicy; then the fault and the health label are cleared,
     as an admin would. Checked: the states, cordon, plans and Events of
     each episode; ``gpuop-cfg explain`` and ``/debug/timeline`` with two
@@ -2591,7 +2618,9 @@ def health_phase(ctx) -> dict:
         _wait_for(lambda: op.readyz().get("status") == "ok", 120, "the phase-14 operator ready")
         _wait_for(lambda: cp_state() == "ready", 120, "the ClusterPolicy ready under it")
         t_patch = time.time()
-        _patch_policy(ctx, {"health": HEALTH_SPEC, "featureDiscovery": {"sleepInterval": "2s"}})
+        _patch_policy(ctx, {"health": {**HEALTH_SPEC,
+                                       "remediationWaitS": EPISODE_A_REMEDIATION_WAIT_S},
+                            "featureDiscovery": {"sleepInterval": "2s"}})
         check(policy()["spec"]["health"]["drainDeadlineS"] == 5, "the health patch not stored")
         _wait_for(lambda: kubelet.first("pod-start", after=t_patch, ds="gpu-feature-discovery"),
                   60, "feature discovery restarted with its 2 s interval")
@@ -2637,6 +2666,7 @@ def health_phase(ctx) -> dict:
                           "the validator's rerun after the recycle (A)")
         check(rerun["rc"] == 0, f"the rerun after the recycle: {rerun}")
         a["rerun_passed_s"] = round(rerun["t"] - t_a, 3)
+        a["remediation_wait_s"] = EPISODE_A_REMEDIATION_WAIT_S
         a["events"] = _events_since(before, _node_events(raw, ns, node_name))
         for reason in ("NodeHealthDegraded", "NodeHealthQuarantined", "RetilePlanned",
                        "RetileDeadlineExpired", "NodeHealthRemediating",
@@ -2648,6 +2678,9 @@ def health_phase(ctx) -> dict:
         # -- episode B: a persistent fault ----------------------------------------
         episode["name"] = "B"
         _wait_for(lambda: verdict() == "passed", 60, "a passing verdict before episode B")
+        _patch_policy(ctx, {"health": {"remediationWaitS": HEALTH_SPEC["remediationWaitS"]}})
+        check(policy()["spec"]["health"]["remediationWaitS"] == HEALTH_SPEC["remediationWaitS"],
+              "episode B's remediation wait not stored")
         before = _node_events(raw, ns, node_name)
         cp_before = _node_events(raw, ns, "cluster-policy")
         t_b = time.time()
@@ -4351,6 +4384,210 @@ def lanes_phase(ctx) -> dict:
     return numbers
 
 
+#: phase 22's outage: longer than the elector's 5 s renew period, shorter than
+#: its 15 s lease and its 12 s hold window (controllers/leader.py, the
+#: defaults ``gpu-operator --leader-elect`` runs with)
+OUTAGE_S = 6.0
+#: phase 22's budget, from the fresh cluster to ``ready`` after the outage
+OUTAGE_BUDGET_S = 120.0
+#: the DaemonSet deleted while the apiserver is down
+OUTAGE_DS = "gpu-device-plugin"
+
+
+def outage_phase(ctx) -> dict:
+    """Phase 22, after phase 21: a join through an apiserver outage.
+
+    1. A fresh one-node cluster as phase 12's (:func:`join_cluster` on
+       ``ctx.node``) whose ``gpu-operator`` (the chart's Deployment as a
+       process) keeps the chart's ``--leader-elect``: the elector's 15 s
+       lease, 5 s renew period and 12 s hold window. The ClusterPolicy
+       goes in once the operator holds the Lease.
+    2. Once the validation chain runs on the card (the driver barrier
+       written, the device plugin's pod has given the node its GPUs, the
+       ClusterPolicy not yet ``ready``), the MiniApiServer stops: the
+       operator and the validators' processes (``KUBE_API_URL``) meet a dead
+       endpoint.
+    3. It stays down :data:`OUTAGE_S`. Meanwhile the ``gpu-device-plugin``
+       DaemonSet is deleted from the store: the process kubelet kills its
+       pod and the node's GPUs go to 0.
+    4. A new MiniApiServer over the same store starts on the same port.
+    5. Checks: the operator is the same process, still running, and kept
+       the Lease (holder and epoch unchanged, renewed after the restart);
+       the DaemonSet is back and its pod ready; the node advertises NVML's
+       GPU count again; the workload barrier passed; the ClusterPolicy is
+       ``ready``; all within :data:`OUTAGE_BUDGET_S`.
+
+    Prints the outage's length, the seconds from the restart to each
+    milestone, the operator's retry, breaker and request counters from its
+    ``/metrics`` across the outage, and the workload report's
+    ``elapsed_s``. ``ctx``: ``repo``, ``work``, ``card``, ``node``
+    (:func:`card_node`'s dict) and ``operator_env``."""
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.controllers.leader import LEASE_NAME
+    from tpu_operator_torch.testing.apiserver import MiniApiServer
+    from tpu_operator_torch.utils import deep_get
+    from tpu_operator_torch.validator.status import StatusFiles
+
+    started = time.monotonic()
+    deadline = started + OUTAGE_BUDGET_S
+
+    def left() -> float:
+        return max(0.0, deadline - time.monotonic())
+
+    numbers = {"card": ctx.card}
+    ns = consts.DEFAULT_NAMESPACE
+    cluster = join_cluster(ctx.repo, ctx.work, ctx.node, leader_elect=True)
+    check("--leader-elect" in cluster.argv, f"the chart's operator argv: {cluster.argv}")
+    env = dict({k: v for k, v in ctx.operator_env.items() if not k.startswith("GPU_")},
+               **cluster.env)
+    metrics_port, health_port = free_port(), free_port()
+    log_path = os.path.join(ctx.work, "operator-outage.log")
+    operator = subprocess.Popen(
+        [*cluster.argv, f"--api-server={cluster.base}", f"--metrics-port={metrics_port}",
+         f"--health-port={health_port}"], cwd=ctx.repo, stdout=open(log_path, "w"),
+        stderr=subprocess.STDOUT, start_new_session=True, env=env)
+    srv, kubelet, backend = cluster.srv, cluster.kubelet, cluster.srv.backend
+    port = int(cluster.base.rsplit(":", 1)[1])
+    node_name, gpus = ctx.node["node_name"], str(ctx.node["gpu_count"])
+    status = StatusFiles(cluster.status_dir)
+
+    def lease():
+        with contextlib.suppress(Exception):
+            return backend.get("coordination.k8s.io/v1", "Lease", LEASE_NAME, ns)
+        return None
+
+    def lease_view(obj) -> dict:
+        spec = (obj or {}).get("spec") or {}
+        return {"holder": spec.get("holderIdentity"), "renew": spec.get("renewTime"),
+                "transitions": spec.get("leaseTransitions"),
+                "epoch": ((obj or {}).get("metadata", {}).get("annotations") or {}).get(
+                    consts.LEADER_EPOCH_ANNOTATION)}
+
+    def policy_state():
+        live = backend.get("tpu.ai/v1", "ClusterPolicy", "cluster-policy")
+        return (live.get("status") or {}).get("state")
+
+    def capacity():
+        return deep_get(backend.get("v1", "Node", node_name), "status", "capacity",
+                        consts.GPU_RESOURCE_NAME)
+
+    def counters() -> dict:
+        samples = scrape_samples(_try_scrape(metrics_port) or "")
+
+        def total(prefix):
+            return sum(v for k, v in samples.items() if k.startswith(prefix))
+
+        requests = "tpu_operator_rest_client_requests_total{"
+        return {"api_retries": total("tpu_operator_api_retries_total"),
+                "breaker_transitions": total("tpu_operator_api_breaker_transitions_total"),
+                # each informer's watch (re)connect is one answered WATCH
+                "watch_connects": total(requests + 'code="200",method="WATCH"'),
+                "requests": total(requests),
+                "requests_refused": sum(v for k, v in samples.items() if k.startswith(requests)
+                                        and not k.startswith(requests + 'code="2')),
+                "reconcile_errors": total("tpu_operator_reconcile_errors_total{")}
+
+    try:
+        # -- 1. the operator leads; the join starts --------------------------------------
+        held = _wait_for(lambda: lease_view(lease())["holder"], left(), "the operator's Lease")
+        kubelet.start()
+        t0 = time.time()
+        backend.create(cluster.cp)
+
+        # -- 2. the chain runs on the card; the apiserver goes ----------------------------
+        _wait_for(lambda: status.read("driver") is not None and capacity() == gpus,
+                  left(), "the driver barrier and the node's GPUs")
+        state = policy_state()
+        check(state != "ready", f"the ClusterPolicy was {state} before the outage: no chain "
+                                f"left to run through it")
+        before = {"lease": lease_view(lease()), "counters": counters()}
+        check(before["lease"]["holder"] == held, f"the Lease changed hands: {before['lease']}")
+        srv.stop()
+        t_down = time.time()
+        numbers["down_after_cr_s"] = round(t_down - t0, 3)
+
+        # -- 3. down for OUTAGE_S; the device plugin's DaemonSet goes --------------------
+        time.sleep(0.5)  # the watches, the elector and the validators meet the dead endpoint
+        backend.delete("apps/v1", "DaemonSet", OUTAGE_DS, ns)
+        _wait_for(lambda: kubelet.first("capacity-withdrawn", after=t_down, ds=OUTAGE_DS),
+                  OUTAGE_S, "the kubelet taking the plugin's GPUs back")
+        check(capacity() == "0", f"the node's GPUs during the outage: {capacity()}")
+        time.sleep(max(0.0, t_down + OUTAGE_S - time.time()))
+
+        # -- 4. back on the same port ------------------------------------------------------
+        srv = MiniApiServer(backend=backend)
+        srv.start(port)
+        t_up = time.time()
+        numbers["outage_s"] = round(t_up - t_down, 3)
+        milestones = Milestones(t_up, {
+            "ds_recreated": lambda: backend.get("apps/v1", "DaemonSet", OUTAGE_DS, ns),
+            "plugin_pod_ready": lambda: kubelet.first("ready", after=t_up, ds=OUTAGE_DS),
+            "capacity_back": lambda: capacity() == gpus,
+            "lease_renewed": lambda: lease_view(lease())["renew"] != before["lease"]["renew"],
+            "ready": lambda: policy_state() == "ready"})
+        try:
+            _wait_for(lambda: policy_state() == "ready" and capacity() == gpus
+                      and kubelet.first("ready", after=t_up, ds=OUTAGE_DS), left(),
+                      "the ClusterPolicy ready, the plugin's pod running and the GPUs back "
+                      "after the outage")
+            time.sleep(0.1)  # the milestone poller's last tick
+        finally:
+            numbers["restart_to_s"] = milestones.stop()
+
+        # -- 5. what held through it -------------------------------------------------------
+        after = lease_view(lease())
+        check(operator.poll() is None, f"the operator exited {operator.returncode}")
+        check(after["holder"] == held and after["epoch"] == before["lease"]["epoch"]
+              and after["transitions"] == before["lease"]["transitions"]
+              and after["renew"] != before["lease"]["renew"],
+              f"the operator did not keep the Lease: {before['lease']} -> {after}")
+        ds = backend.get("apps/v1", "DaemonSet", OUTAGE_DS, ns)
+        check((ds.get("status") or {}).get("numberAvailable") == 1,
+              f"the recreated {OUTAGE_DS}: {ds.get('status')}")
+        barrier = status.read("workload") or {}
+        check(barrier.get("passed") is True, f"the workload barrier: {barrier}")
+        check(set(numbers["restart_to_s"]) >= {"ds_recreated", "capacity_back", "ready"},
+              f"milestones after the restart: {numbers['restart_to_s']}")
+        counted = counters()
+        numbers["operator"] = {
+            "pid": operator.pid, "lease_holder": held, "epoch": after["epoch"],
+            "counters_before": before["counters"],
+            "counters_delta": {k: round(counted[k] - before["counters"][k], 3)
+                               for k in counted}}
+        numbers["workload_elapsed_s"] = barrier.get("elapsed_s")
+        numbers["join_ready_s"] = round(time.time() - t0, 3)
+        # where the wait after the restart went: the validation chain's
+        # containers that failed against the dead apiserver and reran, and
+        # the workload pod's run
+        failed = [e for e in kubelet.matching("init-exit", after=t_down)
+                  if e.get("rc") not in (0, None)]
+        pod_exit = kubelet.first("pod-exit", after=t_down)
+        numbers["chain"] = {
+            "failed_inits": [f"{e['ds']}/{e['container']}@{round(e['t'] - t_up, 3)}"
+                             for e in failed],
+            "workload_pod_exit_s": round(pod_exit["t"] - t_up, 3) if pod_exit else None}
+        maps = _maps(operator.pid)
+        check(maps == (False, False), f"the operator maps torch or libcuda: {maps}")
+    except SystemExit:
+        with open(log_path) as f:
+            print(f"-- operator log:\n{f.read()[-6000:]}", file=sys.stderr)
+        print(f"-- kubelet events: {kubelet.events}", file=sys.stderr)
+        raise
+    finally:
+        kubelet.stop()
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(operator.pid, signal.SIGKILL)
+        operator.wait(timeout=60)
+        srv.stop()
+    numbers["phase_s"] = round(time.monotonic() - started, 3)
+    check(numbers["phase_s"] <= OUTAGE_BUDGET_S + 10.0,
+          f"phase 22 took {numbers['phase_s']} s of its {OUTAGE_BUDGET_S} s")
+    print(json.dumps({"outage": {k: numbers[k] for k in (
+        "outage_s", "down_after_cr_s", "restart_to_s", "operator", "chain",
+        "workload_elapsed_s", "join_ready_s", "phase_s")}, "card": ctx.card}))
+    return numbers
+
+
 def _try_scrape(port: int):
     try:
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=2) as r:
@@ -4640,6 +4877,16 @@ def main() -> int:
     check(lanes_launches == 0, f"phase 21 launched K1 {lanes_launches} times")
     shutil.rmtree(lanes_work, ignore_errors=True)
 
+    phase("a join through an apiserver outage: 6 s down, a DaemonSet deleted meanwhile")
+    k1.launches = 0
+    outage_work = tempfile.mkdtemp(prefix="chip-smoke-outage-")
+    outage_phase(types.SimpleNamespace(
+        repo=os.path.dirname(os.path.abspath(__file__)), card=card, work=outage_work,
+        node=card_node(outage_work), operator_env=dict(os.environ)))
+    outage_launches = k1.launches
+    check(outage_launches == 0, f"phase 22 launched K1 {outage_launches} times")
+    shutil.rmtree(outage_work, ignore_errors=True)
+
     print(json.dumps({"smoke_s": round(time.monotonic() - _T0, 1), "card": card}))
     print(json.dumps({"kernels": [{
         "name": "stream_copy",
@@ -4658,8 +4905,8 @@ def main() -> int:
         # operator (12), the GPUDriver and leader phase (13), the health
         # loop (14), the rolling upgrade (15), the capacity loop (16), the
         # fleet simulator (17), the support bundle (18), the static checker
-        # (19), the sanitized join (20) and the lanes (21) are checked at 0
-        # above
+        # (19), the sanitized join (20), the lanes (21) and the join through
+        # an outage (22) are checked at 0 above
         "launches_by_phase": {"perf": k1_main_launches, "serving": serving_launches,
                               "steady_state": steady_state_launches,
                               "device_plumbing": plumbing_launches,
@@ -4673,7 +4920,8 @@ def main() -> int:
                               "must_gather": must_gather_launches,
                               "lint": lint_launches,
                               "opsan": opsan_launches,
-                              "lanes": lanes_launches},
+                              "lanes": lanes_launches,
+                              "outage": outage_launches},
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

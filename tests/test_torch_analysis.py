@@ -1278,7 +1278,7 @@ def _suppressions():
 
 def test_every_suppression_carries_a_reason():
     found = _suppressions()
-    assert len(found) == 30
+    assert len(found) == 32
     assert [s for s in found if not s[3]] == []
     # each names a rule the linter has
     names = set(core.all_checkers())

@@ -1,5 +1,8 @@
 """The port's CDI spec against the reference's, for the same fake node
-(the port's GPUs from a fake NVML), and the ``cdi`` component."""
+(the port's GPUs from a fake NVML), and the ``cdi`` component.
+
+The twin of tests/test_cdi.py.
+"""
 
 import dataclasses
 import json

@@ -7,6 +7,8 @@ MiniApiServer: the route set is the reference's (the mapping's
 ``/debug/queue``, ``/debug/state``, ``/debug/traces`` and
 ``/debug/join-traces`` have the reference's shapes after one sweep, and
 ``/debug/opsan`` answers as the reference's with its sanitizer off and on.
+
+The twin of tests/test_debug_endpoints.py.
 """
 
 import json

@@ -8,6 +8,8 @@ snapshots. Allocate compares field by mapped field, with the recorded
 difference asserted (the port hands over only the allocated GPUs' device
 nodes, and library files instead of a directory). Over the wire, the
 reference's gRPC stubs drive the port's server.
+
+The twin of tests/test_deviceplugin.py.
 """
 
 import os

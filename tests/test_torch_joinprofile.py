@@ -8,6 +8,8 @@ packages under one fake wall clock and must stitch the same hand-built
 join (window, attribution, node spans, orphans) and give the same
 reconcile-latency summary. A node is schedulable once it has the port's
 ``nvidia.com/gpu`` capacity where the reference's has ``google.com/tpu``.
+
+The twin of tests/test_joinprofile.py.
 """
 
 import types

@@ -3,8 +3,9 @@ rolling upgrade needs it: a DaemonSet pod's Pod object carries the
 kubelet's status (phase, ``Ready``, container statuses with restart counts
 and ``CrashLoopBackOff`` during a back-off); ``updateStrategy: OnDelete``
 leaves a running pod on its old template until the Pod object is deleted,
-where ``RollingUpdate`` reruns it; and a deleted or evicted pod's process
-is killed before the delete returns.
+where ``RollingUpdate`` reruns it; a deleted or evicted pod's process
+is killed before the delete returns; and the node's GPUs go with the
+device plugin's pod and come back with it.
 """
 
 import os
@@ -161,3 +162,40 @@ def test_a_deleted_pod_s_process_is_killed_before_the_delete_returns(cluster, ho
     assert kubelet.first("pod-killed", pod="consumer")
     time.sleep(0.3)
     assert not kubelet.matching("pod-exit", pod="consumer", phase="Succeeded")
+
+
+def test_the_plugin_s_gpus_go_with_its_pod_and_come_back_with_it(tmp_path, monkeypatch):
+    """The device plugin's pod gives the node its GPUs; deleting its
+    DaemonSet stops the pod and takes them back to 0, as a kubelet drops a
+    plugin's devices once its endpoint goes; the DaemonSet back, they come
+    back. (The reference's simulator, ``KubeletSimulator._register_tpus``,
+    only ever adds them.)"""
+    monkeypatch.setattr(k, "READY_AFTER_S", 0.3)
+    client = FakeClient()
+    client.create({"apiVersion": "v1", "kind": "Node", "metadata": {"name": NODE}})
+    kubelet = k.ProcessKubelet(client, NODE, NS, str(tmp_path / "logs"),
+                               {"PATH": os.environ.get("PATH", "")}, {},
+                               modes={"plugin": k.INIT}, capacity_app="plugin", gpu_count=8)
+    plugin = {"apiVersion": "apps/v1", "kind": "DaemonSet",
+              "metadata": {"name": "plugin", "namespace": NS, "labels": {"app": "plugin"}},
+              "spec": {"template": {
+                  "metadata": {"labels": {"app": "plugin"}},
+                  "spec": {"initContainers": [dict(python("pass"), name="wait")],
+                           "containers": [dict(python("pass"), name="plugin")]}}}}
+
+    def gpus():
+        node = client.get("v1", "Node", NODE)
+        return [(node.get("status") or {}).get(f, {}).get("nvidia.com/gpu")
+                for f in ("capacity", "allocatable")]
+
+    kubelet.start()
+    try:
+        client.create(plugin)
+        wait(lambda: gpus() == ["8", "8"], "the plugin's GPUs")
+        client.delete("apps/v1", "DaemonSet", "plugin", NS)
+        wait(lambda: gpus() == ["0", "0"], "the GPUs taken back")
+        assert kubelet.first("capacity-withdrawn", ds="plugin")
+        client.create(plugin)
+        wait(lambda: gpus() == ["8", "8"], "the GPUs back with the plugin")
+    finally:
+        kubelet.stop()

@@ -28,7 +28,7 @@ def test_phase_19_on_the_cpu(tmp_path):
     numbers = chip_smoke.lint_phase(_ctx(tmp_path))
     full = numbers["full_tree"]
     assert (full["rc"], full["new"], full["baselined"], full["stale"]) == (0, 0, 0, 0)
-    assert full["files"] > 150 and full["suppressed"] == 30
+    assert full["files"] > 150 and full["suppressed"] == 32
     assert full["wall_s"] < chip_smoke.LINT_BUDGET_S
     assert numbers["rules"] == len(chip_smoke.LINT_RULES) == 17
     assert numbers["sarif"] == {"version": "2.1.0", "tool": "gpuop-lint", "results": 0}

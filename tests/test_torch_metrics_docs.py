@@ -140,6 +140,46 @@ def test_the_alert_names_and_expressions_are_the_reference_s():
     assert shape(port) == shape(ref)
 
 
+RULE_FILES = sorted(PORT_MANIFESTS.glob("*/*prometheusrule*.yaml"))
+#: words for TPU hardware and its software that no alert text of the port
+#: may use (alert names and label names such as ``chip`` stay the reference's)
+TPU_HARDWARE = re.compile(r"\bTPU\b|libtpu|\bICI\b|\bMXU\b|\bchips?\b", re.I)
+
+
+def _alert_text(rule):
+    """A rule's summary and description, its template references (label
+    names such as ``$labels.chip``) and the API group's keys
+    (``tpu.ai/...``, kept by the port) left out."""
+    return " ".join(re.sub(r"\{\{[^}]*\}\}|tpu\.ai/\S+", "", v)
+                    for v in rule["annotations"].values())
+
+
+@pytest.mark.parametrize("path", RULE_FILES, ids=lambda p: p.parent.name)
+def test_no_port_alert_text_names_tpu_hardware(path):
+    raw = path.read_text()
+    # the escaped Prometheus templates kept, the manifest's own variables set
+    text = re.sub(r"\{\{ \w+ \}\}", "x", re.sub(r"\{\{ '(\{\{[^}]*\}\})' \}\}", r"\1", raw))
+    docs = yaml.safe_load(text)
+    rules = [r for group in docs["spec"]["groups"] for r in group["rules"]]
+    assert rules
+    assert {r["alert"]: TPU_HARDWARE.findall(_alert_text(r)) for r in rules} == \
+        {r["alert"]: [] for r in rules}
+
+
+@pytest.mark.parametrize("path", RULE_FILES, ids=lambda p: p.parent.name)
+def test_every_rule_file_keeps_the_reference_s_alert_names_and_expressions(path):
+    port = _rules(path)
+    ref = _rules(REPO / "tpu_operator" / path.relative_to(REPO / "tpu_operator_torch"))
+    shape = lambda rules: [(r["alert"], r["expr"], r.get("for"), r["labels"]) for r in rules]  # noqa: E731
+    assert shape(port) == shape(ref)
+
+
+def test_the_hardware_check_finds_a_tpu_word():
+    rule = {"annotations": {"summary": "libtpu driver validation not passing on a TPU node",
+                            "description": "GPU {{ $labels.chip }} (tpu.ai/health-state)"}}
+    assert TPU_HARDWARE.findall(_alert_text(rule)) == ["libtpu", "TPU"]
+
+
 def test_the_alerts_name_the_port_s_tool_and_runbook():
     text = " ".join(v for r in _rules(PORT_MANIFESTS / ALERT_RULES)
                     for v in r["annotations"].values())

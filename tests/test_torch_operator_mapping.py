@@ -134,7 +134,7 @@ def map_object(obj: dict) -> dict:
         env = out["spec"]["template"]["spec"]["containers"][0]["env"]
         if not any(e["name"] == "GPU_REVALIDATE_INTERVAL" for e in env):
             env.append({"name": "GPU_REVALIDATE_INTERVAL", "value": "0"})
-    if out.get("kind") == "PrometheusRule" and out["metadata"]["name"] == "gpu-operator-alerts":
+    if out.get("kind") == "PrometheusRule":
         for group in out["spec"]["groups"]:
             for rule in group["rules"]:
                 rule["annotations"] = {k: map_alert_text(v)
@@ -915,6 +915,9 @@ def unmap_lint_text(text: str) -> str:
 # - the operator's alerts name ``gpuop-cfg`` and docs/gpu/operations.md
 #   where the reference's name ``tpuop-cfg`` and docs/operations.md; the
 #   alert names and expressions are the reference's.
+# - every alert's text (the operator's and the node status and telemetry
+#   exporters') speaks of GPUs, their driver and their validation, never of
+#   TPU hardware (libtpu, ICI, MXU, a TPU chip or board).
 
 #: the runbook each package's tooling and alerts name
 RUNBOOKS = {name: names["docs"] for name, names in LINT_NAMES.items()}
@@ -935,6 +938,19 @@ ALERT_TEXT_RULES = [
     (r"\bchip (failures|demand)", r"GPU \1"),
     (r"\bthe chips back", "the GPUs back"),
     (r"around unhealthy chips", "around unhealthy GPUs"),
+    # the node status and telemetry exporters' alerts: the node's driver,
+    # its validation and its GPUs
+    (r"libtpu driver validation", "GPU driver validation"),
+    (r"libtpu install or device nodes", "the CUDA driver install or its device nodes"),
+    (r"ICI workload validation", "GPU workload validation"),
+    (r"\(MXU matmul \+ ICI collectives\)", "(GEMM + NCCL collectives)"),
+    (r"by the ICI workload sweep", "by the workload sweep"),
+    (r"every chip is flagged", "every GPU is flagged"),
+    (r"a (specific|previously-seen) TPU chip", r"a \1 GPU"),
+    (r"^Chip ", "GPU "),
+    (r"TPU HBM above", "GPU memory above"),
+    (r" HBM utilization", " memory utilization"),
+    (r"TPU board temperature", "GPU temperature"),
 ]
 
 

@@ -7,6 +7,8 @@ carry the JAX coordinator env, with RANKs 0..n-1 in the reference's worker
 order (tests/test_torch_operator_mapping.py:map_rendezvous_pod). The walk is
 the same: launch, all Succeeded then stamp and teardown, any Failed then
 teardown, changed membership then restart, and the scheduling budget.
+
+The twin of tests/test_multihost_state.py.
 """
 
 import calendar

@@ -9,6 +9,8 @@ the operator's device-plugin pods, goes through the reference's
 counts must be the mapped reference's. Then what only the port has:
 NVIDIA's feature-discovery signal, GKE's ``nvidia-`` accelerator values,
 and the serving deploy label the reference's labeller never sets.
+
+The twin of tests/test_nodeinfo.py and tests/test_adoption.py.
 """
 
 import copy

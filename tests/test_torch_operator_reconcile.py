@@ -6,6 +6,8 @@ sequence of DaemonSet status, Node and Pod changes. After every sweep the
 objects in each cluster, the status ``state`` and the conditions must be
 the mapped reference's. The reference's health sweep waits for its slice
 in the port, so the CR turns it off (``spec.health.enabled: false``).
+
+The twin of tests/test_clusterpolicy_controller.py.
 """
 
 import copy

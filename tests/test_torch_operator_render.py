@@ -8,6 +8,8 @@ init-container chain. The port's own byte-exact goldens live in
 tests/golden_torch/states/ (``UPDATE_GOLDEN=1`` regenerates them). The
 port reads its rendered text with its own YAML subset, which must read
 every manifest as ``yaml.safe_load`` does, and refuse what lies outside.
+
+The twin of tests/test_render.py and tests/test_golden_states.py.
 """
 
 import copy

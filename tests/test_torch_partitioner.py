@@ -11,6 +11,8 @@ strings, the reference's ``grid`` or ``applied_at``).
 Same-set boards: a 4-GPU NVSwitch node beside a 4-chip v5e host, and an
 8-GPU node of four PCIe-switch pairs beside a 2x4 v5e host, for 1- and
 2-GPU groups. Deliberate differences have tests of their own.
+
+The twin of tests/test_partitioner.py.
 """
 
 import json

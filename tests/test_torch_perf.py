@@ -2,7 +2,10 @@
 held against tpu_operator/validator/perf.py: the shared report schema, the
 H100 peak rows, and the gates, driven with monkeypatched measures on both
 packages (real timings on the CPU sit at the noise floor, so no test here
-asserts that a timing gate passes)."""
+asserts that a timing gate passes).
+
+The twin of tests/test_perf.py.
+"""
 
 import dataclasses
 

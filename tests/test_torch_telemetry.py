@@ -7,6 +7,8 @@ for line, HELP/TYPE and samples, but for the ``_created`` timestamps of
 counters. The port writes the text format itself (no
 ``prometheus_client``) and reads its config through its own YAML subset
 (no ``yaml``); that reader is held against ``yaml.safe_load``.
+
+The twin of tests/test_telemetry.py.
 """
 
 import dataclasses

@@ -1,6 +1,9 @@
 """The PyTorch port's validator CLI (tpu_operator_torch/validator/main.py):
 the node path's components on the CPU, with barriers that the JAX package's
-readers (tpu_operator/validator/status.py, feature_discovery) parse."""
+readers (tpu_operator/validator/status.py, feature_discovery) parse.
+
+The twin of tests/test_validator.py.
+"""
 
 import json
 

@@ -1,6 +1,9 @@
 """GPU health sweep of the PyTorch port (tpu_operator_torch/validator/workload.py)
 held against the JAX sweep (tpu_operator/validator/workload.py) on the CPU:
-gloo ranks stand in for GPUs, JAX's virtual CPU devices for TPU chips."""
+gloo ranks stand in for GPUs, JAX's virtual CPU devices for TPU chips.
+
+The twin of tests/test_multihost.py.
+"""
 
 import json
 import os

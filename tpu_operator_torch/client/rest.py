@@ -10,8 +10,9 @@ watches, for every kind of the scheme (core
 ``v1`` Nodes, Pods and Events its service account may touch.
 
 Error statuses raise the :mod:`~tpu_operator_torch.client.errors`
-hierarchy; transport failures raise ``OSError`` or
-``http.client.HTTPException``.
+hierarchy; transport failures raise ``OSError`` (an answer cut short or
+garbled, an ``http.client.HTTPException``, as ``ConnectionError``), as the
+reference's ``requests`` errors are all ``OSError``.
 """
 
 from __future__ import annotations
@@ -148,13 +149,18 @@ class Transport:
                 conn.request(method, target, body=body, headers=headers)
                 resp = conn.getresponse()
                 data = resp.read()
-            except (http.client.RemoteDisconnected, BrokenPipeError,
-                    ConnectionResetError, http.client.CannotSendRequest):
+            except (OSError, http.client.HTTPException) as e:
                 conn.close()
                 self._local.conn = None
-                if reused and attempt == 0:
+                stale = isinstance(e, (http.client.RemoteDisconnected, BrokenPipeError,
+                                       ConnectionResetError, http.client.CannotSendRequest))
+                if stale and reused and attempt == 0:
                     continue
-                raise
+                if isinstance(e, OSError):
+                    raise
+                # an answer cut short (IncompleteRead) or garbled is a transport
+                # failure as a reset is, and raises as one: an OSError
+                raise ConnectionError(f"{method} {target}: {e!r}") from e
             except BaseException:
                 conn.close()
                 self._local.conn = None

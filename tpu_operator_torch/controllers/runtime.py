@@ -383,6 +383,24 @@ class Controller:
         if self._thread:
             self._thread.join(timeout=5)
 
+    def _idle(self) -> bool:
+        return len(self.queue) == 0 and self._inflight is None
+
+    def wait_idle(self, timeout: float = 10.0, settle: float = 0.05) -> bool:
+        """Test helper: wait until the queue drains, no request is being
+        reconciled, and both stay so for ``settle`` seconds. The reference's
+        waits for the queue alone, so it returns while the request it last
+        handed out is still reconciling."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            if self._idle():
+                time.sleep(settle)  # opalint: disable=blocking-call — test helper, runs on the test's thread
+                if self._idle():
+                    return True
+            else:
+                time.sleep(0.01)  # opalint: disable=blocking-call — test helper, runs on the test's thread
+        return False
+
 
 class ControllerManager:
     def __init__(self, client: Client):

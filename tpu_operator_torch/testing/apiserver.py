@@ -12,8 +12,10 @@ process as the card's cluster.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import queue
+import socket
 import sys
 import threading
 import time
@@ -116,6 +118,9 @@ class MiniApiServer:
         self._count_lock = make_lock("MiniApiServer._count_lock")
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
+        #: the live connections (kept alive, or holding a watch stream),
+        #: guarded by ``_count_lock``: :meth:`stop` cuts them all
+        self._conns: set = set()
 
     def _count(self, verb: str, kind: str) -> None:
         with self._count_lock:
@@ -147,6 +152,16 @@ class MiniApiServer:
 
             def log_message(self, *args):
                 pass
+
+            def setup(self):
+                super().setup()
+                with server._count_lock:
+                    server._conns.add(self.connection)
+
+            def finish(self):
+                with server._count_lock:
+                    server._conns.discard(self.connection)
+                super().finish()
 
             def handle_one_request(self):
                 if server.latency_s > 0:
@@ -376,6 +391,15 @@ class MiniApiServer:
         return f"http://127.0.0.1:{self._httpd.server_address[1]}"
 
     def stop(self) -> None:
+        """Stop serving, as a dead apiserver does: no new connection is
+        accepted, and every live one (a kept-alive client's, a watch
+        stream's) is cut, so no client goes on talking to a stopped
+        server."""
         if self._httpd:
             self._httpd.shutdown()
             self._httpd.server_close()
+            with self._count_lock:
+                conns = list(self._conns)
+            for conn in conns:
+                with contextlib.suppress(OSError):
+                    conn.shutdown(socket.SHUT_RDWR)

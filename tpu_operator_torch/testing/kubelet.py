@@ -40,7 +40,9 @@ killed. Its status (desired, available, updated, observedGeneration) is
 written back as the DaemonSet controller would. ``capacity_app``'s pod, once
 its init containers passed, gives the Node ``gpu_count`` of
 ``nvidia.com/gpu`` as capacity and allocatable, as a device plugin's
-registration would. A Pod of any namespace bound to the Node (the
+registration would; when that pod stops (its DaemonSet or Pod object
+deleted, the node no longer selected) the resource goes to 0 until the pod
+runs again, as a kubelet drops a plugin's devices once its endpoint goes. A Pod of any namespace bound to the Node (the
 ``workload`` component's spawned pod, a user's workload) runs once; its
 phase is set from its containers' exit codes, and deleting or evicting it
 kills its processes at once (a watch on Pods).
@@ -333,7 +335,8 @@ class ProcessKubelet:
         #: watch handler runs under the apiserver backend's own lock)
         self._spawn_lock = make_lock("ProcessKubelet._spawn_lock")
         self._watch = None
-        self._capacity_set = False
+        #: the DaemonSet whose pod gave the node its GPUs, while it runs
+        self._capacity_ds: Optional[str] = None
         self._stopped = threading.Event()
         self._lock = make_lock("ProcessKubelet._lock")
         self._thread: Optional[threading.Thread] = None
@@ -443,6 +446,7 @@ class ProcessKubelet:
             run.stop()
             self._delete_pod_object(name)
             self.record("pod-stop", ds=name)
+            self._withdraw_capacity(name)
         pods = self.client.list("v1", "Pod", None,
                                 field_selector={"spec.nodeName": self.node_name})
         owned = {self._pod_name(ref["name"]) for p in pods
@@ -456,6 +460,7 @@ class ProcessKubelet:
         for name, run in deleted:
             run.stop()
             self.record("pod-deleted", ds=name)
+            self._withdraw_capacity(name)
         for pod in pods:
             if not any(ref.get("kind") == "DaemonSet" for ref in
                        deep_get(pod, "metadata", "ownerReferences", default=[]) or []):
@@ -516,6 +521,7 @@ class ProcessKubelet:
         fingerprint = template_fingerprint(deep_get(ds, "spec", "template", default={}))
         # OnDelete: a new template waits for the pod to be deleted
         rolling = deep_get(ds, "spec", "updateStrategy", "type") != "OnDelete"
+        unselected = False
         with self._lock:
             run = self._pods.get(name)
             if matches and (run is None or (rolling and run.fingerprint != fingerprint)):
@@ -531,9 +537,12 @@ class ProcessKubelet:
                 del self._pods[name]
                 self._delete_pod_object(name)
                 run = None
-        if (run is not None and app == self.capacity_app and not self._capacity_set
+                unselected = True
+        if unselected:
+            self._withdraw_capacity(name)
+        if (run is not None and app == self.capacity_app and self._capacity_ds is None
                 and (run.ready or run.state == "running")):
-            self._set_capacity()
+            self._set_capacity(name)
         want = {"desiredNumberScheduled": 1 if matches else 0,
                 "currentNumberScheduled": 1 if matches else 0,
                 "numberAvailable": 1 if run is not None and run.ready else 0,
@@ -548,14 +557,26 @@ class ProcessKubelet:
             if want["numberAvailable"]:
                 self.record("ds-available", ds=name)
 
-    def _set_capacity(self) -> None:
+    def _set_capacity(self, ds_name: str) -> None:
+        self._write_capacity(self.gpu_count)
+        self._capacity_ds = ds_name
+        self.record("capacity", count=self.gpu_count)
+
+    def _withdraw_capacity(self, ds_name: str) -> None:
+        """The pod that gave the node its GPUs stopped: the resource goes
+        to 0 until that pod runs again."""
+        if self._capacity_ds != ds_name:
+            return
+        self._write_capacity(0)
+        self._capacity_ds = None
+        self.record("capacity-withdrawn", ds=ds_name)
+
+    def _write_capacity(self, count: int) -> None:
         node = self.client.get("v1", "Node", self.node_name)
         status = node.setdefault("status", {})
         for field in ("capacity", "allocatable"):
-            status.setdefault(field, {})[consts.GPU_RESOURCE_NAME] = str(self.gpu_count)
+            status.setdefault(field, {})[consts.GPU_RESOURCE_NAME] = str(count)
         self.client.update_status(node)
-        self._capacity_set = True
-        self.record("capacity", count=self.gpu_count)
 
     def _sync_pod(self, pod: dict) -> None:
         name = pod["metadata"]["name"]
