@@ -257,6 +257,20 @@ Phases, each of which exits non-zero on failure:
    each milestone, the operator's counters and the workload's
    ``elapsed_s`` print. No hand-written kernel (K1's count under
    ``outage`` is 0).
+23. after phase 22 (:func:`pipelined_join_phase`): the pipelined join, the
+   reference's join attribution. The operator in this process over a 20 ms
+   MiniApiServer, the in-memory kubelet without pods (each DaemonSet's
+   image pulled on its own clock per node from the labeller's pre-pull
+   stamp: 10 ticks of 0.5 s for the validator's, 7 for the device
+   plugin's, 5 for the rest; each pod gated on the barriers its rendered
+   init containers wait on), and the node agent: the validator's
+   ``driver``, ``plugin --prewarm`` and ``workload-local`` on the card in
+   subprocesses, one after another, beside a ``wait --for workload``.
+   Every step exits 0, the barriers are stamped in order, the pre-pull is
+   attributed, the join profiler covers at least 95% of the window with no
+   orphan span, within 120 s. ``join_s``, each DaemonSet's tick, the
+   seconds per phase and the serial sum of the pulls print. No
+   hand-written kernel (K1's count under ``pipelined`` is 0).
 
 Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Needs a CUDA device and the rest of the repository beside this file.
@@ -4588,6 +4602,387 @@ def outage_phase(ctx) -> dict:
     return numbers
 
 
+#: phase 23's simulated cluster, the reference's join-bench settings
+#: (bench.py:INJECTED, INJECTED_DS_ROLLOUT_TICKS): a 20 ms apiserver, a
+#: 0.5 s kubelet sync period, and image pulls of 10 ticks for the
+#: validator's image, 7 for the device plugin's and 5 for every other
+#: image, keyed here by the DaemonSets' component labels
+PIPELINED_LATENCY_S = 0.02
+PIPELINED_INTERVAL_S = 0.5
+PIPELINED_PULL_TICKS = {"gpu-operator-validator": 10, "gpu-device-plugin": 7, "*": 5}
+#: the sweep's matrix, as the join bench's and phase 12's
+PIPELINED_MATRIX_DIM = 512
+PIPELINED_BUDGET_S = 120.0
+#: the attribution gate (the reference's join bench: 95% of the window)
+PIPELINED_MIN_COVERAGE = 0.95
+#: the operator's images, from the chart's Deployment env
+OPERAND_IMAGE_ENVS = ("DRIVER_IMAGE", "VALIDATOR_IMAGE", "DEVICE_PLUGIN_IMAGE",
+                      "FEATURE_DISCOVERY_IMAGE", "TELEMETRY_EXPORTER_IMAGE",
+                      "SLICE_PARTITIONER_IMAGE")
+
+
+class ProfilerTape:
+    """Every input the operator's join profiler takes, in order, with the
+    wall time it came at: each finished reconcile root (``on_trace``) and
+    each ClusterPolicy sweep's view (``observe``: the policy's name and uid,
+    each node's name, GPU capacity and the two annotations the profiler
+    reads, and whether the policy was ready). A replay of the tape through
+    any join profiler under a clock set to each sweep's time gives its
+    attribution of the same join."""
+
+    def __init__(self, profiler, tracer):
+        from tpu_operator_torch import consts
+
+        self.events: list = []
+        self._lock = threading.Lock()
+        self._keys = (consts.IMAGE_PREPULL_ANNOTATION, consts.TRACE_SPANS_ANNOTATION)
+        self._resource = consts.GPU_RESOURCE_NAME
+        on_trace, observe = profiler.on_trace, profiler.observe
+
+        def taped_on_trace(root):
+            if root.duration_s is not None:
+                with self._lock:
+                    self.events.append({
+                        "kind": "trace", "start_unix": root.start_unix,
+                        "duration_s": root.duration_s, "trace_id": root.trace_id,
+                        "controller": str(root.attributes.get("controller", ""))})
+            on_trace(root)
+
+        def taped_observe(policy, nodes, results):
+            meta = policy.obj.get("metadata") or {}
+            with self._lock:
+                self.events.append({
+                    "kind": "observe", "t": time.time(),
+                    "policy": {"name": meta.get("name"), "uid": meta.get("uid")},
+                    "nodes": [self._node(n) for n in nodes],
+                    "ready": bool(getattr(results, "ready", False))})
+            observe(policy, nodes, results)
+
+        tracer.on_finalize = taped_on_trace
+        profiler.observe = taped_observe
+
+    def _node(self, node: dict) -> dict:
+        meta = node.get("metadata") or {}
+        annotations = meta.get("annotations") or {}
+        capacity = (node.get("status") or {}).get("capacity") or {}
+        return {"metadata": {"name": meta.get("name"),
+                             "annotations": {k: annotations[k] for k in self._keys
+                                             if k in annotations}},
+                "status": {"capacity": {k: v for k, v in capacity.items()
+                                        if k == self._resource}}}
+
+
+def _uncovered(intervals: list, window: tuple, at_least_s: float = 0.01) -> list:
+    """The stretches of ``window`` no interval covers, each at least
+    ``at_least_s`` long: ``[start, seconds]`` from the window's start."""
+    gaps, reach = [], window[0]
+    for _, a, b in sorted(intervals, key=lambda i: i[1]):
+        if a > reach and min(a, window[1]) - reach >= at_least_s:
+            gaps.append([round(reach - window[0], 3), round(min(a, window[1]) - reach, 3)])
+        reach = max(reach, b)
+    if window[1] - reach >= at_least_s:
+        gaps.append([round(reach - window[0], 3), round(window[1] - reach, 3)])
+    return gaps
+
+
+@contextlib.contextmanager
+def _environ(updates: dict):
+    """``os.environ`` with ``updates`` for the block, restored after."""
+    saved = {k: os.environ.get(k) for k in updates}
+    os.environ.update(updates)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def pipelined_join_phase(ctx) -> dict:
+    """Phase 23, after phase 22: the pipelined join, the reference's join
+    attribution (``bench.py:bench_join_attribution``) in the port's terms.
+
+    1. A fresh MiniApiServer with a 20 ms latency, a ClusterPolicy from
+       ``new_cluster_policy()`` and the operator in this process
+       (``OperatorApp`` over ``CachedClient(RestClient)``, its images the
+       chart's), so its join profiler is read directly; a tape records every
+       input the profiler takes (:class:`ProfilerTape`).
+       The Node for this machine (NVIDIA's feature-discovery PCI label) is
+       there before the ClusterPolicy; the join starts with the policy.
+    2. Once the first rendered DaemonSet carries the join's trace parent,
+       the in-memory kubelet starts without pods: ``KubeletSimulator(
+       create_pods=False, interval=0.5)``, each (DaemonSet, node) pulling
+       its image on its own clock (:data:`PIPELINED_PULL_TICKS`, mapped onto
+       the rendered DaemonSets' names by their component labels) from the
+       labeller's pre-pull stamp, each pod available only past the barriers
+       its rendered init containers gate on, read from the status directory.
+    3. The node agent, once the operator's first sweep over the node is done
+       (the join's window open, the pre-pull stamped): the port's validator
+       CLI in subprocesses, in the manifest's order, ``-c driver`` over
+       ``ctx.node``'s driver bundle,
+       ``-c plugin --timeout 60 --poll 0.2 --prewarm`` into a fresh kernel
+       cache, ``-c workload-local``; beside them ``-c wait --for workload
+       --timeout 90``. Each runs under the rendered trace parent.
+    4. Once the node has its GPUs and the ClusterPolicy is ``ready``, one
+       feature-discovery pass mirrors the node's spans, and the profiler's
+       join trace is read.
+
+    Checks (the reference's join-bench gates but its CPU time budget):
+    every step exits 0; the three barriers passed, stamped driver <= plugin
+    <= workload; the node carries the pre-pull stamp and ``image-prepull``
+    is attributed; coverage at least :data:`PIPELINED_MIN_COVERAGE`; no
+    orphan span; the window complete; the phase within
+    :data:`PIPELINED_BUDGET_S`. Prints ``join_s``, the tick and second
+    each DaemonSet became available, the seconds per phase, coverage and
+    ``unattributed_s``, the serial sum of the pulls beside ``join_s``, the
+    sweep's ``elapsed_s`` and ``compile_s``, and the card. ``ctx``:
+    ``repo``, ``work``, ``card``, ``node`` (:func:`card_node`'s dict),
+    ``device`` (feature discovery's; ``cuda`` on the card). The returned
+    numbers hold the profiler's tape (``tape``) and the kubelet's
+    ``transitions``."""
+    import logging
+
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.api.clusterpolicy import new_cluster_policy
+    from tpu_operator_torch.client.cache import CachedClient
+    from tpu_operator_torch.client.rest import RestClient
+    from tpu_operator_torch.controllers.manager import OperatorApp
+    from tpu_operator_torch.joinprofile.critical_path import record_intervals
+    from tpu_operator_torch.testing.apiserver import MiniApiServer
+    from tpu_operator_torch.testing.kubelet import KubeletSimulator
+    from tpu_operator_torch.utils import deep_get
+    from tpu_operator_torch.validator import feature_discovery
+    from tpu_operator_torch.validator.status import StatusFiles
+
+    started = time.monotonic()
+    deadline = started + PIPELINED_BUDGET_S
+
+    def left() -> float:
+        return max(0.0, deadline - time.monotonic())
+
+    ns = consts.DEFAULT_NAMESPACE
+    node_name = ctx.node["node_name"]
+    status_dir = os.path.join(ctx.work, "pipelined-status")
+    cache_dir = os.path.join(ctx.work, "pipelined-kernel-cache")
+    os.makedirs(status_dir)
+    status = StatusFiles(status_dir)
+    rendered = install_from_chart(ctx.repo, chart_values(ctx.work, status_dir), ns)
+    _, deployment_env = deployment_process(
+        ctx.repo, next(o for o in rendered if o["kind"] == "Deployment"))
+    images = {k: deployment_env[k] for k in OPERAND_IMAGE_ENVS}
+
+    log_path = os.path.join(ctx.work, "operator-pipelined.log")
+    handler = logging.FileHandler(log_path)
+    handler.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(name)s: %(message)s"))
+    port_log = logging.getLogger("tpu_operator_torch")
+    saved_log = (port_log.level, port_log.propagate)
+    port_log.addHandler(handler)
+    port_log.setLevel(logging.INFO)
+    port_log.propagate = False
+
+    srv = MiniApiServer(latency_s=PIPELINED_LATENCY_S)
+    base = srv.start()
+    seed = RestClient(base)
+    numbers: dict = {"card": ctx.card}
+    app = op_client = kubelet = None
+    procs: dict = {}
+    chain_rcs: dict = {}
+    try:
+        with _environ(images):
+            seed.create({"apiVersion": "v1", "kind": "Node", "metadata": {
+                "name": node_name, "labels": {consts.NFD_NVIDIA_PCI_LABEL: "true",
+                                              "kubernetes.io/hostname": node_name}}})
+            op_client = CachedClient(RestClient(base))
+            app = OperatorApp(op_client)
+            tape = ProfilerTape(app.join_profiler, app.tracer)
+            app.start()
+            t0 = time.time()
+            seed.create(new_cluster_policy())
+
+            # -- 1. the first render carries the join's trace parent -----------------------
+            def trace_parent():
+                for ds in srv.backend.list("apps/v1", "DaemonSet", ns):
+                    spec = deep_get(ds, "spec", "template", "spec", default={})
+                    for c in (spec.get("initContainers") or []) + (spec.get("containers") or []):
+                        for e in c.get("env") or []:
+                            if e.get("name") == consts.TRACE_PARENT_ENV and e.get("value"):
+                                return e["value"]
+                return None
+
+            parent = _wait_for(trace_parent, min(30.0, left()),
+                               "a rendered DaemonSet carrying the trace parent")
+
+            def by_component():
+                return {deep_get(ds, "spec", "template", "metadata", "labels",
+                                 "app.kubernetes.io/component"): ds["metadata"]["name"]
+                        for ds in srv.backend.list("apps/v1", "DaemonSet", ns)}
+
+            components = _wait_for(
+                lambda: (lambda c: c if set(PIPELINED_PULL_TICKS) - {"*"} <= set(c) else None)(
+                    by_component()), min(30.0, left()), "the validator's and the plugin's "
+                                                        "DaemonSets rendered")
+            pulls = {components.get(k, k): v for k, v in PIPELINED_PULL_TICKS.items()}
+            numbers["pull_ticks"] = pulls
+
+            # -- 2. the pod-less kubelet ----------------------------------------------------
+            kubelet = KubeletSimulator(
+                seed, create_pods=False, interval=PIPELINED_INTERVAL_S, rollout_ticks=pulls,
+                barrier_check=status.is_ready, gpus_per_node=ctx.node["gpu_count"])
+            kubelet.start()
+            numbers["kubelet_start_s"] = round(time.time() - t0, 3)
+
+            # -- 3. the node agent, in the manifest's order, once the operator's sweep has
+            # seen the node (the join's window is open; the labeller has stamped it)
+            _wait_for(lambda: app.join_profiler.join_trace(node_name) is not None,
+                      min(30.0, left()), "the operator's first sweep over the node")
+            numbers["chain_start_s"] = round(time.time() - t0, 3)
+            env = dict(os.environ, **{
+                consts.TRACE_PARENT_ENV: parent, "NODE_NAME": node_name,
+                "STATUS_DIR": status_dir, "KUBE_API_URL": base,
+                "GPU_COMPILATION_CACHE_DIR": cache_dir, "PYTHONPATH": ctx.repo})
+            validator = ctx.node["validator"]
+            bundle = ctx.node["driver_env"][consts.DRIVER_SRC_ENV]
+            steps = (("driver", ["-c", "driver", f"--install-dir={bundle}"]),
+                     ("plugin", ["-c", "plugin", "--timeout", "60", "--poll", "0.2",
+                                 "--prewarm"]),
+                     ("workload", ["-c", "workload-local", "--matrix-dim",
+                                   str(PIPELINED_MATRIX_DIM)]))
+
+            def run(name, args):
+                with open(os.path.join(ctx.work, f"pipelined-{name}.log"), "w") as out:
+                    return subprocess.Popen(
+                        [*validator, *args, f"--status-dir={status_dir}"], cwd=ctx.repo,
+                        env=env, stdout=out, stderr=subprocess.STDOUT, start_new_session=True)
+
+            def chain():
+                for name, args in steps:
+                    procs[name] = run(name, args)
+                    chain_rcs[name] = procs[name].wait()
+                    if chain_rcs[name] != 0:
+                        return  # a failed stage blocks the chain, as in a pod
+
+            runner = threading.Thread(target=chain, daemon=True, name="pipelined-chain")
+            runner.start()
+            procs["wait"] = run("wait", ["-c", "wait", "--for", "workload", "--timeout", "90"])
+
+            def converged():
+                node = srv.backend.get("v1", "Node", node_name)
+                policy = srv.backend.get("tpu.ai/v1", "ClusterPolicy", "cluster-policy")
+                return (deep_get(node, "status", "capacity", consts.GPU_RESOURCE_NAME) is not None
+                        and deep_get(policy, "status", "state") == "ready")
+
+            _wait_for(lambda: converged() or (chain_rcs and any(chain_rcs.values())), left(),
+                      "the node schedulable and the ClusterPolicy ready")
+            check(converged(), f"a chain step failed: {chain_rcs}")
+            numbers["join_s"] = round(time.time() - t0, 3)
+            runner.join(timeout=left())
+            check(not runner.is_alive(), "the node agent's chain within the budget")
+            _wait_for(lambda: procs["wait"].poll() is not None, left(), "the concurrent wait")
+            chain_rcs["wait"] = procs["wait"].returncode
+            numbers["chain_exit_codes"] = dict(chain_rcs)
+            check(all(chain_rcs.get(s) == 0 for s in ("driver", "plugin", "workload", "wait")),
+                  f"the node agent's exit codes: {chain_rcs}")
+
+            # -- what ready means: real barriers, in the DAG's order ------------------------
+            barriers = {b: status.read(b) or {} for b in ("driver", "plugin", "workload")}
+            check(all(b and b.get("passed") is not False for b in barriers.values()),
+                  f"the barriers: {barriers}")
+            stamps = [barriers[b].get("timestamp") for b in ("driver", "plugin", "workload")]
+            check(None not in stamps and stamps == sorted(stamps),
+                  f"barriers out of order (driver, plugin, workload): {stamps}")
+            node = srv.backend.get("v1", "Node", node_name)
+            check(deep_get(node, "metadata", "annotations",
+                           consts.IMAGE_PREPULL_ANNOTATION) is not None,
+                  "the node carries no pre-pull stamp")
+
+            # -- 4. the node's spans mirrored, the join trace read --------------------------
+            feature_discovery.sync_node_labels(seed, node_name, device=ctx.device,
+                                               status_dir=status_dir)
+            trace = _wait_for(lambda: (lambda t: t if t and t["node_spans"] else None)(
+                app.join_profiler.join_trace(node_name)), min(30.0, left()),
+                "the join trace with the node's spans")
+        att = trace["attribution"]
+        available = {}
+        for tick, t, ds, count in kubelet.transitions:
+            if count and ds not in available:
+                available[ds] = {"tick": tick, "s": round(t - t0, 3)}
+        workload = barriers["workload"]
+        interval_s = PIPELINED_INTERVAL_S
+        numbers.update({
+            "ds_available": available,
+            "serial_pull_s": round(sum(pulls.get(ds, pulls["*"]) for ds in available)
+                                   * interval_s, 3),
+            "phases": att["phases"], "coverage": att["coverage"],
+            "window_s": att["window_s"], "unattributed_s": att["unattributed_s"],
+            "node_spans": len(trace["node_spans"]), "orphan_spans": len(trace["orphan_spans"]),
+            "complete": trace["window"]["complete"],
+            "operator_sweeps": trace["operator_sweeps"],
+            "sweep": {"elapsed_s": workload.get("elapsed_s"),
+                      "compile_s": workload.get("compile_s"),
+                      "platform": workload.get("platform")},
+            "barrier_stamps_s": {b: round(s - t0, 3) for b, s in
+                                 zip(("driver", "plugin", "workload"), stamps)},
+            "tape": tape.events,
+            "transitions": [list(x) for x in kubelet.transitions],
+        })
+        print(json.dumps({"pipelined_join": {k: v for k, v in numbers.items()
+                                             if k not in ("tape", "transitions")},
+                          "card": ctx.card}))
+        if att["coverage"] < PIPELINED_MIN_COVERAGE:
+            window = (trace["window"]["start_unix"], trace["window"]["end_unix"])
+            spans = record_intervals(trace["node_spans"])
+            sweeps = [("reconcile", e["start_unix"], e["start_unix"] + e["duration_s"])
+                      for e in tape.events if e["kind"] == "trace"]
+            rollout = [("ds-rollout-wait", window[0],
+                        trace["window"]["completed_at"] or window[1])]
+            print(json.dumps({"pipelined_unattributed": _uncovered(spans + sweeps + rollout,
+                                                                   window),
+                              "node_spans": sorted((round(a - window[0], 3), round(b - a, 3), p)
+                                                   for p, a, b in spans)}))
+        check(att["coverage"] >= PIPELINED_MIN_COVERAGE,
+              f"attribution covers {att['coverage']} of the window, under "
+              f"{PIPELINED_MIN_COVERAGE}")
+        check(not trace["orphan_spans"], f"orphan spans: {trace['orphan_spans']}")
+        check(trace["window"]["complete"], f"the join window is not complete: {trace['window']}")
+        check("image-prepull" in att["phases"], f"no image-prepull attributed: {att['phases']}")
+    except SystemExit:
+        with open(log_path) as f:
+            print(f"-- operator log:\n{f.read()[-6000:]}", file=sys.stderr)
+        for name in ("driver", "plugin", "workload", "wait"):
+            path = os.path.join(ctx.work, f"pipelined-{name}.log")
+            if os.path.exists(path):
+                with open(path) as f:
+                    print(f"-- {name}:\n{f.read()[-3000:]}", file=sys.stderr)
+        if kubelet is not None:
+            print(f"-- kubelet transitions: {kubelet.transitions}", file=sys.stderr)
+        raise
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(p.pid, signal.SIGKILL)
+                p.wait(timeout=30)
+        if app is not None:
+            app.stop()
+        if op_client is not None:
+            op_client.stop()
+        if kubelet is not None:
+            kubelet.stop()
+        srv.stop()
+        port_log.removeHandler(handler)
+        handler.close()
+        port_log.setLevel(saved_log[0])
+        port_log.propagate = saved_log[1]
+    numbers["phase_s"] = round(time.monotonic() - started, 3)
+    print(json.dumps({"pipelined_phase_s": numbers["phase_s"], "join_s": numbers["join_s"],
+                      "serial_pull_s": numbers["serial_pull_s"], "card": ctx.card}))
+    check(numbers["phase_s"] <= PIPELINED_BUDGET_S,
+          f"phase 23 took {numbers['phase_s']} s of its {PIPELINED_BUDGET_S} s")
+    return numbers
+
+
 def _try_scrape(port: int):
     try:
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=2) as r:
@@ -4887,6 +5282,16 @@ def main() -> int:
     check(outage_launches == 0, f"phase 22 launched K1 {outage_launches} times")
     shutil.rmtree(outage_work, ignore_errors=True)
 
+    phase("the pipelined join: concurrent image pulls, barrier gates, the chain on the card")
+    k1.launches = 0
+    pipelined_work = tempfile.mkdtemp(prefix="chip-smoke-pipelined-")
+    pipelined_join_phase(types.SimpleNamespace(
+        repo=os.path.dirname(os.path.abspath(__file__)), card=card, work=pipelined_work,
+        node=card_node(pipelined_work), device="cuda"))
+    pipelined_launches = k1.launches
+    check(pipelined_launches == 0, f"phase 23 launched K1 {pipelined_launches} times")
+    shutil.rmtree(pipelined_work, ignore_errors=True)
+
     print(json.dumps({"smoke_s": round(time.monotonic() - _T0, 1), "card": card}))
     print(json.dumps({"kernels": [{
         "name": "stream_copy",
@@ -4905,8 +5310,8 @@ def main() -> int:
         # operator (12), the GPUDriver and leader phase (13), the health
         # loop (14), the rolling upgrade (15), the capacity loop (16), the
         # fleet simulator (17), the support bundle (18), the static checker
-        # (19), the sanitized join (20), the lanes (21) and the join through
-        # an outage (22) are checked at 0 above
+        # (19), the sanitized join (20), the lanes (21), the join through
+        # an outage (22) and the pipelined join (23) are checked at 0 above
         "launches_by_phase": {"perf": k1_main_launches, "serving": serving_launches,
                               "steady_state": steady_state_launches,
                               "device_plumbing": plumbing_launches,
@@ -4921,7 +5326,8 @@ def main() -> int:
                               "lint": lint_launches,
                               "opsan": opsan_launches,
                               "lanes": lanes_launches,
-                              "outage": outage_launches},
+                              "outage": outage_launches,
+                              "pipelined": pipelined_launches},
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -676,10 +676,10 @@ def map_rendezvous_pod(pod: dict) -> dict:
 #   reference's says ``chip-constant``;
 # - the demand's traffic mix plays over one node's GPUs as two halves,
 #   the reference's two 4-chip slices, so its shape is the reference's;
-# - the port's simulated kubelet always makes the DaemonSets' pods (the
-#   reference's ``create_pods=False`` outside the upgrade has no
-#   counterpart); the autoscale and migrate operations render no DaemonSet,
-#   so it makes none there;
+# - the fleet simulator's kubelet always makes the DaemonSets' pods, where
+#   the reference's engine passes ``create_pods=False`` outside the upgrade;
+#   the autoscale and migrate operations render no DaemonSet, so it makes
+#   none there (:data:`KUBELET_SIM_CREATE_PODS`);
 # - the migrate agents re-map over an 8-GPU NVLink board's links where the
 #   reference's take an accelerator and a chip count, and the training job
 #   names no partition (the reference's ``2x2``);
@@ -693,6 +693,13 @@ def map_rendezvous_pod(pod: dict) -> dict:
 # dicts for equal inputs. Its one difference is the fallback layout with no
 # handoff: one group of one GPU (:data:`TRAFFIC_FALLBACK_SLICES`), where the
 # reference's is one 4-chip 2x2 slice.
+
+#: ``KubeletSimulator``'s ``create_pods`` default. The reference's makes no
+#: pods unless asked (tpu_operator/testing/kubelet.py:KubeletSimulator.__init__);
+#: the port's makes them unless asked not to, since every port test and
+#: smoke phase that runs it reads the pods. Its other modes are the
+#: reference's (tests/test_torch_kubelet_sim.py holds them tick by tick).
+KUBELET_SIM_CREATE_PODS = {"reference": False, "port": True}
 
 #: the slices ``scenario_from_handoff(None)`` reports: reference, port
 TRAFFIC_FALLBACK_SLICES = {"reference": [{"capacity": 4, "blocked": False}],

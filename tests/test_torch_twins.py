@@ -19,9 +19,6 @@ QUEUED = "queued in ROADMAP.md Queue 1"
 NO_TWIN = {
     "test_bench.py": "bench.py is the reference's harness and is not ported; the port's "
                      "benchmark comes with its own harness",
-    "test_kubelet_sim.py": "the reference simulator's per-DaemonSet image-pull model, which "
-                           "only bench.py's join attribution drives; the port's "
-                           "KubeletSimulator leaves it out",
 }
 
 

@@ -60,7 +60,7 @@ import signal
 import subprocess
 import threading
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 from .. import consts
 from ..utils import deep_get, template_fingerprint
@@ -669,15 +669,34 @@ VALIDATION_APPS = ("gpu-workload-validation", "gpu-multihost-validation",
 
 class KubeletSimulator:
     """The DaemonSet controller and the kubelets of many nodes, in memory:
-    nothing runs. Every (DaemonSet, node) its selector matches has a Pod,
-    running and ready at once, and the DaemonSet's status counts them; the
-    device plugin's DaemonSet gives its nodes ``gpus_per_node`` (default
-    :data:`GPUS_PER_NODE`) of ``nvidia.com/gpu``; the validator's spawned pods finish ``Succeeded``. A
-    pod's template governs it as the DaemonSet controller's would: under
-    ``RollingUpdate`` an outdated pod is replaced, under ``OnDelete`` it
-    stays until someone (the upgrade machine) deletes it. A pod is outdated
-    when its ``tpu.ai/template-hash`` label is not its template's, or,
-    without the label, when its images and args are not the template's.
+    nothing runs. The DaemonSet's status counts the (DaemonSet, node) pairs
+    its selector matches that are available; the device plugin's DaemonSet
+    gives its available nodes ``gpus_per_node`` (default
+    :data:`GPUS_PER_NODE`) of ``nvidia.com/gpu``; the validator's spawned
+    pods finish ``Succeeded``, or as ``validation_exec`` says.
+
+    With ``create_pods`` (the default) every matching pair has a Pod,
+    running and ready at once. A pod's template governs it as the
+    DaemonSet controller's would: under ``RollingUpdate`` an outdated pod is
+    replaced, under ``OnDelete`` it stays until someone (the upgrade
+    machine) deletes it. A pod is outdated when its ``tpu.ai/template-hash``
+    label is not its template's, or, without the label, when its images and
+    args are not the template's. ``create_pods`` wins over ``rollout_ticks``.
+
+    Without pods, ``rollout_ticks`` decides availability:
+
+    - an int holds every DaemonSet at no available pod for that many ticks
+      of each generation, counted from the first tick that saw it, then
+      makes every matching node available at once;
+    - a dict (``{name: ticks, "*": default}``) gives each (DaemonSet, node)
+      its own image-pull clock. It starts at the tick the DaemonSet first
+      matched the node, or earlier, at the tick the node's
+      ``tpu.ai/image-prepull`` stamp was first seen (a kubelet that began
+      pulling when the labeller stamped it); a generation bump restarts it
+      with no credit (a new image). Once pulled, the pod is available when
+      ``barrier_check`` (if given) passes every barrier the DaemonSet's
+      rendered init containers gate on (:meth:`_gating_barriers`). Without
+      pods, the device plugin registers GPUs only on its available nodes.
 
     Each tick also runs the migrate agent's snapshot and restore passes for
     the nodes :meth:`attach_migrate_agent` names, and :meth:`revoke_node`
@@ -686,22 +705,46 @@ class KubeletSimulator:
     ``node_filter`` limits the simulator to the nodes it accepts, beside a
     process kubelet that runs another node of the same cluster: then
     ``write_ds_status=False`` leaves the DaemonSets' status to that kubelet.
-    The reference's simulator can also mark DaemonSets ready without pods
-    and models image pulls and barrier gates; the port's tests need none of
-    these."""
+    :attr:`transitions` records each change of a DaemonSet's available
+    count (tick, wall time, name, count). The reference's simulator makes no
+    pods unless asked (``create_pods=False``); the port's tests and phases
+    rely on pods, so the port's makes them unless asked not to."""
 
     def __init__(self, client, namespace: str = consts.DEFAULT_NAMESPACE,
                  interval: float = 0.05,
                  node_filter: Optional[Callable[[dict], bool]] = None,
-                 write_ds_status: bool = True, gpus_per_node: int = GPUS_PER_NODE):
+                 write_ds_status: bool = True, gpus_per_node: int = GPUS_PER_NODE,
+                 rollout_ticks: Union[int, Dict[str, int]] = 0,
+                 barrier_check: Optional[Callable[[str], bool]] = None,
+                 validation_exec: Optional[Callable[[dict], int]] = None,
+                 create_pods: bool = True):
         self.client = client
         self.namespace = namespace
         self.interval = interval
         self.gpus_per_node = gpus_per_node
         self.node_filter = node_filter
         self.write_ds_status = write_ds_status
+        self.rollout_ticks = rollout_ticks
+        #: barrier name -> passed?, for the gates of the pull model; None
+        #: gates nothing (no node agent writes barriers)
+        self.barrier_check = barrier_check
+        #: the validator's spawned pod -> its exit code (0 ``Succeeded``,
+        #: else ``Failed``); None finishes every such pod ``Succeeded``
+        self.validation_exec = validation_exec
+        self.create_pods = create_pods
+        #: (tick, unix time, DaemonSet, available) at each change of a count
+        self.transitions: List[tuple] = []
+        self._available: Dict[str, int] = {}
         #: node name -> the migrate agent's settings, run every tick
         self._migrate_agents: Dict[str, dict] = {}
+        #: (DaemonSet, generation) -> ticks seen, for an int rollout_ticks
+        self._seen: Dict[tuple, int] = {}
+        self._tick_count = 0
+        #: (DaemonSet, node) -> the tick its pull began, and its generation
+        self._pull_start: Dict[Tuple[str, str], int] = {}
+        self._pod_gen: Dict[Tuple[str, str], object] = {}
+        #: node -> the tick its pre-pull stamp was first seen
+        self._prepull: Dict[str, int] = {}
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
 
@@ -784,10 +827,25 @@ class KubeletSimulator:
         self._complete_validation_pods(None if self.node_filter is None
                                        else {n["metadata"]["name"] for n in nodes})
         self._run_migrate_agents()
+        self._tick_count += 1
+        per_node = isinstance(self.rollout_ticks, dict)
+        if per_node:
+            self._note_prepull(nodes)
         for ds in self.client.list("apps/v1", "DaemonSet", self.namespace):
+            name = ds["metadata"]["name"]
             selector = deep_get(ds, "spec", "template", "spec", "nodeSelector", default={})
             matching = [n for n in nodes if node_matches_selector(n, selector)]
-            available, updated = self._reconcile_pods(ds, matching)
+            key = (name, ds["metadata"].get("generation"))
+            ticks = self._seen.get(key, 0)
+            self._seen[key] = ticks + 1
+            ready_nodes = matching
+            if self.create_pods:
+                available, updated = self._reconcile_pods(ds, matching)
+            elif per_node:
+                ready_nodes = [n for n in matching if self._node_ready(ds, n)]
+                available = updated = len(ready_nodes)
+            else:
+                available = updated = len(matching) if ticks >= self.rollout_ticks else 0
             status = {"observedGeneration": deep_get(ds, "metadata", "generation", default=1),
                       "desiredNumberScheduled": len(matching),
                       "currentNumberScheduled": available, "numberReady": available,
@@ -795,11 +853,68 @@ class KubeletSimulator:
             if self.write_ds_status and ds.get("status") != status:
                 ds["status"] = status
                 self.client.update_status(ds)
+            if self._available.get(name) != available:
+                self._available[name] = available
+                self.transitions.append((self._tick_count, time.time(), name, available))
             component = deep_get(ds, "spec", "template", "metadata", "labels",
                                  "app.kubernetes.io/component")
             if available and component == "gpu-device-plugin":
-                for node in matching:
+                for node in ready_nodes:
                     self._register_gpus(node)
+
+    def _note_prepull(self, nodes: List[dict]) -> None:
+        """The tick at which each node's pre-pull stamp was first seen: where
+        a kubelet would have begun pulling."""
+        for node in nodes:
+            name = node["metadata"]["name"]
+            if name not in self._prepull and consts.IMAGE_PREPULL_ANNOTATION in (
+                    deep_get(node, "metadata", "annotations", default={}) or {}):
+                self._prepull[name] = self._tick_count
+
+    def _node_ready(self, ds: dict, node: dict) -> bool:
+        """The pull model: is this (DaemonSet, node) pod pulled and past its
+        barrier gates?"""
+        name = ds["metadata"]["name"]
+        generation = ds["metadata"].get("generation")
+        node_name = node["metadata"]["name"]
+        key = (name, node_name)
+        prior = self._pod_gen.get(key)
+        if key not in self._pull_start or prior != generation:
+            self._pod_gen[key] = generation
+            # the first generation pulls from the pre-pull stamp; a template
+            # change is a new image, pulled afresh with no credit
+            self._pull_start[key] = (self._prepull.get(node_name, self._tick_count)
+                                     if prior is None else self._tick_count)
+        need = self.rollout_ticks.get(name, self.rollout_ticks.get("*", 0))
+        if self._tick_count - self._pull_start[key] < need:
+            return False
+        return self.barrier_check is None or all(
+            self.barrier_check(b) for b in self._gating_barriers(ds))
+
+    @staticmethod
+    def _gating_barriers(ds: dict) -> List[str]:
+        """The barriers a DaemonSet's rendered init containers gate on: an
+        explicit wait's (``-c wait --for=X`` or ``--for X``) and each
+        validation stage's own (``-c driver``, ``plugin``, ``workload``),
+        which blocks until it writes its barrier. Other inits (a prewarm,
+        the serving probe) gate nothing here."""
+        barriers: List[str] = []
+        for container in deep_get(ds, "spec", "template", "spec", "initContainers",
+                                  default=[]) or []:
+            args = [str(a) for a in container.get("args") or []]
+            component = None
+            for i, arg in enumerate(args[:-1]):
+                if arg == "-c":
+                    component = args[i + 1]
+            if component == "wait":
+                for i, arg in enumerate(args):
+                    if arg.startswith("--for="):
+                        barriers.append(arg.split("=", 1)[1])
+                    elif arg == "--for" and i + 1 < len(args):
+                        barriers.append(args[i + 1])
+            elif component in ("driver", "plugin", "workload"):
+                barriers.append(component)
+        return barriers
 
     @staticmethod
     def _current(pod: dict, template: dict) -> bool:
@@ -864,7 +979,14 @@ class KubeletSimulator:
                 continue
             if deep_get(pod, "status", "phase") in ("Succeeded", "Failed"):
                 continue
-            pod["status"] = {"phase": "Succeeded"}
+            rc = 0
+            if self.validation_exec is not None:
+                try:
+                    rc = self.validation_exec(pod)
+                except Exception:  # a crashed container is a failed pod
+                    log.exception("validation_exec raised for pod %s", pod["metadata"]["name"])
+                    rc = 1
+            pod["status"] = {"phase": "Succeeded" if rc == 0 else "Failed"}
             self.client.update_status(pod)
 
     def _register_gpus(self, node: dict) -> None:
