@@ -73,10 +73,14 @@ Phases, each of which exits non-zero on failure:
 
 12. the operator's join on the card, installed from the port's chart
    (``deployments/gpu-operator``, rendered by the port's helmlite with the
-   phase's settings as chart values): an in-process MiniApiServer whose one
-   Node is this machine (NVIDIA's feature-discovery PCI label, no GPU
-   capacity yet) given every rendered object (the CRDs, the release
-   Namespace, the RBAC, the Deployment, the ClusterPolicy); ``gpu-operator``
+   phase's settings as chart values), its ClusterPolicy the shipped
+   bare-metal sample (``config/gpu/samples/v1_clusterpolicy_baremetal.yaml``,
+   read with the port's YAML reader) with only what this machine and the
+   smoke force over it, each override printed (:func:`sample_policy`): an
+   in-process MiniApiServer whose one Node is this machine (NVIDIA's
+   feature-discovery PCI label, no GPU capacity yet) given every rendered
+   object but the chart's ClusterPolicy (the CRDs, the release Namespace,
+   the RBAC, the Deployment); ``gpu-operator``
    started from the rendered Deployment's container (its console script as
    ``python -m`` of the module ``[project.scripts]`` names, its args, its
    env with the downward-API namespace resolved to the release's, plus only
@@ -106,8 +110,16 @@ Phases, each of which exits non-zero on failure:
    window), which must cover the smoke's CR-to-``ready`` interval within a
    sweep and sum to at most it, with a ``tpu_operator_join_phase_seconds``
    sample on ``/metrics``. The ClusterPolicy keeps its health machine off
-   (phase 14 turns it on). No hand-written kernel runs in this phase (K1's
-   count under ``operator`` is 0).
+   (phase 14 turns it on). Once ``ready``, the quickstart's pass
+   (``docs/gpu/quickstart.md``, :func:`quickstart_pass`), each step timed:
+   telemetry disabled and enabled again by the document's patch (its
+   DaemonSet gone, then back and available), the node's telemetry
+   kill-switch label set (its pod leaves the node) and removed (it comes
+   back), the document's workload Pod requesting one ``nvidia.com/gpu``
+   bound to the node and run by the kubelet, which allocates it one GPU in
+   ``CUDA_VISIBLE_DEVICES`` by NVML's UUID, as the device plugin's Allocate
+   would (it sees exactly that GPU), and ``gpuop-cfg status`` exiting 0. No hand-written kernel runs
+   in this phase (K1's count under ``operator`` is 0).
 13. on that cluster, once ``ready`` again (:func:`gpudriver_phase`): the
    sample ``GPUDriver`` (empty selector) takes the driver DaemonSet over
    (the ClusterPolicy's deleted, ``gpu-driver-default-<pool>`` created
@@ -186,9 +198,9 @@ Phases, each of which exits non-zero on failure:
    --json`` in a fresh process that maps neither torch nor libcuda (every
    oracle green, the two canonical logs byte-identical); the same cases in
    this process on the card's curve, whose canonical logs must be the
-   processes' (a card's scale changes no decision); a 5-scenario fuzz sweep
+   processes' (a card's scale changes no decision); a 3-scenario fuzz sweep
    at the pinned seed 20260806, double-run (the scenario-fuzz gate's 25 cut
-   to 5 for time); the serving-traffic mix twice over phase 11's partition
+   to 3 for time); the serving-traffic mix twice over phase 11's partition
    handoff from the card's NVML (equal dicts, no unhandled error, no request
    lost). No hand-written kernel (K1's count under ``simulator`` is 0).
 18. after phase 17 (:func:`must_gather_phase`): the support bundle. A fresh
@@ -1769,7 +1781,7 @@ def deployment_process(repo: str, deployment: dict) -> tuple:
 
 def card_node(work: str) -> dict:
     """This machine as a one-node cluster's node for :func:`join_cluster`:
-    its name (the host's), its GPU count (NVML's), the validator's command
+    its name (the host's), its GPU count and UUIDs (NVML's), the validator's command
     line, the kubelet's modes (every operand run, the device plugin's init
     alone) and the driver image's content (the machine's own driver
     libraries, linked into ``work``)."""
@@ -1779,13 +1791,14 @@ def card_node(work: str) -> dict:
 
     node_name = re.sub(r"[^a-z0-9.-]", "-", socket.gethostname().lower()).strip("-.") or "node"
     with nvml.session() as s:
-        gpu_count = len(s.gpus())
+        gpu_uuids = [g.uuid for g in s.gpus()]
+    gpu_count = len(gpu_uuids)
     host_dir = os.path.dirname(driver.find_host_driver() or fail("no host libcuda.so.1"))
     bundle = os.path.join(work, "bundle")
     os.makedirs(bundle)
     for name in consts.DRIVER_LIB_FILES:
         os.symlink(os.path.realpath(os.path.join(host_dir, name)), os.path.join(bundle, name))
-    return {"node_name": node_name, "gpu_count": gpu_count,
+    return {"node_name": node_name, "gpu_count": gpu_count, "gpu_uuids": gpu_uuids,
             "validator": [sys.executable, "-m", "tpu_operator_torch.cmd.validator"],
             "modes": {"gpu-driver": RUN, "gpu-operator-validator": RUN,
                       "gpu-device-plugin": INIT, "gpu-feature-discovery": RUN,
@@ -1793,20 +1806,60 @@ def card_node(work: str) -> dict:
             "driver_env": {consts.DRIVER_SRC_ENV: bundle}}
 
 
-def join_cluster(repo: str, work: str, node: dict,
-                 leader_elect: bool = False) -> types.SimpleNamespace:
-    """The one-node cluster of phases 12 and 20: the port's chart rendered
-    with :func:`chart_values` (its ClusterPolicy must pass the CRD's
-    schema), a MiniApiServer holding the node (``node`` as
-    :func:`card_node` gives it) and every rendered object but the
+#: the shipped sample phase 12 joins the card from
+BAREMETAL_SAMPLE = os.path.join("config", "gpu", "samples", "v1_clusterpolicy_baremetal.yaml")
+
+
+def sample_policy(repo: str, work: str, status_dir: str) -> tuple:
+    """Phase 12's ClusterPolicy: the shipped bare-metal sample, read with
+    the port's YAML reader, with only what this machine or the smoke forces
+    set over it. Returns the CR and its overrides, ``{spec path: (value,
+    why)}``."""
+    from tpu_operator_torch import yamlsubset
+
+    with open(os.path.join(repo, BAREMETAL_SAMPLE)) as f:
+        cp = yamlsubset.parse(f.read())
+    shared = "every pod of this machine shares its host network"
+    overrides = {
+        "hostPaths.validationStatusDir": (status_dir, "the run's own directory"),
+        "hostPaths.driverInstallDir": (os.path.join(work, "driver-install"),
+                                       "the installer must not write the host's driver"),
+        "hostPaths.partitionHandoffDir": (os.path.join(work, "handoff"),
+                                          "the run's own directory"),
+        "hostPaths.devGlobs": (os.environ["GPU_DEV_GLOBS"].split(","),
+                               "this machine's GPU device nodes"),
+        "telemetry.metricsPort": (free_port(), shared),
+        "nodeStatusExporter.metricsPort": (free_port(), shared),
+        "health.enabled": (False, "phase 14 turns the health machine on; the barrier flip "
+                                  "below would count toward its flap window"),
+        "featureDiscovery.sleepInterval": ("5s", "the join trace must hold the node's "
+                                                 "spans within its 40 s wait"),
+    }
+    for path, (value, _) in overrides.items():
+        *parents, leaf = path.split(".")
+        section = cp["spec"]
+        for key in parents:
+            section = section.setdefault(key, {})
+        section[leaf] = value
+    return cp, overrides
+
+
+def join_cluster(repo: str, work: str, node: dict, leader_elect: bool = False,
+                 policy: dict = None) -> types.SimpleNamespace:
+    """The one-node cluster of phases 12, 20 and 22: the port's chart
+    rendered with :func:`chart_values` (its ClusterPolicy, or ``policy`` in
+    its place, must pass the CRD's schema), a MiniApiServer holding the node
+    (``node`` as :func:`card_node` gives it) and every rendered object but the
     ClusterPolicy (``helm install``; the join starts when the caller creates
     it), and a process kubelet on the node, not yet started, which runs the
     DaemonSets the operator renders, the validation chain and its spawned
-    workload pod. Returns ``srv``, ``base``, ``kubelet``, ``cp``,
-    ``deployment``, ``argv`` and ``env`` (the Deployment's process here),
-    ``rendered`` and ``status_dir``. ``leader_elect`` keeps the chart's
-    default, ``--leader-elect`` on the Deployment (phase 22)."""
+    workload pod, and a user's Pod (``python3`` is this interpreter).
+    Returns ``srv``, ``base``, ``kubelet``, ``cp``, ``deployment``, ``argv``
+    and ``env`` (the Deployment's process here), ``rendered`` and
+    ``status_dir``. ``leader_elect`` keeps the chart's default,
+    ``--leader-elect`` on the Deployment (phase 22)."""
     from tpu_operator_torch import consts
+    from tpu_operator_torch.api import schema_gen, schema_validate
     from tpu_operator_torch.testing import helmlite
     from tpu_operator_torch.testing.apiserver import MiniApiServer
     from tpu_operator_torch.testing.kubelet import ProcessKubelet
@@ -1816,6 +1869,10 @@ def join_cluster(repo: str, work: str, node: dict,
     values["operator"]["leaderElect"] = leader_elect
     rendered = install_from_chart(repo, values, consts.DEFAULT_NAMESPACE)
     cp = next(o for o in rendered if o["kind"] == "ClusterPolicy")
+    if policy is not None:
+        errors = schema_validate.validate_cr(policy, schema_gen.clusterpolicy_crd())
+        check(errors == [], f"the ClusterPolicy fails its schema: {errors}")
+        cp = policy
     deployment = next(o for o in rendered if o["kind"] == "Deployment")
     argv, deployment_env = deployment_process(repo, deployment)
     srv = MiniApiServer()
@@ -1829,21 +1886,190 @@ def join_cluster(repo: str, work: str, node: dict,
     base_env.update(PYTHONPATH=repo, KUBE_API_URL=base)
     kubelet = ProcessKubelet(
         srv.backend, node["node_name"], consts.DEFAULT_NAMESPACE, os.path.join(work, "logs"),
-        base_env, {"gpu-validator": node["validator"]}, modes=node["modes"],
+        base_env, {"gpu-validator": node["validator"], "python3": [sys.executable]},
+        modes=node["modes"],
         image_env={"gpu-driver": node["driver_env"]},
         capacity_app="gpu-device-plugin", gpu_count=node["gpu_count"],
-        path_map={"/var/cache/gpu-kernels": os.path.join(work, "kernel-cache")})
+        path_map={"/var/cache/gpu-kernels": os.path.join(work, "kernel-cache")},
+        gpu_ids=node.get("gpu_uuids"))
     return types.SimpleNamespace(srv=srv, base=base, kubelet=kubelet, cp=cp,
                                  deployment=deployment, argv=argv, env=deployment_env,
                                  rendered=rendered, status_dir=status_dir)
 
 
+#: the quickstart whose steps phase 12 takes on its cluster
+QUICKSTART_DOC = os.path.join("docs", "gpu", "quickstart.md")
+#: the namespace a user's workload Pod runs in
+WORKLOAD_NAMESPACE = "default"
+
+
+def quickstart_manifests(repo: str) -> dict:
+    """What the quickstart has a user apply, as the document gives it: the
+    workload ``pod`` (its ``yaml`` block of kind Pod) and the telemetry
+    ``disable`` and ``enable`` patches (each ``kubectl patch ... -p`` JSON)."""
+    from tpu_operator_torch import yamlsubset
+
+    with open(os.path.join(repo, QUICKSTART_DOC)) as f:
+        text = f.read()
+    blocks = [yamlsubset.parse(b) for b in re.findall(r"```yaml\n(.*?)```", text, re.S)]
+    pods = [b for b in blocks if b.get("kind") == "Pod"]
+    patches = [json.loads(p) for p in re.findall(r"--type merge -p '(\{.*?\})'", text)]
+    telemetry = {p["spec"]["telemetry"]["enabled"]: p for p in patches
+                 if "telemetry" in p.get("spec", {})}
+    check(len(pods) == 1 and set(telemetry) == {False, True},
+          f"{QUICKSTART_DOC}: {len(pods)} workload Pods, telemetry patches {telemetry}")
+    return {"pod": pods[0], "disable": telemetry[False], "enable": telemetry[True]}
+
+
+def quickstart_pass(ctx) -> dict:
+    """The quickstart's day-one steps on a ``ready`` cluster, each timed and
+    checked: (a) telemetry disabled by the document's patch (its DaemonSet
+    and pod gone) and enabled by the other (back and available); (b) the
+    node's telemetry kill-switch label set to ``false`` (the pod leaves the
+    node) and removed (the labeller restores the gate, the pod comes back);
+    (c) the document's workload Pod, bound to the node as a scheduler would
+    (its node selector and its ``nvidia.com/gpu`` limit fit), run by the
+    kubelet, which allocates it as many of the node's GPUs as it asked for
+    in ``CUDA_VISIBLE_DEVICES`` (NVML's UUIDs, as the device plugin's
+    Allocate would): on ``cuda`` it sees exactly the GPUs allocated, each
+    one NVML reports, on ``cpu`` none; (d) ``gpuop-cfg status`` exits 0.
+
+    ``ctx``: ``srv``, ``base``, ``kubelet``, ``namespace``, ``node_name``,
+    ``repo``, ``card``, ``operator_env`` and ``device``."""
+    from tpu_operator_torch import consts
+    from tpu_operator_torch.client import NotFoundError
+
+    raw, kubelet, node_name = ctx.srv.backend, ctx.kubelet, ctx.node_name
+    docs = quickstart_manifests(ctx.repo)
+    ds_name = "gpu-telemetry-exporter"
+    pod_name = f"{ds_name}-{node_name}"
+    started = time.monotonic()
+    numbers = {"card": ctx.card}
+
+    def get(*key):
+        try:
+            return raw.get(*key)
+        except NotFoundError:
+            return None
+
+    def ds_status():
+        return (get("apps/v1", "DaemonSet", ds_name, ctx.namespace) or {}).get("status") or {}
+
+    def telemetry_back(t0):
+        # a pod the kubelet started after t0 and then saw ready ("simulated"
+        # for a DaemonSet it does not run): a status the old pod wrote does
+        # not count
+        started = kubelet.first("pod-start", after=t0, ds=ds_name)
+        return (started is not None
+                and (kubelet.first("ready", after=started["t"], ds=ds_name)
+                     or kubelet.first("simulated", after=started["t"], ds=ds_name))
+                and ds_status().get("numberAvailable") == 1
+                and get("v1", "Pod", pod_name, ctx.namespace) is not None
+                and (get("tpu.ai/v1", "ClusterPolicy", "cluster-policy").get("status")
+                     or {}).get("state") == "ready")
+
+    def timed(key, what, run):
+        t0 = time.monotonic()
+        run()
+        numbers[key] = round(time.monotonic() - t0, 3)
+        print(json.dumps({"quickstart_step": key, "what": what, "s": numbers[key],
+                          "card": ctx.card}))
+
+    def toggle():
+        t0 = time.time()
+        _patch_policy(ctx, docs["disable"]["spec"])
+        # gone from the apiserver, and its pod stopped by the kubelet
+        _wait_for(lambda: get("apps/v1", "DaemonSet", ds_name, ctx.namespace) is None
+                  and get("v1", "Pod", pod_name, ctx.namespace) is None
+                  and kubelet.first("pod-stop", after=t0, ds=ds_name), 60,
+                  "the telemetry DaemonSet and its pod gone after the disable patch")
+        t1 = time.time()
+        _patch_policy(ctx, docs["enable"]["spec"])
+        _wait_for(lambda: telemetry_back(t1), 120,
+                  "telemetry back and available after the enable patch")
+
+    def kill_switch():
+        key = consts.deploy_label("telemetry")
+        raw.patch("v1", "Node", node_name, {"metadata": {"labels": {key: "false"}}})
+        _wait_for(lambda: ds_status().get("desiredNumberScheduled") == 0
+                  and get("v1", "Pod", pod_name, ctx.namespace) is None, 60,
+                  "the telemetry pod off the kill-switched node")
+        check(raw.get("v1", "Node", node_name)["metadata"]["labels"].get(key) == "false",
+              "the operator overwrote the node's kill switch")
+        t1 = time.time()
+        raw.patch("v1", "Node", node_name, {"metadata": {"labels": {key: None}}})
+        _wait_for(lambda: raw.get("v1", "Node", node_name)["metadata"]["labels"].get(key)
+                  == "true" and telemetry_back(t1), 120,
+                  "the gate restored and telemetry back after the kill switch's removal")
+
+    def workload():
+        pod = copy.deepcopy(docs["pod"])
+        pod["metadata"]["namespace"] = WORKLOAD_NAMESPACE
+        node = raw.get("v1", "Node", node_name)
+        labels = node["metadata"].get("labels") or {}
+        selector = pod["spec"].get("nodeSelector") or {}
+        [container] = pod["spec"]["containers"]
+        want = int(container["resources"]["limits"][consts.GPU_RESOURCE_NAME])
+        allocatable = int((node.get("status") or {}).get("allocatable", {}).get(
+            consts.GPU_RESOURCE_NAME, 0))
+        check(all(labels.get(k) == v for k, v in selector.items()) and want <= allocatable,
+              f"the workload Pod does not fit the node: selector {selector}, "
+              f"{want} of {allocatable} GPUs")
+        pod["spec"]["nodeName"] = node_name  # the scheduler's binding
+        t0 = time.time()
+        raw.create(pod)
+        name = pod["metadata"]["name"]
+        done = _wait_for(lambda: kubelet.first("pod-exit", after=t0, pod=name), 180,
+                         "the quickstart's workload Pod to finish")
+        text = "\n".join(t for k, t in kubelet.spawned_logs().items()
+                         if k.startswith(container["name"] + "@"))
+        report = _report_line(text, '"device_count"')
+        check(done["rc"] == 0 and report is not None,
+              f"the workload Pod exited {done['rc']}: {text[-2000:]}")
+        # the kubelet's allocation, as the device plugin's Allocate hands it:
+        # as many GPUs as the limit, in the container's CUDA_VISIBLE_DEVICES
+        allocated = (kubelet.first("gpu-allocated", after=t0, pod=name) or {}).get("ids", [])
+        check(len(allocated) == want, f"the workload Pod was allocated {allocated} "
+                                      f"for its limit of {want}")
+        if ctx.device == "cuda":
+            from tpu_operator_torch import nvml
+
+            with nvml.session() as session:
+                uuids = [g.uuid for g in session.gpus()]
+            seen = [f"GPU-{u}" for u in report["uuids"]]
+            check(report["device_count"] == want and sorted(seen) == sorted(allocated)
+                  and all(u in uuids for u in seen),
+                  f"the workload Pod saw {report}, was allocated {allocated}, "
+                  f"NVML reports {uuids}")
+        else:
+            check(report["device_count"] == 0, f"the workload Pod saw {report} on the CPU")
+        numbers["workload_pod"] = dict(report, limit=want, allocated=allocated)
+        raw.delete("v1", "Pod", name, WORKLOAD_NAMESPACE)
+
+    def status():
+        out = _gpuop_cfg(ctx, "status", "--base-url", ctx.base)
+        print(out["out"])
+        check(out["rc"] == 0, f"gpuop-cfg status exited {out['rc']}: {out['err'][-2000:]}")
+
+    timed("a_telemetry_toggle_s", "telemetry disabled and enabled by the quickstart's patches",
+          toggle)
+    timed("b_kill_switch_s", "the node's telemetry kill switch set and removed", kill_switch)
+    timed("c_workload_pod_s", "the quickstart's workload Pod requesting nvidia.com/gpu",
+          workload)
+    timed("d_gpuop_cfg_status_s", "gpuop-cfg status", status)
+    numbers["pass_s"] = round(time.monotonic() - started, 3)
+    print(json.dumps({"quickstart": numbers}))
+    return numbers
+
+
 def operator_phase(card, then=None) -> dict:
-    """Phase 12: ``gpu-operator`` reconciles the port's sample ClusterPolicy
-    onto this machine as a one-node cluster (:func:`join_cluster`), and a
-    process kubelet runs the DaemonSets it renders, the validation chain and
-    its spawned workload pod on the card. ``then(ctx)``, when given, runs on
-    that cluster once it is ``ready`` again (phase 13, :func:`gpudriver_phase`)."""
+    """Phase 12: ``gpu-operator`` reconciles the shipped bare-metal sample
+    (:func:`sample_policy`) onto this machine as a one-node cluster
+    (:func:`join_cluster`), and a process kubelet runs the DaemonSets it
+    renders, the validation chain and its spawned workload pod on the card;
+    at ``ready``, the quickstart's pass (:func:`quickstart_pass`).
+    ``then(ctx)``, when given, runs on that cluster once it is ``ready``
+    again (phase 13, :func:`gpudriver_phase`)."""
     import shutil
 
     from tpu_operator_torch import consts
@@ -1852,7 +2078,11 @@ def operator_phase(card, then=None) -> dict:
     work = tempfile.mkdtemp(prefix="chip-smoke-operator-")
     machine = card_node(work)
     node_name, gpu_count = machine["node_name"], machine["gpu_count"]
-    cluster = join_cluster(repo, work, machine)
+    cp, overrides = sample_policy(repo, work, os.path.join(work, "status"))
+    print(f"phase 12's ClusterPolicy: {BAREMETAL_SAMPLE}, with {len(overrides)} overrides")
+    for path, (value, why) in overrides.items():
+        print(f"override spec.{path} = {json.dumps(value)} ({why})")
+    cluster = join_cluster(repo, work, machine, policy=cp)
     srv, base, kubelet, cp = cluster.srv, cluster.base, cluster.kubelet, cluster.cp
     deployment, argv, deployment_env = cluster.deployment, cluster.argv, cluster.env
     status_dir = cluster.status_dir
@@ -1967,6 +2197,10 @@ def operator_phase(card, then=None) -> dict:
         print(json.dumps({"operator_join": numbers}))
         numbers["critical_path"] = join_critical_path(
             health_port, metrics_port, node_name, t0, seen["ClusterPolicy ready"], card)
+        numbers["quickstart"] = quickstart_pass(types.SimpleNamespace(
+            srv=srv, base=base, kubelet=kubelet, namespace=consts.DEFAULT_NAMESPACE,
+            node_name=node_name, repo=repo, card=card, operator_env=operator_env,
+            device="cuda"))
 
         # a failing workload barrier holds the CR notReady; a passing rerun
         # restores it. The recycle alone makes the validator DaemonSet
@@ -2674,7 +2908,11 @@ def health_phase(ctx) -> dict:
         recovered = trail.first(t_a, state="recovered")
         check(not recovered["cordoned"] and not recovered["plan"],
               f"recovered still cordoned or planned: {recovered}")
-        rerun = _wait_for(lambda: kubelet.first("init-exit", after=t_rem,
+        # the rerun of the pod the operator recreated: the deleted pod's
+        # back-off rerun, started under the fault, may exit failed after
+        # remediating and before its deletion
+        deleted = kubelet.first("pod-deleted", after=t_rem - 1.0, ds="gpu-operator-validator")
+        rerun = _wait_for(lambda: kubelet.first("init-exit", after=deleted["t"],
                                                 ds="gpu-operator-validator",
                                                 container="workload-validation"), 60,
                           "the validator's rerun after the recycle (A)")
@@ -3703,8 +3941,8 @@ def autoscale_phase(ctx) -> dict:
 
 
 #: the fuzz sweep's scenarios in phase 17: the scenario-fuzz gate's 25, cut
-#: to 5 for the smoke's time
-SIM_FUZZ_BUDGET = 5
+#: to 3 for the smoke's time
+SIM_FUZZ_BUDGET = 3
 #: the traffic mix's sampling interval over phase 11's handoff
 SIM_TRAFFIC_SAMPLE_S = 5.0
 #: runs a module as ``python -m`` would, then reports on standard error

@@ -81,13 +81,14 @@ def cluster(request):
     state["srv"].stop()  # the outage swaps in a new server
 
 
-def wait_for(predicate, timeout=45.0, interval=0.05, message="condition"):
+def wait_for(predicate, timeout=45.0, interval=0.05, message="condition", explain=None):
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
         if predicate():
             return
         time.sleep(interval)
-    raise AssertionError(f"timed out waiting for {message}")
+    raise AssertionError(f"timed out waiting for {message}"
+                         + (f"\n{explain()}" if explain is not None else ""))
 
 
 def policy_state(client):
@@ -95,6 +96,22 @@ def policy_state(client):
         return deep_get(client.get(*CP), "status", "state")
     except NotFoundError:
         return None
+
+
+def multihost_trail(client):
+    """What a slice that never reached ready shows: the policy's status, each
+    node's capacity and multihost stamp, the rendezvous pods, the DaemonSets."""
+    lines = [f"policy status: {deep_get(client.get(*CP), 'status')}"]
+    for node in client.list("v1", "Node"):
+        lines.append(f"node {node['metadata']['name']}: capacity "
+                     f"{deep_get(node, 'status', 'capacity')} stamp "
+                     f"{deep_get(node, 'metadata', 'annotations', consts.MULTIHOST_VALIDATED_ANNOTATION)}")
+    for pod in client.list("v1", "Pod", NS, label_selector={"app": MULTIHOST_APP}):
+        lines.append(f"pod {pod['metadata']['name']}: {deep_get(pod, 'status', 'phase')} "
+                     f"created {deep_get(pod, 'metadata', 'creationTimestamp')}")
+    for ds in client.list("apps/v1", "DaemonSet", NS):
+        lines.append(f"daemonset {ds['metadata']['name']}: {ds.get('status')}")
+    return "\n".join(lines)
 
 
 def gpu_node(name, labels=None):
@@ -263,11 +280,13 @@ def test_multihost_slice_validation_e2e(cluster):
         client.create(gpu_node(f"vm-{i}", labels))
     client.create(new_cluster_policy())
     app.start()
-    wait_for(lambda: policy_state(client) == "ready", message="slice validated + ready")
+    wait_for(lambda: policy_state(client) == "ready", message="slice validated + ready",
+             explain=lambda: multihost_trail(client))
     for i in range(4):
         node = client.get("v1", "Node", f"vm-{i}")
         assert deep_get(node, "metadata", "annotations",
-                        consts.MULTIHOST_VALIDATED_ANNOTATION), f"vm-{i} not stamped"
+                        consts.MULTIHOST_VALIDATED_ANNOTATION), \
+            f"vm-{i} not stamped\n{multihost_trail(client)}"
     assert client.list("v1", "Pod", NS, label_selector={"app": MULTIHOST_APP}) == []
 
 

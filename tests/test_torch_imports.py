@@ -131,9 +131,10 @@ def _lane_files():
 
 def test_the_lane_file_list_is_complete():
     names = {os.path.relpath(p, REPO) for p in _lane_files()}
-    assert len(names) == 22
+    assert len(names) == 26
     assert {"tests/e2e-envtest-gpu.sh", "tests/e2e-kind-gpu.sh", "tests/ci-run-e2e-gpu.sh",
-            "docker/gpu-validator.Dockerfile", "tests/cases/torch/gpudriver.sh"} <= names
+            "docker/gpu-validator.Dockerfile", "tests/cases/torch/gpudriver.sh",
+            "docs/gpu/quickstart.md", "docs/gpu/static-analysis.md"} <= names
 
 
 @pytest.mark.parametrize("path", _lane_files(), ids=lambda p: os.path.relpath(p, REPO))

@@ -4,8 +4,10 @@ kubelet's status (phase, ``Ready``, container statuses with restart counts
 and ``CrashLoopBackOff`` during a back-off); ``updateStrategy: OnDelete``
 leaves a running pod on its old template until the Pod object is deleted,
 where ``RollingUpdate`` reruns it; a deleted or evicted pod's process
-is killed before the delete returns; and the node's GPUs go with the
-device plugin's pod and come back with it.
+is killed before the delete returns; the node's GPUs go with the
+device plugin's pod and come back with it; and a spawned Pod's
+``nvidia.com/gpu`` limit is allocated in ``CUDA_VISIBLE_DEVICES`` as the
+device plugin's Allocate would.
 """
 
 import os
@@ -197,5 +199,57 @@ def test_the_plugin_s_gpus_go_with_its_pod_and_come_back_with_it(tmp_path, monke
         assert kubelet.first("capacity-withdrawn", ds="plugin")
         client.create(plugin)
         wait(lambda: gpus() == ["8", "8"], "the GPUs back with the plugin")
+    finally:
+        kubelet.stop()
+
+
+def test_a_pod_s_gpu_limit_is_allocated_as_the_device_plugin_would(tmp_path):
+    """A spawned Pod's container with an ``nvidia.com/gpu`` limit sees that
+    many of the node's GPU ids in ``CUDA_VISIBLE_DEVICES``, none another Pod
+    holds; a container without a limit sees what the host shows; a Pod whose
+    GPUs are held waits Pending until they are freed; one asking for more
+    than the node has fails admission; a test's injected env wins."""
+    client = FakeClient()
+    client.create({"apiVersion": "v1", "kind": "Node", "metadata": {"name": NODE}})
+    kubelet = k.ProcessKubelet(client, NODE, NS, str(tmp_path / "logs"),
+                               {"PATH": os.environ.get("PATH", ""),
+                                "CUDA_VISIBLE_DEVICES": "host"}, {},
+                               gpu_count=2, gpu_ids=["GPU-a", "GPU-b"])
+    show = ("import os, time; print(os.environ.get('CUDA_VISIBLE_DEVICES'), flush=True); "
+            "time.sleep(float(os.environ.get('HOLD', '0')))")
+
+    def consumer(name, gpus=None, hold="0"):
+        ctr = dict(python(show), name="c", env=[{"name": "HOLD", "value": hold}])
+        if gpus is not None:
+            ctr["resources"] = {"limits": {"nvidia.com/gpu": str(gpus)}}
+        client.create({"apiVersion": "v1", "kind": "Pod",
+                       "metadata": {"name": name, "namespace": "default"},
+                       "spec": {"nodeName": NODE, "containers": [ctr]},
+                       "status": {"phase": "Pending"}})
+
+    def seen(name):
+        uid = client.get("v1", "Pod", name, "default")["metadata"]["uid"]
+        wait(lambda: kubelet.first("pod-exit", pod=name), f"{name} done")
+        return kubelet._spawned[uid][0].output().strip()
+
+    kubelet.start()
+    try:
+        consumer("one", 1, hold="120")
+        wait(lambda: kubelet.first("pod-running", pod="one"), "one running")
+        consumer("two", 1)
+        assert seen("two") == "GPU-b"
+        assert kubelet.first("gpu-allocated", pod="one")["ids"] == ["GPU-a"]
+        consumer("both", 2)
+        wait(lambda: kubelet.first("pod-waiting-for-gpus", pod="both"), "both waiting")
+        assert client.get("v1", "Pod", "both", "default")["status"]["phase"] == "Pending"
+        client.delete("v1", "Pod", "one", "default")
+        assert seen("both") == "GPU-a,GPU-b"
+        assert seen(consumer("none") or "none") == "host"
+        consumer("three", 3)
+        wait(lambda: kubelet.first("pod-admission-failed", pod="three"), "three refused")
+        assert client.get("v1", "Pod", "three", "default")["status"]["phase"] == "Failed"
+        kubelet.pod_env = {"CUDA_VISIBLE_DEVICES": ""}
+        assert seen(consumer("faulted", 1) or "faulted") == ""
+        assert kubelet._allocated == {}
     finally:
         kubelet.stop()

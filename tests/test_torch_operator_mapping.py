@@ -985,6 +985,73 @@ def test_the_lane_daemonsets_are_the_mapped_names():
     assert {k: _map_string(k) for k in LANE_DAEMONSETS} == LANE_DAEMONSETS
 
 
+# -- the shipped samples (config/samples -> config/gpu/samples) -------------------
+
+#: each reference sample -> the port's, in ``config/gpu/samples/``
+CONFIG_SAMPLES = {"v1_clusterpolicy.yaml": "v1_clusterpolicy.yaml",
+                  "v1_clusterpolicy_baremetal.yaml": "v1_clusterpolicy_baremetal.yaml",
+                  "v1alpha1_tpudriver.yaml": "v1alpha1_gpudriver.yaml"}
+#: the samples' registry: the reference's project registry -> the chart's
+#: (``deployments/gpu-operator/values.yaml``)
+SAMPLE_REGISTRY = {"gcr.io/my-project": "registry.example.com/gpu-operator"}
+#: the reference ships a device-plugin image beside its validator; the port's
+#: one validator image runs every operand (``-c device-plugin`` among them)
+SAMPLE_IMAGES = {"tpu-validator": "gpu-validator", "tpu-device-plugin": "gpu-validator"}
+#: the bare-metal sample's host directories: the reference's TPU paths -> a
+#: GPU node's
+SAMPLE_HOST_PATHS = {"/var/lib/tpu/validations": "/var/lib/gpu/validations",
+                     "/opt/tpu/libtpu": "/opt/nvidia/driver/lib64"}
+#: the bare-metal sample's device globs: the TPU's accel nodes -> the GPUs'
+#: numbered nodes (``consts.GPU_DEV_GLOBS``; ``/dev/nvidia*`` would also
+#: match the control nodes, ``nvidiactl`` and ``nvidia-uvm``)
+SAMPLE_DEV_GLOBS = {("/dev/accel*",): list(consts.GPU_DEV_GLOBS)}
+#: keys the reference's samples set that the port's leave out: a pinned
+#: driver version would be recorded as installed whatever NVML reports, so
+#: the port's samples let the installer record NVML's (``driver.driverVersion``
+#: and a GPUDriver's ``driverVersion`` default to it)
+SAMPLE_LEFT_OUT = ("driverVersion",)
+#: the GPUDriver sample: the reference's instance selects one accelerator's
+#: nodes; the port's, ``default``, selects every GPU node and the operator
+#: keys its pools on the GPU model (``state/nodepool.py:get_node_pools``),
+#: the instance the smoke's phase 13 and the shell e2e's case hand over
+SAMPLE_GPUDRIVER = {"name": "default", "nodeSelector": {}}
+
+
+def _map_sample_images(section: dict, ref: dict) -> None:
+    if "repository" in ref:
+        section["repository"] = SAMPLE_REGISTRY[ref["repository"]]
+    if "image" in ref:
+        section["image"] = SAMPLE_IMAGES[ref["image"]]
+    for key in SAMPLE_LEFT_OUT:
+        section.pop(key, None)
+
+
+def map_config_sample(obj: dict) -> dict:
+    """A reference sample (``config/samples/*.yaml``) as the port's in
+    ``config/gpu/samples/``: the CR mapped as the operator tests map one,
+    the samples' registry and image, the bare-metal host paths and device
+    globs, no pinned driver version, and the GPUDriver instance over every
+    GPU node."""
+    if obj["kind"] == "TPUDriver":
+        out = map_driver(obj)
+        out["metadata"]["name"] = SAMPLE_GPUDRIVER["name"]
+        out["spec"]["nodeSelector"] = dict(SAMPLE_GPUDRIVER["nodeSelector"])
+        _map_sample_images(out["spec"], obj["spec"])
+        return out
+    out = copy.deepcopy(obj)
+    out["spec"] = map_spec(obj["spec"])
+    for key, section in out["spec"].items():
+        if isinstance(section, dict):
+            _map_sample_images(section, obj["spec"][key])
+    host = out["spec"].get("hostPaths") or {}
+    for key in ("validationStatusDir", "driverInstallDir"):
+        if key in host:
+            host[key] = SAMPLE_HOST_PATHS[host[key]]
+    if "devGlobs" in host:
+        host["devGlobs"] = SAMPLE_DEV_GLOBS[tuple(host["devGlobs"])]
+    return out
+
+
 # -- the mapping's own tests ----------------------------------------------------
 
 def _renders(spec):

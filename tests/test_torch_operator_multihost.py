@@ -6,7 +6,12 @@ For slices of 1, 2 and 4 nodes the port's pods carry MASTER_ADDR (worker
 carry the JAX coordinator env, with RANKs 0..n-1 in the reference's worker
 order (tests/test_torch_operator_mapping.py:map_rendezvous_pod). The walk is
 the same: launch, all Succeeded then stamp and teardown, any Failed then
-teardown, changed membership then restart, and the scheduling budget.
+teardown, changed membership then restart, and the scheduling budget. One
+difference: a slice some of whose members have no GPUs registered yet
+waits for them, up to the scheduling budget, where the reference's
+validates the members that have theirs at once (ready, unvalidated, when
+fewer than two have); past the budget the port does what the reference's
+does, with a Warning Event naming the missing members.
 
 The twin of tests/test_multihost_state.py.
 """
@@ -201,6 +206,73 @@ def test_the_scheduling_budget_tears_down_pods_stuck_pending():
     reasons = [e["reason"] for e in twin.port.list("v1", "Event", NS)]
     assert reasons == [e["reason"] for e in twin.ref.list("v1", "Event", NS)]
     assert reasons == ["MultihostSchedulingTimeout"]
+
+
+def test_a_slice_waits_for_every_member_s_gpus():
+    """A four-node slice whose device plugin has registered the GPUs of one
+    node only (its DaemonSet already counts every pod available): the
+    reference's sweep finds no group of two schedulable members and calls
+    the state ready, so the ClusterPolicy goes ready with no node stamped
+    (the e2e twin's multihost case under load). The port's waits, launches
+    nothing, and validates the whole slice once every member has its GPUs."""
+    nodes = _slice(9, 4)
+    for node in nodes[1:]:
+        del node["status"]["capacity"]
+    twin = Twin(nodes)
+    ref_cat = RefCatalog({"cluster-policy": twin.ref_policy, "namespace": NS,
+                          "nodes": twin.ref.list("v1", "Node")})
+    port_cat = InfoCatalog({INFO_CLUSTER_POLICY: twin.port_policy, INFO_NAMESPACE: NS,
+                            INFO_NODES: twin.port.list("v1", "Node")})
+    assert twin.ref_state.sync(ref_cat).status.value == "ready"
+    got = twin.port_state.sync(port_cat)
+    assert (got.status.value, got.message) == ("notReady", "validating slices: ['s1']")
+    assert twin.pods() == [] and not any(twin.stamps().values())
+    for client, mapped in ((twin.ref, lambda n: n), (twin.port, map_node)):
+        for node in nodes[1:]:
+            live = client.get("v1", "Node", node["metadata"]["name"])
+            live["status"] = copy.deepcopy(mapped(_slice(9, 4)[0])["status"])
+            client.update_status(live)
+    assert twin.sync() == "notReady" and len(twin.pods()) == 4
+    twin.set_phases(["Succeeded"] * 4)
+    assert twin.sync() == "ready" and all(twin.stamps().values())
+
+
+@pytest.mark.parametrize("n,registered", [(4, 3), (2, 1)])
+def test_a_member_that_never_registers_is_waited_for_up_to_the_budget(n, registered):
+    """A slice member whose GPUs never register (its driver failed, its
+    device plugin is switched off on the node, or it has no GPU): the port's
+    slice waits out the scheduling budget from the first sweep that saw it
+    waiting, then a Warning Event on the ClusterPolicy names the member once,
+    and the sweep is the reference's: the members that have their GPUs are
+    validated (ready with none launched when fewer than two have)."""
+    nodes = _slice(10 + n, n)
+    for node in nodes[registered:]:
+        del node["status"]["capacity"]
+    missing = sorted(node["metadata"]["name"] for node in nodes[registered:])
+    twin = Twin(nodes, budget=60.0)
+    ref_cat = RefCatalog({"cluster-policy": twin.ref_policy, "namespace": NS,
+                          "nodes": twin.ref.list("v1", "Node")})
+    port_cat = InfoCatalog({INFO_CLUSTER_POLICY: twin.port_policy, INFO_NAMESPACE: NS,
+                            INFO_NODES: twin.port.list("v1", "Node")})
+    twin.ref_state.sync(ref_cat)
+    for _ in range(2):
+        got = twin.port_state.sync(port_cat)
+        assert (got.status.value, got.message) == ("notReady", "validating slices: ['s1']")
+        assert twin.pods() == [] and twin.port.list("v1", "Event", NS) == []
+        twin.now[0] += 30.0
+    twin.now[0] += 1.0  # 61 s after the first sweep
+    for _ in range(2):
+        assert twin.sync() == ("notReady" if registered >= 2 else "ready")
+    warnings = twin.port.list("v1", "Event", NS)
+    assert [(e["type"], e["reason"], e["involvedObject"]["kind"]) for e in warnings] == [
+        ("Warning", "MultihostMembersUnregistered", "ClusterPolicy")]
+    assert str(missing) in warnings[0]["message"]
+    assert len(twin.pods()) == (registered if registered >= 2 else 0)
+    if registered >= 2:
+        twin.set_phases(["Succeeded"] * registered)
+        assert twin.sync() == "ready"
+        assert sorted(k for k, v in twin.stamps().items() if v) == sorted(
+            node["metadata"]["name"] for node in nodes[:registered])
 
 
 def test_two_ranks_from_the_pods_env_pass_over_gloo(tmp_path, monkeypatch):

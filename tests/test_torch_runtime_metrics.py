@@ -132,6 +132,7 @@ def test_workqueue_and_reconcile_metrics():
         while recon.calls < 2 and time.monotonic() < deadline:
             time.sleep(0.02)
         assert recon.calls >= 2  # failed once, retried, succeeded
+        assert controller.wait_idle()  # the second reconcile observed too
         assert _sample(metrics, "tpu_operator_workqueue_adds_total", name="test-recon") >= 2.0
         assert _sample(metrics, "tpu_operator_workqueue_retries_total", name="test-recon") == 1.0
         assert _sample(metrics, "tpu_operator_reconcile_errors_total", name="test-recon") == 1.0

@@ -349,10 +349,12 @@ class Controller:
                 self.queue.add_rate_limited(request)
                 continue
             finally:
-                self._inflight = None
+                # observed before the worker reads idle, so that idle means
+                # the reconcile is counted
                 if self._metrics is not None:
                     self._metrics.reconcile_duration.labels(
                         name=self.reconciler.name).observe(time.monotonic() - started)
+                self._inflight = None
             self.queue.forget(request)
             if result and result.requeue_after is not None:
                 self.queue.add(request, result.requeue_after)

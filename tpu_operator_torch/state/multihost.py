@@ -49,21 +49,42 @@ APP_LABEL = "gpu-multihost-validation"
 COORDINATOR_PORT = consts.MASTER_PORT
 
 
-def slice_groups(nodes: List[dict],
-                 resource: str = consts.GPU_RESOURCE_NAME) -> Dict[str, List[dict]]:
-    """Group schedulable GPU nodes by slice id; sorted stable worker order."""
-    groups: Dict[str, List[dict]] = {}
+def slice_members(nodes: List[dict]) -> Dict[str, List[dict]]:
+    """Every node labelled with a slice id, by slice; sorted stable worker
+    order. GPUs registered or not."""
+    members: Dict[str, List[dict]] = {}
     for node in nodes:
         labels = deep_get(node, "metadata", "labels", default={}) or {}
         slice_id = labels.get(consts.TPU_SLICE_ID_LABEL)
-        if not slice_id:
-            continue
-        if not deep_get(node, "status", "capacity", resource):
-            continue  # not schedulable yet; validated once the plugin is up
-        groups.setdefault(slice_id, []).append(node)
-    for members in groups.values():
-        members.sort(key=lambda n: n["metadata"]["name"])
+        if slice_id:
+            members.setdefault(slice_id, []).append(node)
+    for group in members.values():
+        group.sort(key=lambda n: n["metadata"]["name"])
+    return members
+
+
+def _registered(node: dict, resource: str) -> bool:
+    return bool(deep_get(node, "status", "capacity", resource))
+
+
+def slice_groups(nodes: List[dict],
+                 resource: str = consts.GPU_RESOURCE_NAME) -> Dict[str, List[dict]]:
+    """Group schedulable GPU nodes by slice id; sorted stable worker order."""
+    groups = {sid: [n for n in group if _registered(n, resource)]
+              for sid, group in slice_members(nodes).items()}
     return {sid: m for sid, m in groups.items() if len(m) >= 2}
+
+
+def unregistered_members(nodes: List[dict],
+                         resource: str = consts.GPU_RESOURCE_NAME) -> Dict[str, List[str]]:
+    """Slices of two or more nodes some of whose members have no ``resource``
+    registered yet: ``{slice id: those members' names}``. A device plugin
+    registers GPUs node by node, after its DaemonSet counts the pod
+    available, so such a slice waits (up to the scheduling budget) before
+    :func:`slice_groups`' members are validated without the rest."""
+    missing = {sid: [n["metadata"]["name"] for n in group if not _registered(n, resource)]
+               for sid, group in slice_members(nodes).items() if len(group) >= 2}
+    return {sid: names for sid, names in missing.items() if names}
 
 
 #: wall-clock budget for every worker pod of an attempt to reach
@@ -72,7 +93,8 @@ def slice_groups(nodes: List[dict],
 #: Pending (node died after the capacity check, taint race, quota) would
 #: otherwise hold the sweep NotReady until slice membership happens to
 #: change the config hash. Reference wait-budget semantics:
-#: validator/main.go:1180-1197 (60 x 5 s, then fail).
+#: validator/main.go:1180-1197 (60 x 5 s, then fail). It also bounds a
+#: slice's wait for its members' GPUs (:func:`unregistered_members`).
 SCHEDULING_BUDGET_S = float(os.environ.get(
     "GPU_MULTIHOST_SCHEDULING_BUDGET", "300"))
 
@@ -87,6 +109,8 @@ class MultihostValidationState:
         self.skel = StateSkel(self.name, client)
         self.scheduling_budget_s = scheduling_budget_s
         self._now = now  # injectable clock for budget tests
+        #: slice id -> when a sweep first found members without GPUs
+        self._waiting_since: Dict[str, float] = {}
 
     # -- manifest builders ----------------------------------------------------
     def _service(self, slice_id: str, namespace: str) -> dict:
@@ -279,6 +303,35 @@ class MultihostValidationState:
                 continue
         return self._now() - newest if newest else 0.0
 
+    def _still_waiting(self, missing: Dict[str, List[str]], policy: ClusterPolicy,
+                       namespace: str, resource: str) -> Dict[str, List[str]]:
+        """The slices of ``missing`` that wait for their members' GPUs: a
+        slice waits, launching nothing, until every member has ``resource``
+        or the scheduling budget has passed since the first sweep that saw
+        it waiting. Then a Warning Event on the ClusterPolicy names the
+        members still missing, and the slice's members that have their GPUs
+        are validated without them (none, when fewer than two have)."""
+        for slice_id in set(self._waiting_since) - set(missing):
+            del self._waiting_since[slice_id]
+        waiting = {}
+        for slice_id, names in sorted(missing.items()):
+            since = self._waiting_since.setdefault(slice_id, self._now())
+            waited = self._now() - since
+            if self.scheduling_budget_s <= 0 or waited <= self.scheduling_budget_s:
+                log.info("multihost %s: waiting for %s on %s", slice_id, resource, names)
+                waiting[slice_id] = names
+                continue
+            message = (f"slice {slice_id}: no {resource} registered on {names} "
+                       f"{int(waited)}s after the first sweep that saw the slice "
+                       f"(budget {int(self.scheduling_budget_s)}s); validating the "
+                       f"members that have their GPUs")
+            log.warning("multihost %s", message)
+            events.record_once(self.client, namespace, policy.obj, events.WARNING,
+                               "MultihostMembersUnregistered", message,
+                               token=f"{slice_id}:{since}:{','.join(names)}",
+                               component="gpu-operator")
+        return waiting
+
     # -- state entry ----------------------------------------------------------
     def sync(self, catalog: InfoCatalog) -> StateResult:
         policy: ClusterPolicy = catalog.require(INFO_CLUSTER_POLICY)
@@ -286,12 +339,17 @@ class MultihostValidationState:
         if not policy.spec.validator.is_enabled():
             return StateResult(self.name, SyncState.IGNORE, "validator disabled")
         nodes = catalog.get(INFO_NODES) or self.client.list("v1", "Node")
-        groups = slice_groups(nodes, policy.spec.device_plugin.resource_name)
-        if not groups:
+        resource = policy.spec.device_plugin.resource_name
+        groups = slice_groups(nodes, resource)
+        waiting = self._still_waiting(unregistered_members(nodes, resource), policy,
+                                      namespace, resource)
+        if not groups and not waiting:
             return StateResult(self.name, SyncState.READY, "no multi-host slices")
-        worst = SyncState.READY
-        blockers = []
+        worst = SyncState.NOT_READY if waiting else SyncState.READY
+        blockers = sorted(waiting)
         for slice_id, members in sorted(groups.items()):
+            if slice_id in waiting:
+                continue
             state = self._sync_slice(slice_id, members, policy, namespace)
             if state != SyncState.READY:
                 worst = SyncState.NOT_READY

@@ -45,7 +45,11 @@ deleted, the node no longer selected) the resource goes to 0 until the pod
 runs again, as a kubelet drops a plugin's devices once its endpoint goes. A Pod of any namespace bound to the Node (the
 ``workload`` component's spawned pod, a user's workload) runs once; its
 phase is set from its containers' exit codes, and deleting or evicting it
-kills its processes at once (a watch on Pods).
+kills its processes at once (a watch on Pods). A container of such a Pod
+with an ``nvidia.com/gpu`` limit is allocated that many of ``gpu_ids`` no
+other Pod holds, in ``CUDA_VISIBLE_DEVICES`` (as the device plugin's
+Allocate sets it), until its Pod ends; a Pod waits Pending while its GPUs
+are held, and fails admission asking for more than the node has.
 
 Every process runs in its own process group; :meth:`stop` kills them all.
 What happened, and when, is in :attr:`events`.
@@ -309,7 +313,8 @@ class ProcessKubelet:
                  modes: Optional[Dict[str, str]] = None,
                  image_env: Optional[Dict[str, Dict[str, str]]] = None,
                  capacity_app: Optional[str] = None, gpu_count: int = 1,
-                 path_map: Optional[Dict[str, str]] = None):
+                 path_map: Optional[Dict[str, str]] = None,
+                 gpu_ids: Optional[List[str]] = None):
         self.client = client
         self.node_name = node_name
         self.namespace = namespace
@@ -320,6 +325,11 @@ class ProcessKubelet:
         self.image_env = image_env or {}
         self.capacity_app = capacity_app
         self.gpu_count = gpu_count
+        #: the IDs the node's device plugin hands a container, in
+        #: ``CUDA_VISIBLE_DEVICES`` (NVML's UUIDs, as the port's plugin
+        #: does; default: the host's CUDA ordinals)
+        self.gpu_ids = list(gpu_ids) if gpu_ids is not None else [
+            str(i) for i in range(gpu_count)]
         self.path_map = path_map or {}
         #: env every spawned Pod's containers get on top of their own (a
         #: test's fault injection); None: nothing added
@@ -328,6 +338,8 @@ class ProcessKubelet:
         self._events_lock = make_lock("ProcessKubelet._events_lock")
         self._pods: Dict[str, _PodRun] = {}
         self._spawned: Dict[str, List[_Container]] = {}
+        #: uid of a spawned pod -> the GPU ids its containers hold
+        self._allocated: Dict[str, List[str]] = {}
         #: uids of spawned pods whose Pod object went: their processes are
         #: killed and nothing more of them runs
         self._killed: set = set()
@@ -599,27 +611,76 @@ class ProcessKubelet:
         live.setdefault("status", {})["phase"] = phase
         self.client.update_status(live)
 
+    def _admit(self, pod: dict, uid: str, specs: List[dict]) -> Optional[List[dict]]:
+        """The device plugin's allocation for each container of a spawned
+        pod: a container with an ``nvidia.com/gpu`` limit gets that many of
+        :attr:`gpu_ids` no other pod holds, in ``CUDA_VISIBLE_DEVICES`` and
+        ``NVIDIA_VISIBLE_DEVICES``; one without sees what the host shows. A
+        pod asking for more GPUs than the node has fails admission; one whose
+        GPUs another pod holds waits Pending for them. None: the pod failed
+        admission, was deleted or the kubelet stopped while it waited."""
+        name = pod["metadata"]["name"]
+        wants = [int(deep_get(spec, "resources", "limits", consts.GPU_RESOURCE_NAME,
+                              default=0) or 0) for spec in specs]
+        if sum(wants) > len(self.gpu_ids):
+            self.record("pod-admission-failed", pod=name, want=sum(wants),
+                        have=len(self.gpu_ids))
+            self._set_phase(pod, "Failed")
+            return None
+        waiting = False
+        while True:
+            with self._spawn_lock:
+                if uid in self._killed:
+                    return None
+                held = {i for ids in self._allocated.values() for i in ids}
+                free = [i for i in self.gpu_ids if i not in held]
+                if len(free) >= sum(wants):
+                    self._allocated[uid] = free[:sum(wants)]
+                    break
+            if not waiting:
+                self.record("pod-waiting-for-gpus", pod=name, want=sum(wants))
+                waiting = True
+            if self._stopped.wait(0.05):
+                return None
+        envs, ids = [], list(self._allocated[uid])
+        for want in wants:
+            mine, ids = ids[:want], ids[want:]
+            envs.append({"CUDA_VISIBLE_DEVICES": ",".join(mine),
+                         "NVIDIA_VISIBLE_DEVICES": ",".join(mine)} if want else {})
+        if self._allocated[uid]:
+            self.record("gpu-allocated", pod=name, ids=list(self._allocated[uid]))
+        return envs
+
     def _run_pod(self, pod: dict) -> None:
         name = pod["metadata"]["name"]
         uid = pod["metadata"].get("uid", name)
-        self._set_phase(pod, "Running")
-        self.record("pod-running", pod=name)
-        rc = 0
-        for spec in deep_get(pod, "spec", "containers", default=[]) or []:
-            with self._spawn_lock:
+        specs = deep_get(pod, "spec", "containers", default=[]) or []
+        try:
+            envs = self._admit(pod, uid, specs)
+            if envs is None:
+                return
+            self._set_phase(pod, "Running")
+            self.record("pod-running", pod=name)
+            rc = 0
+            for spec, allocated in zip(specs, envs):
+                with self._spawn_lock:
+                    if uid in self._killed:
+                        return
+                    # a test's injected env over the allocation
+                    c = _Container(self, name, spec, name, dict(allocated, **(self.pod_env or {})))
+                    self._spawned[uid].append(c)
+                while c.proc.poll() is None:
+                    if self._stopped.wait(0.05):
+                        return
                 if uid in self._killed:
                     return
-                c = _Container(self, name, spec, name, self.pod_env)
-                self._spawned[uid].append(c)
-            while c.proc.poll() is None:
-                if self._stopped.wait(0.05):
-                    return
-            if uid in self._killed:
-                return
-            rc = rc or c.proc.returncode
-        phase = "Succeeded" if rc == 0 else "Failed"
-        self._set_phase(pod, phase)
-        self.record("pod-exit", pod=name, rc=rc, phase=phase)
+                rc = rc or c.proc.returncode
+            phase = "Succeeded" if rc == 0 else "Failed"
+            self._set_phase(pod, phase)
+            self.record("pod-exit", pod=name, rc=rc, phase=phase)
+        finally:
+            with self._spawn_lock:
+                self._allocated.pop(uid, None)
 
     # -- control ---------------------------------------------------------------
     def restart(self, ds_name: str) -> None:
