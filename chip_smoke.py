@@ -283,6 +283,15 @@ Phases, each of which exits non-zero on failure:
    orphan span, within 120 s. ``join_s``, each DaemonSet's tick, the
    seconds per phase and the serial sum of the pulls print. No
    hand-written kernel (K1's count under ``pipelined`` is 0).
+24. after phase 23 (:func:`multihost_phase`): the multi-node sweep.
+   ``workload-multihost`` as a world of one process over every visible GPU
+   through a TCP coordinator on 127.0.0.1 (``n_devices`` the GPU count,
+   ``local_chips`` contiguous, no partial sweep, the barrier written); then
+   a world of two with only process 0 started, at a 5 s rendezvous budget:
+   a non-zero exit and no barrier; then ``make -f gpu.mk graft-check``.
+   Each run's seconds print. The sweep is cuBLAS and NCCL, as the
+   reference's is XLA dots and ``psum``: no hand-written kernel (K1's count
+   under ``multihost`` is 0).
 
 Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Needs a CUDA device and the rest of the repository beside this file.
@@ -1300,13 +1309,17 @@ def _go(work: str, name: str, payload: dict) -> None:
     os.replace(tmp, os.path.join(work, name))
 
 
-def _wait_for(predicate, timeout: float, what: str):
+def _wait_for(predicate, timeout: float, what: str, explain=None):
+    """``predicate()`` once truthy, polled until ``timeout``; then a
+    failure naming ``what`` and, when given, ``explain()`` read at that
+    moment."""
     deadline = time.monotonic() + timeout
     while True:
         value = predicate()
         if value:
             return value
-        check(time.monotonic() < deadline, f"{what} within {timeout}s")
+        if time.monotonic() >= deadline:
+            fail(f"{what} within {timeout}s" + (f": {explain()}" if explain else ""))
         time.sleep(0.02)
 
 
@@ -2430,8 +2443,11 @@ def gpudriver_phase(ctx) -> dict:
     hand["installer_probe_passed_s"] = since(
         t0, lambda: kubelet.first("startup-probe-passed", after=t0, ds=app), 180,
         f"{app}'s installer passing its startup probe")
-    check(kubelet.first("pod-stop", after=t0, ds="gpu-driver"),
-          "the ClusterPolicy's driver pod was not stopped")
+    # the kubelet stops the old pod on the pass after it sees its DaemonSet
+    # gone, which may come after the new installer's probe (the native probe
+    # passes in milliseconds)
+    _wait_for(lambda: kubelet.first("pod-stop", after=t0, ds="gpu-driver"), 30,
+              "the ClusterPolicy's driver pod stopped")
     hand["gpudriver_ready_s"] = since(t0, lambda: driver_status(name).get("state") == "ready",
                                       180, f"GPUDriver {name} ready")
     check(driver_status(name).get("pools") == {pool: 1},
@@ -3174,8 +3190,8 @@ def upgrade_phase(ctx) -> dict:
                      if (d["spec"]["template"]["metadata"].get("labels") or {}).get(
                          "app.kubernetes.io/component") == "gpu-driver"), {})
 
-    def since(t, predicate, timeout, what):
-        found = _wait_for(predicate, timeout, what)
+    def since(t, predicate, timeout, what, explain=None):
+        found = _wait_for(predicate, timeout, what, explain)
         return round((found["t"] if isinstance(found, dict) else time.time()) - t, 3)
 
     # the driver pods' deletions as the apiserver takes them, with what
@@ -3202,7 +3218,9 @@ def upgrade_phase(ctx) -> dict:
 
     def driver_view(after):
         template = deep_get(driver_ds(), "spec", "template", "metadata", "labels", default={})
+        policy = raw.get("tpu.ai/v1", "ClusterPolicy", "cluster-policy")
         return {"ds_hash": (template or {}).get(consts.TEMPLATE_HASH_LABEL),
+                "policy_driver_env": deep_get(policy, "spec", "driver", "env"),
                 "pod_events": [e for e in driver_events if e["t"] >= after]}
 
     op = _Operator(ctx, os.path.join(ctx.work, "operator-upgrade.log"))
@@ -3332,8 +3350,10 @@ def upgrade_phase(ctx) -> dict:
         _patch_policy(ctx, {"driver": {"env": [{"name": consts.DRIVER_SRC_ENV, "value": broken}]}})
         u2 = {}
         for state in ("upgrade-required", "pod-restart-required", "upgrade-failed"):
-            u2[f"{state}_s"] = since(t_u2, lambda: trail.first(t_u2, state=state), 180,
-                                     f"{state} (U2)")
+            u2[f"{state}_s"] = since(
+                t_u2, lambda: trail.first(t_u2, state=state), 180, f"{state} (U2)",
+                explain=lambda: f"states {trail.states(t_u2)}, the driver since U2 "
+                                f"{driver_view(t_u2)}")
         crashed = kubelet.first("main-failed", after=t_u2, ds="gpu-driver")
         check(crashed is not None and crashed["t"] < t_u2 + u2["upgrade-failed_s"],
               f"no crash of the new driver before upgrade-failed: {crashed}")
@@ -5221,6 +5241,97 @@ def pipelined_join_phase(ctx) -> dict:
     return numbers
 
 
+#: phase 24's rendezvous budget for a world that lacks a process, and
+#: each run's own bound (s)
+MULTIHOST_INIT_TIMEOUT_S = 5
+MULTIHOST_RUN_TIMEOUT_S = 300
+
+
+def multihost_phase(ctx) -> dict:
+    """Phase 24, after phase 23: the multi-node sweep (``workload-multihost``)
+    and the graft entry's command line, on this machine.
+
+    1. ``gpu-validator -c workload-multihost`` as a world of one process over
+       every visible GPU (``ctx.n_gpus``), through a TCP coordinator on
+       ``127.0.0.1`` at a free port: exit 0, its report and barrier with
+       ``n_devices`` equal to the GPU count, ``local_chips`` ``0 .. n-1``,
+       every check passed and no partial sweep.
+    2. ``--num-processes=2`` with only process 0 started, at
+       ``--init-timeout=5``: a non-zero exit within the budget, no barrier.
+    3. ``make -f gpu.mk graft-check``: the single-GPU check, then the mesh
+       dry run over every visible GPU.
+
+    Each run's seconds print. ``ctx``: ``repo``, ``work`` (a scratch
+    directory), ``card``, ``device`` (``cuda``; ``cpu`` rehearses the phase
+    with one gloo rank) and ``n_gpus``."""
+    from tpu_operator_torch.validator import status as vstatus
+
+    started = time.monotonic()
+    numbers = {"card": ctx.card}
+    env = dict(os.environ, PYTHONPATH=ctx.repo, TMPDIR=ctx.work)
+    validator = [sys.executable, "-m", "tpu_operator_torch.cmd.validator",
+                 "-c", "workload-multihost", f"--device={ctx.device}", "--matrix-dim=512"]
+
+    def sweep(name: str, *argv) -> tuple:
+        status_dir = os.path.join(ctx.work, name)
+        t = time.monotonic()
+        out = subprocess.run([*validator, f"--status-dir={status_dir}", *argv], cwd=ctx.repo,
+                             env=env, capture_output=True, text=True,
+                             timeout=MULTIHOST_RUN_TIMEOUT_S)
+        seconds = round(time.monotonic() - t, 3)
+        lines = [line for line in out.stdout.splitlines() if line.startswith("{")]
+        report = json.loads(lines[-1]) if lines else None
+        return out, report, vstatus.StatusFiles(status_dir), seconds
+
+    out, report, status, seconds = sweep(
+        "world-of-one", f"--coordinator=127.0.0.1:{free_port()}", "--num-processes=1",
+        "--process-id=0")
+    n = ctx.n_gpus
+    check(out.returncode == 0 and report is not None,
+          f"workload-multihost as a world of one exited {out.returncode}:\n"
+          f"{out.stdout[-2000:]}\n{out.stderr[-3000:]}")
+    barrier = status.read("workload")
+    check(report["passed"] and report["n_devices"] == n
+          and report["local_chips"] == list(range(n)) and report["failed_local_chips"] == [],
+          f"the world of one's report: {report} (expected {n} GPUs, local_chips 0..{n - 1})")
+    check(status.is_ready("workload") and barrier.get("local_chips") == list(range(n)),
+          f"the world of one's barrier: {barrier}")
+    check(vstatus.partial_sweep(barrier, n) is False, f"a partial sweep: {barrier}")
+    numbers["world_of_one"] = {"s": seconds, "n_devices": report["n_devices"],
+                               "local_chips": report["local_chips"],
+                               "platform": report["platform"],
+                               "elapsed_s": report["elapsed_s"],
+                               "compile_s": report["compile_s"]}
+
+    out, report, status, seconds = sweep(
+        "missing-worker", f"--coordinator=127.0.0.1:{free_port()}", "--num-processes=2",
+        "--process-id=0", f"--init-timeout={MULTIHOST_INIT_TIMEOUT_S}")
+    check(out.returncode != 0 and report is not None and report["passed"] is False,
+          f"a world missing its process 1 exited {out.returncode} with {report}:\n"
+          f"{out.stderr[-2000:]}")
+    check(status.read("workload") is None and not status.is_ready("workload"),
+          "a world missing its process 1 wrote a barrier")
+    check(seconds < MULTIHOST_INIT_TIMEOUT_S + 60,
+          f"the missing worker's rendezvous failed after {seconds} s")
+    numbers["missing_worker"] = {"s": seconds, "rc": out.returncode,
+                                 "error": str(report["details"].get("error"))[:200]}
+
+    t = time.monotonic()
+    graft = subprocess.run(["make", "-f", "gpu.mk", "graft-check", f"PYTHON={sys.executable}",
+                            f"DEVICE={ctx.device}"], cwd=ctx.repo, env=env,
+                           capture_output=True, text=True, timeout=MULTIHOST_RUN_TIMEOUT_S)
+    check(graft.returncode == 0 and "entry ok: True" in graft.stdout
+          and "dryrun_multichip(" in graft.stdout,
+          f"make -f gpu.mk graft-check exited {graft.returncode}:\n{graft.stdout[-2000:]}\n"
+          f"{graft.stderr[-2000:]}")
+    numbers["graft_check"] = {"s": round(time.monotonic() - t, 3),
+                              "out": [line for line in graft.stdout.splitlines()
+                                      if line.startswith(("entry", "dryrun"))]}
+    numbers["phase_s"] = round(time.monotonic() - started, 3)
+    print(json.dumps({"multihost": numbers}))
+    return numbers
+
+
 def _try_scrape(port: int):
     try:
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=2) as r:
@@ -5530,6 +5641,16 @@ def main() -> int:
     check(pipelined_launches == 0, f"phase 23 launched K1 {pipelined_launches} times")
     shutil.rmtree(pipelined_work, ignore_errors=True)
 
+    phase("the multi-node sweep: a world of one over every GPU, a missing worker, graft-check")
+    k1.launches = 0
+    multihost_work = tempfile.mkdtemp(prefix="chip-smoke-multihost-")
+    multihost_phase(types.SimpleNamespace(
+        repo=os.path.dirname(os.path.abspath(__file__)), card=card, work=multihost_work,
+        device="cuda", n_gpus=torch.cuda.device_count()))
+    multihost_launches = k1.launches
+    check(multihost_launches == 0, f"phase 24 launched K1 {multihost_launches} times")
+    shutil.rmtree(multihost_work, ignore_errors=True)
+
     print(json.dumps({"smoke_s": round(time.monotonic() - _T0, 1), "card": card}))
     print(json.dumps({"kernels": [{
         "name": "stream_copy",
@@ -5549,7 +5670,8 @@ def main() -> int:
         # loop (14), the rolling upgrade (15), the capacity loop (16), the
         # fleet simulator (17), the support bundle (18), the static checker
         # (19), the sanitized join (20), the lanes (21), the join through
-        # an outage (22) and the pipelined join (23) are checked at 0 above
+        # an outage (22), the pipelined join (23) and the multi-node sweep
+        # (24) are checked at 0 above
         "launches_by_phase": {"perf": k1_main_launches, "serving": serving_launches,
                               "steady_state": steady_state_launches,
                               "device_plumbing": plumbing_launches,
@@ -5565,7 +5687,8 @@ def main() -> int:
                               "opsan": opsan_launches,
                               "lanes": lanes_launches,
                               "outage": outage_launches,
-                              "pipelined": pipelined_launches},
+                              "pipelined": pipelined_launches,
+                              "multihost": multihost_launches},
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

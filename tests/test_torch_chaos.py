@@ -14,6 +14,7 @@ reset is ``requests.ConnectionError`` in the reference and
 ``ConnectionResetError`` in the port: both are named ``reset`` here.
 """
 
+import json
 import threading
 import time
 import types
@@ -27,6 +28,7 @@ from tpu_operator.client import rest as ref_rest
 from tpu_operator.client.errors import ApiError as RefApiError
 from tpu_operator.client.fake import FakeClient as RefFake
 from tpu_operator.testing import MiniApiServer as RefServer
+from tpu_operator_torch import consts
 from tpu_operator_torch.client import batch
 from tpu_operator_torch.client import chaos
 from tpu_operator_torch.client import rest
@@ -141,6 +143,33 @@ def test_crash_site_normalizes_event_names_as_the_reference():
         site = chaos.crash_site("POST", None, None, None, obj=e)
         assert site == ref_chaos.crash_site("POST", None, None, None, obj=e)
         assert site == "POST Event/Node:gpu-a:NodeHealthDegraded"
+
+
+def test_a_journal_mirror_is_one_site_whatever_its_episode():
+    """A decision journal's mirror ConfigMap is keyed on its record's
+    subsystem, kind, trigger and decision, not on its name (the record's
+    content address, which holds the episode id): the same decision in
+    another run of an episode is the same site, another decision another
+    site; the reference keys it on the name
+    (tests/test_torch_operator_mapping.py, ``number_journal_sites``)."""
+    def mirror(episode, decision):
+        record = {"episode": episode, "subsystem": "health", "kind": "remediate",
+                  "trigger": {"type": "attempt", "n": 1}, "decision": decision}
+        return {"apiVersion": "v1", "kind": "ConfigMap",
+                "metadata": {"name": f"prov-{episode}", "namespace": "tpu-operator",
+                             "labels": {consts.PROVENANCE_LABEL: "health"}},
+                "data": {"record": json.dumps(record)}}
+
+    first = chaos.crash_site("POST", None, None, None, obj=mirror("ep-1", {"attempt": 1}))
+    again = chaos.crash_site("POST", None, None, None, obj=mirror("ep-2", {"attempt": 1}))
+    other = chaos.crash_site("POST", None, None, None, obj=mirror("ep-1", {"attempt": 2}))
+    assert first == again != other
+    assert first.startswith("POST ConfigMap/prov:health:remediate:")
+    ref = [ref_chaos.crash_site("POST", None, None, None, obj=mirror(e, {"attempt": 1}))
+           for e in ("ep-1", "ep-2")]
+    assert ref == ["POST ConfigMap/prov-ep-1", "POST ConfigMap/prov-ep-2"]
+    plain = {"apiVersion": "v1", "kind": "ConfigMap", "metadata": {"name": "cfg"}}
+    assert chaos.crash_site("POST", None, None, None, obj=plain) == "POST ConfigMap/cfg"
 
 
 @pytest.mark.parametrize("patch", [

@@ -1,5 +1,7 @@
 """A health episode killed mid-way, on both packages: the twin of
-tests/test_crash_soak.py's tier-1 case (``test_crash_episode_baseline_and_sampled_kills``).
+tests/test_crash_soak.py's tier-1 case (``test_crash_episode_baseline_and_sampled_kills``)
+and of its coverage-complete matrix (``test_crash_point_matrix_full_episode``,
+slow as the reference's).
 
 Each package's whole operator runs on
 ``CachedClient(WriteBatcher(CrashPointClient(RestClient)))`` against its own
@@ -8,18 +10,26 @@ the slice partitioner, over fake NVML on the port's side) and a simulated
 training job use a plain client. The episode: join, a GPU (chip) degrades,
 the drain plan, the job's ack and checkpoint, the re-tile, remediation, the
 job resumed from its checkpoint, recovery, the layout restored. The
-crash-free run enumerates the mutating sites; a kill just before and just
-after the first drain-plan write must each converge to the baseline's
-terminal state with one ``RetilePlanned``, one ``NodeHealthRemediating``, no
-expired deadline and the job resumed at its acked step, on both packages
-alike. The machinery (the crash harness) is tests/test_torch_migrate.py's.
+crash-free run enumerates the mutating sites, the same on both packages once
+the reference's names are mapped; a kill just before and just after the
+first drain-plan write must each converge to the baseline's terminal state
+with one ``RetilePlanned``, one ``NodeHealthRemediating``, no expired
+deadline and the job resumed at its acked step, on both packages alike. The
+slow matrix kills the port's operator before and after every site, in an
+order shuffled by ``CRASH_SOAK_SEED``. The machinery (the crash harness) is
+tests/test_torch_migrate.py's.
 """
 
 import json
+import os
+import random
 import time
 import types
 
+import pytest
+
 from test_torch_migrate import CRASH_PORT, CRASH_REF, CrashEpisode, operand_images  # noqa: F401
+from test_torch_operator_mapping import map_crash_site, number_journal_sites
 from tpu_operator import consts as ref_consts
 from tpu_operator.health import REMEDIATING as REF_REMEDIATING
 from tpu_operator.health import node_health_state as ref_health_state
@@ -165,8 +175,8 @@ class HealthCrashEpisode(CrashEpisode):
         return {"terminal": self.terminal_state(),
                 "events": {r: self.event_count(r) for r in EVENT_REASONS},
                 "ack_step": ack_step, "resume_step": resume_step,
-                "sites": list(self.crashpoints[0].sites), "fired": self.crashpoints[0].fired,
-                "crashes": self.crashes}
+                "sites": list(self.crashpoints[0].sites), "all_sites": self.all_sites(),
+                "fired": self.crashpoints[0].fired, "crashes": self.crashes}
 
 
 def run_episode(h, tmp_path, monkeypatch, arm=None):
@@ -212,6 +222,68 @@ def test_crash_episode_baseline_and_sampled_kills(tmp_path, monkeypatch, operand
                 summary = run_episode(h, tmp_path / name / f"kill{i}", m, arm=(plan_site, when))
             assert summary["fired"] and summary["crashes"] == 1, (name, when)
             check_invariants(summary, baselines[name])
+
+
+def test_the_health_episode_s_sites_are_the_reference_s(tmp_path, monkeypatch,
+                                                          operand_images):  # noqa: F811
+    """The crash-free episode writes at the same sites on both packages
+    once the reference's names are mapped and the decision journal's
+    mirror writes are numbered by order (tests/test_torch_operator_mapping.py):
+    the port's matrix kills every write the reference's does. An Event
+    compares by its object and reason: whether a repeat aggregates into a
+    PUT depends on the interleaving, as the reference's matrix says in
+    exempting Event sites. The migration twin holds its sites the same way
+    (tests/test_torch_migrate.py)."""
+    sites = {}
+    for h in (HEALTH_REF, HEALTH_PORT):
+        name = "port" if h.crash.port else "ref"
+        with monkeypatch.context() as m:
+            sites[name] = run_episode(h, tmp_path / name, m)["sites"]
+
+    def split(found):
+        state = sorted(x for x in found if " Event/" not in x)
+        events = {x.split(" ", 1)[1] for x in found if " Event/" in x}
+        return state, events
+
+    mapped = number_journal_sites([map_crash_site(x) for x in sites["ref"]])
+    assert split(number_journal_sites(sites["port"])) == split(mapped)
+    assert len(sites["port"]) == len(set(sites["port"])) >= 10
+
+
+@pytest.mark.slow
+def test_crash_point_matrix_full_episode(tmp_path, monkeypatch, operand_images):  # noqa: F811
+    """Coverage-complete on the port: every mutating site of the crash-free
+    episode is killed both before and after its write, in the order
+    ``CRASH_SOAK_SEED`` (default 20260805) shuffles, and every replay
+    converges. An armed site that does not fire again fails, but an Event's
+    (whether an announcement aggregates into a PUT depends on the
+    interleaving); a state site a replay writes that the record run did not
+    fails the whole matrix."""
+    with monkeypatch.context() as m:
+        baseline = run_episode(HEALTH_PORT, tmp_path / "baseline", m)
+    check_invariants(baseline, baseline)
+    sites = baseline["sites"]
+    assert len(sites) >= 10, sites
+    matrix = [(site, when) for site in sites for when in ("before", "after")]
+    random.Random(int(os.environ.get("CRASH_SOAK_SEED", "20260805"))).shuffle(matrix)
+    observed, failures = set(sites), []
+    for i, (site, when) in enumerate(matrix):
+        with monkeypatch.context() as m:
+            summary = run_episode(HEALTH_PORT, tmp_path / f"ep{i}", m, arm=(site, when))
+        observed |= summary["all_sites"]
+        if not summary["fired"]:
+            if " Event/" not in site:
+                failures.append(f"uncovered crash site ({when}): {site}")
+            continue
+        try:
+            check_invariants(summary, baseline)
+        except AssertionError as e:
+            failures.append(f"kill {when} {site}: {e}")
+    uncovered = {x for x in observed - set(sites) if " Event/" not in x}
+    if uncovered:
+        failures.append("state-mutating sites outside the replay matrix (record run "
+                        f"missed them): {sorted(uncovered)}")
+    assert not failures, "\n".join(failures)
 
 
 #: how late the lagging Node watch below delivers each event

@@ -5,11 +5,14 @@ twin fake apiservers, the same requests, the same clock. The annotations,
 barrier stamps, v2 checkpoint payloads and Events must agree field by
 field; a restore re-maps its manifest over the GPU node's NVML links where
 the reference re-tiles on its ICI grid, and where both must place the same
-GPUs they do.
+GPUs they do. Then the migration crash episode on both packages (a kill
+before and after the durable state write) and, slow, the port's matrix of
+a kill before and after every site of the migration.
 """
 
 import json
 import os
+import random
 
 import pytest
 
@@ -986,10 +989,16 @@ class MigrationCrashEpisode(CrashEpisode):
             "src_events": {r: self.event_count(r, "node-src") for r in MIGRATION_EVENT_REASONS},
             "dst_events": {r: self.event_count(r, "node-dst") for r in MIGRATION_EVENT_REASONS},
             "ack_step": ack_step, "resume_step": resume_step,
-            "sites": [x for x in self.crashpoints[0].sites
-                      if any(m in x for m in MIGRATION_SITE_MARKERS)],
+            "sites": migration_sites(self.crashpoints[0].sites),
+            "all_sites": set(migration_sites(self.all_sites())),
             "fired": self.crashpoints[0].fired, "crashes": self.crashes,
         }
+
+
+def migration_sites(sites):
+    """The sites of the migration proper (the install's operand writes
+    around it are the health episode's matrix's)."""
+    return [x for x in sites if any(m in x for m in MIGRATION_SITE_MARKERS)]
 
 
 def run_migration_episode(s, tmp_path, monkeypatch, arm=None):
@@ -1036,3 +1045,38 @@ def test_migration_crash_baseline_and_sampled_kills(tmp_path, monkeypatch, opera
                                             arm=(state_site, when))
             assert summary["fired"] and summary["crashes"] == 1, (name, when)
             check_migration_invariants(summary, baselines[name])
+
+
+@pytest.mark.slow
+def test_migration_crash_point_matrix(tmp_path, monkeypatch, operand_images):
+    """The twin of tests/test_crash_soak.py's ``test_migration_crash_point_matrix``
+    (slow as the reference's), on the port: every mutating site of the
+    migration proper (request intake, the durable state record, the plan,
+    the ack's intake, the inbound transfer record, the restore's answer, the
+    finalize cleanup) is killed before and after its write, in the order
+    ``CRASH_SOAK_SEED`` (default 20260805) shuffles; every replay converges
+    to one restore, no duplicate Event and no step lost, and a state site
+    outside the record run fails the whole matrix."""
+    baseline = run_migration_episode(CRASH_PORT, tmp_path / "baseline", monkeypatch)
+    check_migration_invariants(baseline, baseline)
+    sites = baseline["sites"]
+    assert len(sites) >= 4, sites
+    matrix = [(site, when) for site in sites for when in ("before", "after")]
+    random.Random(int(os.environ.get("CRASH_SOAK_SEED", "20260805"))).shuffle(matrix)
+    observed, failures = set(baseline["all_sites"]), []
+    for i, (site, when) in enumerate(matrix):
+        summary = run_migration_episode(CRASH_PORT, tmp_path / f"ep{i}", monkeypatch,
+                                        arm=(site, when))
+        observed |= summary["all_sites"]
+        if not summary["fired"]:
+            failures.append(f"uncovered crash site ({when}): {site}")
+            continue
+        try:
+            check_migration_invariants(summary, baseline)
+        except AssertionError as e:
+            failures.append(f"kill {when} {site}: {e}")
+    uncovered = {x for x in observed - set(sites) if " Event/" not in x}
+    if uncovered:
+        failures.append("migration state-mutating sites outside the replay matrix (record "
+                        f"run missed them): {sorted(uncovered)}")
+    assert not failures, "\n".join(failures)

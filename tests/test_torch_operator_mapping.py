@@ -193,6 +193,44 @@ def map_node(node: dict) -> dict:
     return out
 
 
+def map_crash_site(site: str) -> str:
+    """A reference crash-point site (``client/chaos.py:crash_site``: ``VERB
+    Kind/name [leaf paths]``) as the port's same write: the object's name
+    and each label or annotation key of a patch renamed, the paths sorted
+    again."""
+    head, _, paths = site.partition(" [")
+    verb, _, target = head.partition(" ")
+    kind, _, name = target.partition("/")
+    if kind != "Event":
+        head = f"{verb} {kind}/{_map_string(name)}"
+    if not paths:
+        return head
+    mapped = []
+    for path in paths.rstrip("]").split(","):
+        for prefix in ("metadata.labels.", "metadata.annotations."):
+            if path.startswith(prefix):
+                path = prefix + _map_string(path[len(prefix):])
+                break
+        mapped.append(path)
+    return f"{head} [{','.join(sorted(mapped))}]"
+
+
+def number_journal_sites(sites: list) -> list:
+    """Crash sites with each decision journal mirror write (a provenance
+    ConfigMap) named by its order among them: the reference keys one on
+    its name, the record's content address, and the port on its record's
+    decision (``client/chaos.py:crash_site``; a port health episode's id
+    holds the node's ``-since`` stamp, so its names change from run to
+    run). Neither name maps to the other; the writes line up one for one."""
+    order: dict = {}
+
+    def number(site):
+        if not re.fullmatch(r"POST ConfigMap/prov[-:]\S+", site):
+            return site
+        return f"POST ConfigMap/prov-#{order.setdefault(site, len(order))}"
+    return [number(x) for x in sites]
+
+
 # -- the per-pool driver (TPUDriver -> GPUDriver) ---------------------------------
 
 #: the reference samples' libtpu build -> the driver version the port's

@@ -470,6 +470,39 @@ def test_the_apiserver_s_fault_hook_and_latency():
         srv.stop()
 
 
+
+def test_latency_delays_each_request_on_a_kept_alive_connection():
+    """Two requests on one kept-alive connection, the second after an idle
+    gap longer than ``latency_s``: each answer comes at least ``latency_s``
+    after its request was sent (the delay starts once a request is read,
+    so it cannot hide in the gap)."""
+    import http.client
+    import time
+    import urllib.parse
+
+    from tpu_operator_torch.testing.apiserver import MiniApiServer
+
+    latency_s = 0.05
+    srv = MiniApiServer(latency_s=latency_s)
+    url = urllib.parse.urlparse(srv.start())
+    srv.backend.create(engine.gpu_node("gpu-000", "z0", False))
+    conn = http.client.HTTPConnection(url.hostname, url.port, timeout=10)
+    try:
+        waits = []
+        for gap in (0.0, 3 * latency_s):
+            time.sleep(gap)
+            t = time.monotonic()
+            conn.request("GET", "/api/v1/nodes/gpu-000")
+            answer = conn.getresponse()
+            body = answer.read()
+            waits.append(time.monotonic() - t)
+            assert answer.status == 200, body
+        assert conn.sock is not None  # still the first connection
+        assert min(waits) >= latency_s, waits
+    finally:
+        conn.close()
+        srv.stop()
+
 def test_a_fleet_name_maps_to_the_reference_s():
     assert map_sim_name("tpu-004") == "node-004"
     assert map_sim_name("v5-lite-podslice-4x4-a3") == f"{engine.GPU_MODEL}-a3"

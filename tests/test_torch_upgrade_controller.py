@@ -15,7 +15,7 @@ in-memory kubelet; and the requeue on a PDB-blocked eviction's hint.
 
 And the reference's chaos case (``test_chaos_pod_deletion_during_rolling_upgrade``,
 slow as the reference's), each package's ``PodChaos`` deleting operand pods
-during a roll.
+during a roll; and its 50-node pool join (slow), on the port.
 """
 
 import ast
@@ -420,6 +420,43 @@ def test_chaos_pod_deletion_during_rolling_upgrade_as_the_reference():
         finally:
             chaos.stop()
             s.stop()
+
+
+@pytest.mark.slow
+def test_a_fifty_node_pool_joins():
+    """The twin of tests/test_upgrade_fault_injection.py's
+    ``test_scale_fifty_node_pool_join`` (slow as the reference's), on the
+    port's stack: the ClusterPolicy and upgrade controllers and the
+    in-memory kubelet over the port's fake; 50 GPU nodes join, every one
+    advertises ``nvidia.com/gpu`` and the ClusterPolicy reaches ``ready``,
+    each within the reference's 60 s wait (no wall-clock assert, as the
+    reference's)."""
+    client = PORT.Fake()
+    client.create(new_cluster_policy(spec={"driver": {
+        "repository": "registry.example", "image": "driver", "version": "1.0"}}))
+    cp = cp_controller.setup_clusterpolicy_controller(
+        client, cp_controller.ClusterPolicyReconciler(client, requeue_after=0.1))
+    up = controller.setup_upgrade_controller(
+        client, controller.UpgradeReconciler(client, requeue_after=0.1))
+    kubelet = KubeletSimulator(client, interval=0.03).start()
+    cp.start(client)
+    up.start(client)
+    cp.queue.add(Request(name="cluster-policy"))
+    key, value = PORT.accelerator
+    try:
+        for i in range(50):
+            client.create({"apiVersion": "v1", "kind": "Node",
+                           "metadata": {"name": f"gpu-{i}", "labels": {key: value}},
+                           "spec": {}, "status": {}})
+        wait_for(lambda: sum(1 for n in client.list("v1", "Node")
+                             if deep_get(n, "status", "capacity", consts.GPU_RESOURCE_NAME))
+                 == 50, timeout=60, message="50 nodes advertising GPU capacity")
+        wait_for(lambda: deep_get(client.get("tpu.ai/v1", "ClusterPolicy", "cluster-policy"),
+                                  "status", "state") == "ready",
+                 timeout=60, message="ClusterPolicy ready at 50 nodes")
+    finally:
+        for part in (cp, up, kubelet):
+            part.stop()
 
 
 def test_the_operator_registers_the_upgrade_controller():

@@ -28,12 +28,15 @@ transport raises (``ConnectionResetError``, an ``OSError``), which
 from __future__ import annotations
 
 import dataclasses
+import json
 import random
 import time
 from typing import Dict, List, Optional
 
 from .errors import ApiError, TooManyRequestsError
 from .interface import Client, WatchHandle
+from .. import consts
+from ..utils.hash import object_hash
 from ..utils.locks import make_lock
 
 
@@ -302,7 +305,14 @@ def crash_site(verb: str, api_version: Optional[str], kind: Optional[str],
                obj: Optional[dict] = None) -> str:
     """A stable identifier for one mutating call site: an Event keys on its
     involved object's name and its reason (never its random name), a PATCH
-    on the sorted leaf-key paths of its body (never its values)."""
+    on the sorted leaf-key paths of its body (never its values).
+
+    A decision journal's mirror ConfigMap keys on its record's subsystem,
+    kind, trigger and decision, never its name: the name is the record's
+    content address, which holds the episode id, and a health episode's id
+    holds the node's ``-since`` stamp (each episode its own id), so the same
+    decision in another run of an episode is another name. The reference's
+    episode ids hold no stamp, and it keys the ConfigMap on its name."""
     if obj is not None:
         kind = obj.get("kind") or kind
         api_version = obj.get("apiVersion") or api_version
@@ -311,6 +321,11 @@ def crash_site(verb: str, api_version: Optional[str], kind: Optional[str],
             involved = obj.get("involvedObject", {})
             return (f"{verb} Event/{involved.get('kind')}:"
                     f"{involved.get('name')}:{obj.get('reason')}")
+        if kind == "ConfigMap" and consts.PROVENANCE_LABEL in (meta.get("labels") or {}):
+            record = json.loads((obj.get("data") or {}).get("record") or "{}")
+            decided = object_hash({k: record.get(k) for k in ("trigger", "decision")})
+            return (f"{verb} ConfigMap/prov:{record.get('subsystem')}:"
+                    f"{record.get('kind')}:{decided}")
         name = meta.get("name") or meta.get("generateName")
     site = f"{verb} {kind}/{name}"
     if patch:

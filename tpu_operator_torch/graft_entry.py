@@ -5,9 +5,17 @@ slice-wide validation step over an n-rank ("host", "chip") device mesh with
 tensor-parallel (all_reduce over the contraction axis), data-parallel
 (mean over hosts), ring (send/recv over every rank) and broadcast
 (all_gather) collectives, one rank per GPU.
+
+``python -m tpu_operator_torch.graft_entry`` runs both (the counterpart of
+``python __graft_entry__.py``): the check on the card, then the dry run
+over every visible GPU; ``--device=cpu`` runs them on the host, the dry
+run over :data:`CPU_RANKS` gloo ranks.
 """
 
 from __future__ import annotations
+
+import argparse
+import sys
 
 import torch
 import torch.distributed as dist
@@ -36,6 +44,10 @@ def entry(device: DeviceLike = None):
     a = torch.ones((dim, dim), dtype=torch.bfloat16, device=dev)
     b = torch.full((dim, dim), 2, dtype=torch.bfloat16, device=dev)
     return health_forward, (a, b)
+
+
+#: the dry run's ranks on the CPU: the reference's graft check's virtual devices
+CPU_RANKS = 8
 
 
 def _mesh_factors(n_devices: int) -> tuple:
@@ -105,3 +117,23 @@ def dryrun_multichip(n_devices: int, device: DeviceLike = None) -> None:
     if dev.type == "cuda" and n_devices > torch.cuda.device_count():
         raise RuntimeError(f"need {n_devices} devices, have {torch.cuda.device_count()}")
     run_ranks(_step, n_devices, dev.type)
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="python -m tpu_operator_torch.graft_entry")
+    p.add_argument("--device", default="cuda", help="cuda (the card), or cpu for tests")
+    args = p.parse_args(argv)
+    dev = resolve_device(args.device)
+    fn, fn_args = entry(dev)
+    out, checks = fn(*fn_args)
+    print("entry ok:", bool(checks.all()), tuple(out.shape))
+    if not checks.all():
+        return 1
+    n = torch.cuda.device_count() if dev.type == "cuda" else CPU_RANKS
+    dryrun_multichip(n, dev)
+    print(f"dryrun_multichip({n}) ok")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -89,8 +89,8 @@ class MiniApiServer:
     answers in microseconds, where a real apiserver takes milliseconds: a
     control-plane time measured against it is a lower bound.
 
-    ``latency_s`` delays every request by that much before it is handled,
-    a real apiserver's round trip."""
+    ``latency_s`` delays every request by that much once its request line
+    and headers are read, a real apiserver's round trip."""
 
     def __init__(self, backend: Optional[FakeClient] = None, scheme: Optional[Scheme] = None,
                  latency_s: float = 0.0, watch_idle_timeout_s: float = 5.0):
@@ -163,10 +163,13 @@ class MiniApiServer:
                     server._conns.discard(self.connection)
                 super().finish()
 
-            def handle_one_request(self):
-                if server.latency_s > 0:
+            def parse_request(self):
+                ok = super().parse_request()
+                # the delay starts once the request is read: slept before
+                # the read, it would overlap a kept-alive client's idle gap
+                if ok and server.latency_s > 0:
                     time.sleep(server.latency_s)
-                super().handle_one_request()
+                return ok
 
             def _body(self) -> dict:
                 length = int(self.headers.get("Content-Length", 0))

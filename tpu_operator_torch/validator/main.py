@@ -16,7 +16,8 @@ plugin              wait for the GPU extended resource on this node;
 workload            spawn a pod on this node that requests every GPU and
                     runs ``workload-local``; write barrier
 workload-local      run the GPU health sweep in-process, one rank per GPU
-workload-multihost  one rank of a sweep spanning hosts (torch.distributed)
+workload-multihost  this node's share of a sweep spanning hosts: one rank
+                    per local GPU, every node's in one world
 prewarm             build the CUDA sources into ``$GPU_COMPILATION_CACHE_DIR``
                     (never blocks: a failed warm-up just means the first
                     validation builds them)
@@ -151,6 +152,11 @@ def build_parser() -> argparse.ArgumentParser:
                    default=int(os.environ.get("WORLD_SIZE", "1")))
     p.add_argument("--process-id", type=int,
                    default=int(os.environ.get("RANK", "0")))
+    p.add_argument("--local-ranks", type=int, default=None,
+                   help="workload-multihost: ranks this process runs, one per GPU "
+                        "(default every visible GPU; on cuda another count is "
+                        "refused); with --device=cpu, gloo ranks that stand in "
+                        "for GPUs (default 1)")
     p.add_argument("--init-timeout", type=float,
                    default=float(os.environ.get("GPU_INIT_TIMEOUT", "0")),
                    help="multihost rendezvous budget in seconds (0 = torch "
@@ -422,7 +428,8 @@ def _dispatch(args, status, client) -> int:
             with tracing.span("multihost.ici-sweep", num_processes=args.num_processes) as sp:
                 report = run_multihost(args.coordinator, args.num_processes,
                                        args.process_id, matrix_dim=args.matrix_dim,
-                                       init_timeout=args.init_timeout, device=args.device)
+                                       init_timeout=args.init_timeout, device=args.device,
+                                       local_ranks=args.local_ranks)
                 sp.set_attribute("passed", report.passed)
                 if report.compile_s:
                     tracing.record_span("xla-compile", sweep_start, report.compile_s)

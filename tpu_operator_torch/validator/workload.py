@@ -15,8 +15,9 @@ every GPU's verdict. Integer-valued operands make every check exact.
 
 One process per GPU (NCCL's model): :func:`ici_health_check` runs one rank
 per local GPU and takes the merged matrix from rank 0; with one GPU it runs
-in this process as a world of one. :func:`run_multihost` is one rank of a
-group that spans hosts.
+in this process as a world of one. :func:`run_multihost` is one node of a
+sweep that spans hosts: the same ranks, one per local GPU, in one world
+with every other node's.
 
 :func:`spawn_workload_pod` is the deployed form of the check: the
 ``workload`` component spawns a pod on its own node that requests every
@@ -41,7 +42,7 @@ from .. import consts
 from ..client import is_not_found
 from ..device import DeviceLike, platform_of, resolve_device, synchronize
 from ..kernels import _build
-from ..ranks import init_group, rank_device, run_ranks
+from ..ranks import DEFAULT_TIMEOUT_S, Rendezvous, join_world, open_store, run_ranks
 from ..utils import deep_get
 
 
@@ -218,28 +219,49 @@ def init_method_for(coordinator: str) -> str:
     return coordinator if "://" in coordinator else f"tcp://{coordinator}"
 
 
+def local_rank_count(dev: torch.device, requested: Optional[int] = None) -> int:
+    """How many ranks this process runs in a sweep that spans hosts: every
+    visible GPU on ``cuda`` (any other count is refused, so that no node
+    writes a subset sweep as its own), ``requested`` (default 1) gloo ranks
+    on the CPU, where each stands in for a GPU."""
+    if dev.type == "cuda":
+        visible = torch.cuda.device_count()
+        if requested is not None and requested != visible:
+            raise ValueError(f"{requested} local ranks asked for on a node with {visible} "
+                             "visible GPUs: a multi-node sweep covers every GPU")
+        return visible
+    return 1 if requested is None else requested
+
+
 def run_multihost(coordinator: str, num_processes: int, process_id: int,
                   matrix_dim: int = 512, init_timeout: Optional[float] = None,
-                  device: DeviceLike = None) -> IciCheckReport:
-    """This process as rank ``process_id`` of a ``num_processes``-rank sweep
-    that spans hosts, one GPU per rank.
+                  device: DeviceLike = None,
+                  local_ranks: Optional[int] = None) -> IciCheckReport:
+    """This process (one node) as process ``process_id`` of a
+    ``num_processes``-process sweep that spans hosts, one rank per local GPU
+    (:func:`local_rank_count`), all in one world: the reference's
+    ``jax.distributed`` slice with every chip of every host.
 
-    ``init_timeout`` bounds the rendezvous: a worker that never joins must
-    fail this validation closed within the budget, not hang the barrier.
-    Raises on rendezvous failure — callers fail closed."""
+    The processes meet at ``coordinator`` (``host:port``, served by process
+    0, or a ``file://`` store), trade their local counts and number their
+    ranks process by process, so this node's GPUs are contiguous global
+    ordinals (``local_chips``). ``init_timeout`` bounds the rendezvous: a
+    worker that never joins must fail this validation closed within the
+    budget, not hang the barrier. Raises on rendezvous failure — callers
+    fail closed."""
     dev = resolve_device(device)
-    if dev.type == "cuda":
-        dev = rank_device("cuda", process_id)
-    t0 = time.perf_counter()
-    init_group(dev.type, process_id, num_processes, init_method_for(coordinator),
-               init_timeout)
-    try:
-        flags, setup, elapsed = _timed_sweep(process_id, num_processes, dev, t0,
-                                             matrix_dim)
-    finally:
-        dist.destroy_process_group()
-    return build_report(flags, [process_id], platform_of(dev),
-                        elapsed_s=elapsed, compile_s=setup)
+    n_local = local_rank_count(dev, local_ranks)
+    url = init_method_for(coordinator)
+    store = open_store(url, serve=process_id == 0, timeout_s=init_timeout)
+    first, world = join_world(store, num_processes, process_id, n_local, init_timeout)
+    results = run_ranks(_timed_sweep, n_local, dev.type, args=(matrix_dim,),
+                        timeout_s=DEFAULT_TIMEOUT_S + (init_timeout or 0.0),
+                        rendezvous=Rendezvous(url, first, world, init_timeout), store=store)
+    # every rank holds the all-reduced matrix; this node's slowest rank's
+    # clock covers its share of the set-up and the sweep
+    return build_report(results[0][0], list(range(first, first + n_local)), platform_of(dev),
+                        elapsed_s=max(r[2] for r in results),
+                        compile_s=max(r[1] for r in results))
 
 
 # -- pod-spawning mode: a validation pod on this node, through the device plugin
