@@ -3160,14 +3160,22 @@ def upgrade_phase(ctx) -> dict:
     U2, a crash-looping driver: the bundle the installer copies from holds
     a directory where ``libcuda.so.1`` should be, so the new driver pod
     crash-loops: ``upgrade-failed``, ``DriverUpgradeFailed``, the failed
-    gauge at 1, the node cordoned. U1's template restored retries the node
-    out of ``upgrade-failed`` to ``upgrade-done``, uncordoned by the machine.
+    gauge at 1, the node cordoned, and never ``upgrade-done`` while the
+    broken bundle is set. U1's template restored retries the node out of
+    ``upgrade-failed`` to ``upgrade-done``, uncordoned by the machine.
+
+    For U1 and U2's retry, from the apiserver's own pod events: the uids of
+    the validator pods the machine deleted and of those Ready when it
+    certified the node, which must be disjoint (a recycled validator a
+    cache still lists never certifies), and the recycled validator's
+    ``plugin --prewarm`` line (its build or load of K1).
 
     Printed: seconds from each template change to each state, the Events,
     the five gauges after each episode, ``gpuop-cfg status`` and ``explain
     node`` (the upgrade's two episodes apart from the health episodes), the
     apiserver's eviction requests and their 429s."""
     from tpu_operator_torch import consts
+    from tpu_operator_torch.state.skel import is_pod_ready
     from tpu_operator_torch.utils import deep_get
 
     raw, kubelet, ns, node_name = ctx.srv.backend, ctx.kubelet, ctx.namespace, ctx.node_name
@@ -3200,21 +3208,66 @@ def upgrade_phase(ctx) -> dict:
     # every driver pod event with its template hash, readiness and restarts:
     # what a U2 that leaves upgrade-failed early is read against
     driver_events = []
+    # every validator pod event with its uid and readiness: which pods the
+    # machine deleted, and which were Ready when it certified the node
+    validator_events = []
+
+    def on_validator(event_type, pod):
+        validator_events.append({"t": time.time(), "type": event_type,
+                                 "pod": pod["metadata"]["name"],
+                                 "uid": pod["metadata"].get("uid"), "ready": is_pod_ready(pod)})
 
     def on_pod(event):
         labels = (event.object.get("metadata") or {}).get("labels") or {}
-        if labels.get("app.kubernetes.io/component") != "gpu-driver":
+        component = labels.get("app.kubernetes.io/component")
+        if component == "gpu-operator-validator":
+            on_validator(event.type, event.object)
+            return
+        if component != "gpu-driver":
             return
         status = event.object.get("status") or {}
         driver_events.append({
             "t": time.time(), "type": event.type, "pod": event.object["metadata"]["name"],
             "hash": labels.get(consts.TEMPLATE_HASH_LABEL), "phase": status.get("phase"),
-            "ready": any(c.get("type") == "Ready" and c.get("status") == "True"
-                         for c in status.get("conditions") or []),
+            "ready": is_pod_ready(event.object),
             "restarts": [c.get("restartCount") for c in status.get("containerStatuses") or []]})
         if event.type == "DELETED":
             driver_deleted.append({"t": time.time(),
                                    "used_mib": _smi_used_mib() if on_gpu else None})
+
+    def certification(after, what):
+        """The validator pods the machine deleted from the episode's
+        ``pod-restart-required`` on, and those Ready when the node entered
+        ``uncordon-required`` (one sweep may write it and ``upgrade-done``
+        together, so the first of the two), by uid."""
+        start = trail.first(after, state="pod-restart-required")
+        check(start is not None, f"no pod-restart-required ({what})")
+        entered = [c for c in (trail.first(start["t"], state=state)
+                               for state in ("uncordon-required", "upgrade-done")) if c]
+        check(bool(entered), f"never certified ({what}): {trail.states(after)}")
+        t_cert = min(c["t"] for c in entered)
+        deleted = sorted({e["uid"] for e in validator_events
+                          if e["type"] == "DELETED" and start["t"] <= e["t"] <= t_cert})
+        last = {}
+        for e in validator_events:
+            if e["t"] <= t_cert:
+                last[e["uid"]] = e
+        ready = sorted(uid for uid, e in last.items() if e["type"] != "DELETED" and e["ready"])
+        found = {"deleted_validator_uids": deleted, "certifying_validator_uids": ready,
+                 "certified_s": round(t_cert - after, 3)}
+        print(json.dumps({f"validators_{what}": found, "card": ctx.card}))
+        check(deleted, f"no validator pod deleted before the certification ({what}): "
+                       f"{validator_events}")
+        check(ready, f"no validator pod Ready at the certification ({what}): {validator_events}")
+        check(not set(deleted) & set(ready),
+              f"the node certified on a validator the machine deleted ({what}): {found}, "
+              f"{validator_events}")
+        plugin_log = kubelet.logs("gpu-operator-validator").get("plugin-validation", "")
+        found["prewarm_line"] = next((line.strip() for line in plugin_log.splitlines()
+                                      if "build cache warmed" in line
+                                      or "prewarm failed" in line), None)
+        print(f"the recycled validator's prewarm ({what}): {found['prewarm_line']}")
+        return found
 
     def driver_view(after):
         template = deep_get(driver_ds(), "spec", "template", "metadata", "labels", default={})
@@ -3244,6 +3297,9 @@ def upgrade_phase(ctx) -> dict:
         numbers["setup_s"] = round(time.time() - t_patch, 3)
         trail = NodeTrail(raw, node_name, label=consts.UPGRADE_STATE_LABEL, empty="")
         watch = raw.watch("v1", "Pod", ns, handler=on_pod)
+        for pod in raw.list("v1", "Pod", ns, label_selector={
+                "app.kubernetes.io/component": "gpu-operator-validator"}):
+            on_validator("LISTED", pod)
 
         # -- U1: a clean upgrade of an admin-cordoned node, past a PDB -----------------
         before = _node_events(raw, ns, node_name)
@@ -3331,6 +3387,7 @@ def upgrade_phase(ctx) -> dict:
             u1[f"{container}_s"] = round(ran["t"] - t_u1, 3)
         check(len(kubelet.matching("pod-deleted", after=t_u1, ds="gpu-operator-validator")) == 1,
               "the validator recycled more than once (U1)")
+        u1["validators"] = certification(t_u1, "u1")
         u1["events"] = _events_since(before, _node_events(raw, ns, node_name))
         check(u1["events"].get("UpgradeDrainForced") == 1, f"U1's Events {u1['events']}")
         u1["gauges"] = _wait_for(lambda: (lambda g: g if g["available"] == 1 else None)(
@@ -3371,6 +3428,9 @@ def upgrade_phase(ctx) -> dict:
         time.sleep(3.0)
         check(trail.states(t_u2)[-1] == "upgrade-failed", f"U2 left upgrade-failed: "
               f"{trail.states(t_u2)}, the driver since U2 {driver_view(t_u2)}")
+        check(not {"uncordon-required", "upgrade-done"} & set(trail.states(t_u2)),
+              f"U2 certified a broken driver: {trail.states(t_u2)}, validator pods "
+              f"{[e for e in validator_events if e['t'] >= t_u2]}")
         t_r = time.time()
         u2["failed_held_s"] = round(t_r - t_u2 - u2["upgrade-failed_s"], 3)
         _patch_policy(ctx, {"driver": {"env": U1_ENV}})
@@ -3381,6 +3441,7 @@ def upgrade_phase(ctx) -> dict:
                                            f"{state} (U2's retry)")
         u2["retry_cleared_s"] = since(t_r, lambda: trail.first(
             t_r + u2["retry_upgrade-done_s"], state=""), 60, "the label cleared (U2)")
+        u2["retry_validators"] = certification(t_r, "u2_retry")
         check(not cordoned(), "the machine left its own cordon after U2's retry")
         done = trail.first(t_r, state="upgrade-done")
         check(not done["cordoned"], f"upgrade-done still cordoned: {done}")

@@ -436,8 +436,9 @@ def map_health_node_annotations(state: str, annotations: dict) -> dict:
 # GPUDriver instances, the resync period is $GPU_OPERATOR_RESYNC_S. The
 # machine's and the Events' texts (:func:`map_upgrade_text`).
 #
-# Three faults of the reference the port does not copy, each pinned by its
-# own test in tests/test_torch_upgrade.py:
+# Four faults of the reference the port does not copy, each pinned by its
+# own test in tests/test_torch_upgrade.py (the fourth in
+# tests/test_torch_upgrade_recycle.py):
 # - the upgrade lifts only the cordon it set. The reference uncordons at
 #   uncordon-required and in clear_all whatever cordoned the node
 #   (tpu_operator/upgrade/machine.py: UpgradeStateMachine._process_node,
@@ -453,13 +454,21 @@ def map_health_node_annotations(state: str, annotations: dict) -> dict:
 #   and a driver pod restarting in place is no way out of upgrade-failed;
 # - the upgrade keeps its own episode id (tpu.ai/upgrade-episode-id) where
 #   the reference adopts and clears the health machine's tpu.ai/episode-id
-#   (``_episode_for``, ``_set_state``): :func:`map_upgrade_node_annotations`.
+#   (``_episode_for``, ``_set_state``): :func:`map_upgrade_node_annotations`;
+# - a node is certified only by validator pods its recycle did not delete:
+#   the recycle records the uids it deleted
+#   (tpu.ai/tpu-driver-upgrade-recycled-validators, in
+#   :data:`UPGRADE_PORT_KEYS`, written and cleared with -revalidated-for)
+#   and none of them counts, where the reference skips only pods marked
+#   terminating and certifies on recycled validators a cache still lists
+#   (``_process_node``'s validation-required).
 
 #: a container restarted more than this many times is crash-looping
 UPGRADE_CRASH_LOOP_RESTARTS = consts.UPGRADE_CRASH_LOOP_RESTARTS
 
 #: the port's additions to the upgrade's keys
-UPGRADE_PORT_KEYS = {consts.UPGRADE_CORDONED_ANNOTATION, consts.UPGRADE_EPISODE_ANNOTATION}
+UPGRADE_PORT_KEYS = {consts.UPGRADE_CORDONED_ANNOTATION, consts.UPGRADE_EPISODE_ANNOTATION,
+                     consts.UPGRADE_RECYCLED_VALIDATORS_ANNOTATION}
 
 #: the upgrade's texts: (the reference's, the port's)
 UPGRADE_TEXT_RULES = [

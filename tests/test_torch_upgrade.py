@@ -15,7 +15,9 @@ case of tests/test_upgrade.py.
 
 The three faults of the reference the port does not copy each have a test
 at the end that shows the reference's behaviour and the port's on the
-input that exposes it, as does a PDB-blocked eviction's requeue hint.
+input that exposes it, as does a PDB-blocked eviction's requeue hint. The
+fourth, a recycled validator that a lagging cache still lists certifying
+the node, is tests/test_torch_upgrade_recycle.py.
 """
 
 import pathlib

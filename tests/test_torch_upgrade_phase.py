@@ -7,7 +7,10 @@ with its spawned workload pod (``--device=cpu``), feature discovery, and
 the user's consumer pod, here a process that holds no GPU. Both episodes
 run as on the card: U1 past the PDB to ``upgrade-done`` with the admin's
 cordon kept, U2's crash-looping installer to ``upgrade-failed`` and its
-retry to ``upgrade-done``, uncordoned by the machine.
+retry to ``upgrade-done``, uncordoned by the machine. For U1 and U2's
+retry the validator pods the machine deleted and those Ready when it
+certified the node are apart, and U2 is never certified while its driver
+is broken.
 """
 
 import json
@@ -81,3 +84,8 @@ def test_phase_15_on_the_cpu(tmp_path):
         [f"upgrade/{k}" for k in chip_smoke.EPISODE_U1],
         [f"upgrade/{k}" for k in chip_smoke.EPISODE_U2]]
     assert numbers["evictions"]["refused_429"] >= 2
+    for seen in (u1["validators"], u2["retry_validators"]):
+        deleted, ready = seen["deleted_validator_uids"], seen["certifying_validator_uids"]
+        assert deleted and ready and not set(deleted) & set(ready), seen
+    failed_at = u2["states"].index("upgrade-failed")
+    assert not {"uncordon-required", "upgrade-done"} & set(u2["states"][:failed_at]), u2["states"]

@@ -85,6 +85,10 @@ UPGRADE_FORCE_ATTEMPTED_ANNOTATION = "tpu.ai/tpu-driver-upgrade-force-attempted"
 #: the driver template the node's validator pods were recycled for: the
 #: validation after an upgrade runs once per template against the new driver
 UPGRADE_REVALIDATED_ANNOTATION = "tpu.ai/tpu-driver-upgrade-revalidated-for"
+#: port only: the uids (comma-separated) of the validator pods the recycle
+#: deleted, written with :data:`UPGRADE_REVALIDATED_ANNOTATION` after the
+#: deletes: none of them certifies the node, however long a cache lists them
+UPGRADE_RECYCLED_VALIDATORS_ANNOTATION = "tpu.ai/tpu-driver-upgrade-recycled-validators"
 #: port only: whether the upgrade's own cordon may be lifted ("true": the
 #: node was schedulable when its upgrade first cordoned it; "false": it was
 #: cordoned already, by an admin or the health machine, and stays so).

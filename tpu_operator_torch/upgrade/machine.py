@@ -21,7 +21,7 @@ consumers, the drain every other pod the policy selects; both go through
 the Eviction subresource, so PodDisruptionBudgets hold them back until the
 step's budget runs out.
 
-Three deliberate differences from the reference, each a fault of it:
+Four deliberate differences from the reference, each a fault of it:
 
 - the upgrade lifts only its own cordon. The reference uncordons every node
   at ``uncordon-required`` and in ``clear_all``, an admin's cordon or the
@@ -40,6 +40,12 @@ Three deliberate differences from the reference, each a fault of it:
 - the upgrade keeps its own episode id (``tpu.ai/upgrade-episode-id``). The
   reference adopts and then clears ``tpu.ai/episode-id``, which the health
   machine keeps its live episode in, closing that episode as ``done``.
+- a node is certified only by validator pods its recycle did not delete.
+  The reference filters only pods already marked terminating, so a sweep
+  that reads the pods before the watch reports the deletes certifies the
+  node on the very validators it recycled. Here the recycle records the
+  deleted pods' uids (``tpu.ai/tpu-driver-upgrade-recycled-validators``)
+  and none of them counts, whatever the cache shows.
 """
 
 from __future__ import annotations
@@ -229,6 +235,7 @@ class UpgradeStateMachine:
             # episode too (the next template drift opens a new one)
             for key in (consts.UPGRADE_FAILED_TEMPLATE_ANNOTATION,
                         consts.UPGRADE_REVALIDATED_ANNOTATION,
+                        consts.UPGRADE_RECYCLED_VALIDATORS_ANNOTATION,
                         consts.UPGRADE_CORDONED_ANNOTATION,
                         consts.UPGRADE_EPISODE_ANNOTATION):
                 ann_patch[key] = None
@@ -376,15 +383,28 @@ class UpgradeStateMachine:
 
     def _annotate(self, node: dict, key: str, value: Optional[str]) -> None:
         """An idempotent annotation write, mirrored into the snapshot."""
-        if deep_get(node, "metadata", "annotations", key) == value:
+        self._annotate_all(node, {key: value})
+
+    def _annotate_all(self, node: dict, values: Dict[str, Optional[str]]) -> None:
+        """Several annotations in one patch (they land together or not at
+        all), the keys already at their value left out."""
+        annotations = node.setdefault("metadata", {}).setdefault("annotations", {})
+        changed = {k: v for k, v in values.items() if annotations.get(k) != v}
+        if not changed:
             return
         coalesced_patch(self.client, "v1", "Node", node["metadata"]["name"],
-                        {"metadata": {"annotations": {key: value}}})
-        annotations = node.setdefault("metadata", {}).setdefault("annotations", {})
-        if value is None:
-            annotations.pop(key, None)
-        else:
-            annotations[key] = value
+                        {"metadata": {"annotations": changed}})
+        for key, value in changed.items():
+            if value is None:
+                annotations.pop(key, None)
+            else:
+                annotations[key] = value
+
+    def _forget_recycle(self, node: dict) -> None:
+        """A new attempt's validation must really run again: its recycle
+        and the record of the pods it deleted go in one patch."""
+        self._annotate_all(node, {consts.UPGRADE_REVALIDATED_ANNOTATION: None,
+                                  consts.UPGRADE_RECYCLED_VALIDATORS_ANNOTATION: None})
 
     def _evict_with_budget(self, node: dict, pods: List[dict], *,
                            timeout_s: int, force: bool,
@@ -559,8 +579,7 @@ class UpgradeStateMachine:
                 # upgrade was to replace, and a pod restarting in place
                 # between its crashes is the failure still: no recovery
                 if all(is_pod_ready(p) for p in driver_pods):
-                    # the recovery's validation must really run again
-                    self._annotate(node, consts.UPGRADE_REVALIDATED_ANNOTATION, None)
+                    self._forget_recycle(node)
                     self._set_state(node, VALIDATION_REQUIRED)
                     state = VALIDATION_REQUIRED
                 else:
@@ -601,7 +620,7 @@ class UpgradeStateMachine:
             self._cordon(node, True)
             # a fresh attempt: an older attempt's marker must not spare
             # this one its validator recycle
-            self._annotate(node, consts.UPGRADE_REVALIDATED_ANNOTATION, None)
+            self._forget_recycle(node)
             self._set_state(node, CORDON_REQUIRED)
             state = CORDON_REQUIRED  # on through the chain in one sweep
 
@@ -698,14 +717,27 @@ class UpgradeStateMachine:
             recycled_for = deep_get(node, "metadata", "annotations",
                                     consts.UPGRADE_REVALIDATED_ANNOTATION)
             if recycled_for != fingerprint:
-                for pod in self._pods_on(name, VALIDATOR_COMPONENT):
+                # delete first, then record the uids deleted: a kill in
+                # between recycles again, and that recycle records what is
+                # still listed (a pod the cache has dropped never returns)
+                recycled = self._pods_on(name, VALIDATOR_COMPONENT)
+                for pod in recycled:
                     self._delete_pod(pod)
-                self._annotate(node, consts.UPGRADE_REVALIDATED_ANNOTATION, fingerprint)
+                self._annotate_all(node, {
+                    consts.UPGRADE_REVALIDATED_ANNOTATION: fingerprint,
+                    consts.UPGRADE_RECYCLED_VALIDATORS_ANNOTATION: ",".join(sorted(
+                        p["metadata"]["uid"] for p in recycled
+                        if p["metadata"].get("uid"))) or None})
                 return state
-            # a deleted pod stays listed while it terminates, Ready: only
-            # pods not being deleted may certify
+            # only pods the recycle did not delete may certify: the cache
+            # lists a deleted pod, Ready, until the watch reports it gone,
+            # and a real apiserver lists it while it terminates
+            deleted = set((deep_get(node, "metadata", "annotations",
+                                    consts.UPGRADE_RECYCLED_VALIDATORS_ANNOTATION)
+                           or "").split(","))
             validators = [p for p in self._pods_on(name, VALIDATOR_COMPONENT)
-                          if not deep_get(p, "metadata", "deletionTimestamp")]
+                          if not deep_get(p, "metadata", "deletionTimestamp")
+                          and deep_get(p, "metadata", "uid") not in deleted]
             if any(crash_looping(p) for p in validators):
                 return self._driver_failed(node, ds, "validator pod")
             if not validators or not all(is_pod_ready(p) for p in validators):
