@@ -1183,6 +1183,9 @@ def test_the_mapping_leaves_no_tpu_name_in_a_render():
 
 #: the reference's hook-site class names as the port's
 HOOK_CLASS_RENAMES = {"TPUDevicePlugin": "GPUDevicePlugin"}
+#: the reference's hook-site labels as the port's: the dropped-span count's
+#: lock is the port's counter registry's, the count one of its counters
+HOOK_LABEL_RENAMES = {"tracing._dropped_lock": "tracing._counters_lock"}
 #: (relpath, label) of the port's factory-built locks the reference does not
 #: have: the ``http.client`` watch connection (the reference's rides
 #: ``requests``), the port's own Prometheus families, the process kubelet
@@ -1261,6 +1264,7 @@ def hook_sites(root: str, package: str) -> list:
 def map_hook_site(site: tuple) -> tuple:
     """A reference hook site's ``(call, label, relpath)`` in the port's names."""
     call, label, relpath = site[:3]
+    label = HOOK_LABEL_RENAMES.get(label, label)
     head, _, tail = label.partition(".")
     return call, f"{HOOK_CLASS_RENAMES.get(head, head)}.{tail}", map_lint_text(relpath)
 

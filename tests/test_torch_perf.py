@@ -157,3 +157,140 @@ def test_allreduce_ranks_agree_on_gloo():
                         timeout_s=120)
     (g0, ok0), (g1, ok1) = results
     assert g0 > 0 and g0 == g1 and ok0 == ok1
+
+
+# -- where a measurement's time goes: spans and counters ------------------------
+
+class _FakeClock:
+    """``perf``'s clock, moved only by the closes of timed runs: each
+    ``_fetch_one`` or ``synchronize`` takes the next duration of ``runs``
+    after the warm-up's fetch and the five round-trip fetches, which take
+    none (so the floor is 50 ms)."""
+
+    def __init__(self, runs):
+        self.now = 0.0
+        self.runs = list(runs)
+        self.warmup_fetches = 0
+
+    def perf_counter(self):
+        return self.now
+
+    def close(self, *_):
+        if self.warmup_fetches < 6:
+            self.warmup_fetches += 1
+            return 0.0
+        self.now += self.runs.pop(0)
+        return 0.0
+
+    def install(self, monkeypatch):
+        monkeypatch.setattr(perf, "time", self)
+        monkeypatch.setattr(perf, "_fetch_one", self.close)
+        monkeypatch.setattr(perf, "synchronize", self.close)
+
+
+CHAIN_CASES = {
+    # name: (cross_check, durations of the timed runs in order, kept, discarded, iters)
+    "probes under the floor": (False, [0.001, 0.004, 0.016, 0.064, 0.06, 0.07],
+                               0.194, 0.021, 64),
+    "samples at a length left": (False, [0.06, 0.01, 0.01, 0.06, 0.07, 0.06],
+                                 0.19, 0.08, 4),
+    "cross-checked": (True, [0.01, 0.06, 0.05, 0.06, 0.05, 0.06, 0.05], 0.33, 0.01, 4),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CHAIN_CASES))
+def test_chain_time_splits_its_runs_into_kept_and_discarded(monkeypatch, case):
+    cross_check, runs, kept, discarded, iters = CHAIN_CASES[case]
+    clock = _FakeClock(runs)
+    clock.install(monkeypatch)
+    times = perf.ChainTimes()
+    _, ok, settled, _ = perf._chain_time(lambda x: x, torch.zeros(2), 1, torch.device("cpu"),
+                                         cross_check=cross_check, times=times)
+    assert clock.runs == [] and ok and settled == iters == times.iters
+    assert times.kept_s == pytest.approx(kept) and times.discarded_s == pytest.approx(discarded)
+    assert times.rtt_s == 0.0 and not times.retried
+
+
+@pytest.mark.parametrize("retry", [False, True], ids=["in-band", "retried"])
+def test_a_retried_cross_check_discards_the_first_attempt(monkeypatch, retry):
+    """The GEMM grows 5 -> 20 calls; out of band (fetch twice the block
+    close) it is timed again from 20, and its first attempt is thrown away."""
+    from tpu_operator_torch import tracing
+    from tpu_operator_torch.joinprofile import records
+
+    first_block = 0.03 if retry else 0.06
+    runs = [0.01, 0.06, first_block, 0.06, first_block, 0.06, first_block]
+    if retry:
+        runs += [0.0] * 6 + [0.06] * 6  # the retry's warm-up fetches, then its runs
+    clock = _FakeClock(runs)
+    clock.install(monkeypatch)
+    before = tracing.counters()
+    captured = []
+    with tracing.remote_trace("operand.perf", "0123456789abcdef0123456789abcdef-fedcba9876543210",
+                              sink=captured.append):
+        _, ok, ratio = perf.measure_mxu_tflops(8, iters=5, device="cpu")
+    assert clock.runs == [] and ok and ratio == 1.0
+    after = tracing.counters()
+
+    def delta(name):
+        return after.get(name, 0) - before.get(name, 0)
+
+    kept, discarded = (0.36, 0.01 + 0.27) if retry else (0.36, 0.01)
+    assert delta("perf.gemm.iters") == 20
+    assert delta("perf.chain.kept_s") == pytest.approx(kept)
+    assert delta("perf.chain.discarded_s") == pytest.approx(discarded)
+    assert delta("perf.prep_s") == pytest.approx(0.0, abs=1e-12)  # the clock moves in runs only
+    attrs = {r["n"]: r["a"] for r in records.span_to_records(captured[-1])}["perf.gemm"]
+    assert attrs["iters"] == 20 and attrs["retried"] is retry
+    assert attrs["kept_s"] == pytest.approx(kept) and attrs["discarded_s"] == pytest.approx(discarded)
+    assert attrs["prep_s"] == 0.0 and attrs["rtt_s"] == 0.0
+
+
+def test_a_traced_cpu_certification_adds_at_most_six_records(tmp_path, monkeypatch):
+    """``-c perf`` on the CPU at tiny sizes under a join trace: one span a
+    chain measurement under ``perf.sweep``, each carrying where its time
+    went, none for the all-reduce on one device, and the join profiler
+    charges every record to ``validation-run``."""
+    from tpu_operator_torch.joinprofile import critical_path, records
+    from tpu_operator_torch.validator import main as vmain
+
+    monkeypatch.setenv("GPU_TRACE_PARENT", "0123456789abcdef0123456789abcdef-fedcba9876543210")
+    log = records.SpanLog(str(tmp_path))
+    log.append([{"i": "00000000000000aa", "p": "", "t": "0" * 32, "n": "driver.validate",
+                 "s": 1.0, "d": 0.5, "st": "ok", "a": {}}])
+    vmain.run(["-c", "perf", "--device=cpu", "--perf-matrix-dim=32", "--perf-hbm-mib=1",
+               "--perf-ici-mib=1", f"--status-dir={tmp_path}"])
+    recs = [r for r in log.read() if r["n"] != "driver.validate"]
+    assert len(log.read()) - 1 == len(recs) <= 6
+    by_name = {r["n"]: r for r in recs}
+    assert sorted(by_name) == ["operand.perf", "perf.gemm", "perf.hbm", "perf.k1",
+                               "perf.sweep"]
+    for name in ("perf.gemm", "perf.hbm", "perf.k1"):
+        assert by_name[name]["p"] == by_name["perf.sweep"]["i"]
+        assert set(by_name[name]["a"]) == {"iters", "kept_s", "discarded_s", "prep_s",
+                                           "rtt_s", "retried"}
+    assert by_name["perf.gemm"]["a"]["iters"] >= 5 and by_name["perf.gemm"]["a"]["kept_s"] > 0
+    assert by_name["perf.k1"]["a"]["iters"] == 0  # no kernel to time on the CPU
+    assert {critical_path.phase_of(r["n"]) for r in recs} == {"validation-run"}
+    assert {p for p, _, _ in critical_path.record_intervals(recs)} == {"validation-run"}
+
+
+@pytest.mark.parametrize("gpus", [1, 4])
+def test_the_allreduce_span_is_opened_only_across_gpus(monkeypatch, gpus):
+    """One GPU measures no all-reduce and opens no span; with more, one
+    plain ``perf.allreduce`` span around the ranks carries their number."""
+    from tpu_operator_torch import tracing
+    from tpu_operator_torch.joinprofile import records
+
+    monkeypatch.setattr(perf, "resolve_device", lambda _d: torch.device("cuda", 0))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: gpus)
+    monkeypatch.setattr(perf, "run_ranks", lambda fn, n, kind, args: [(123.0, True)] * n)
+    captured = []
+    with tracing.remote_trace("operand.perf", "0123456789abcdef0123456789abcdef-fedcba9876543210",
+                              sink=captured.append):
+        got = perf.measure_ici_allreduce_gbps(1, iters=5, device="cuda")
+    recs = {r["n"]: r["a"] for r in records.span_to_records(captured[-1])}
+    if gpus == 1:
+        assert got == (None, True) and "perf.allreduce" not in recs
+    else:
+        assert got == (123.0, True) and recs["perf.allreduce"] == {"ranks": gpus}

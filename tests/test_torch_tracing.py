@@ -231,3 +231,139 @@ def test_xla_compile_span_carries_the_sweeps_set_up(tmp_path, monkeypatch):
     assert recs["xla-compile"]["d"] == 1.5
     assert recs["xla-compile"]["p"] == recs["ici-sweep"]["i"]
     assert critical_path.phase_of("xla-compile") == "xla-compile"
+
+
+# -- profiler ranges, marks and counters (the port's own) ----------------------
+
+def _profiled(body):
+    """``body()`` under ``torch.profiler`` with CPU activity: the user
+    annotations it recorded, ``(name, start_ns, end_ns)`` in start order."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        body()
+    events = prof.profiler.kineto_results.events()
+    return sorted(((e.name(), e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+                   if e.device_type() == torch.autograd.DeviceType.CPU
+                   and e.is_user_annotation()), key=lambda r: r[1])
+
+
+def _inside(inner, outer) -> bool:
+    return outer[1] <= inner[1] and inner[2] <= outer[2]
+
+
+@pytest.mark.parametrize("traced", [True, False], ids=["in-a-trace", "no-trace"])
+def test_spans_and_marks_are_profiler_ranges_of_the_same_name(traced):
+    captured = []
+
+    def body():
+        with tracing.remote_trace("operand.x", f"{TRACE_ID}-{PARENT}" if traced else None,
+                                  sink=captured.append):
+            with tracing.span("perf.sweep"):
+                with tracing.span("perf.gemm"):
+                    with tracing.mark("perf.chain.probe"):
+                        pass
+                with tracing.mark("validator.report"):
+                    pass
+
+    ranges = _profiled(body)
+    by_name = {name: (name, s, e) for name, s, e in ranges}
+    assert [r[0] for r in ranges] == ["operand.x", "perf.sweep", "perf.gemm",
+                                      "perf.chain.probe", "validator.report"]
+    assert _inside(by_name["perf.sweep"], by_name["operand.x"])
+    assert _inside(by_name["perf.gemm"], by_name["perf.sweep"])
+    assert _inside(by_name["perf.chain.probe"], by_name["perf.gemm"])
+    assert _inside(by_name["validator.report"], by_name["perf.sweep"])
+    assert not _inside(by_name["validator.report"], by_name["perf.gemm"])
+    # the marks never reach the span tree, traced or not
+    names = [r["n"] for r in records.span_to_records(captured[-1])] if traced else []
+    assert names == (["operand.x", "perf.sweep", "perf.gemm"] if traced else [])
+
+
+def test_the_operators_traces_are_profiler_ranges_too():
+    def body():
+        with tracing.Tracer().trace("reconcile", controller="c"):
+            with tracing.phase_span("label-nodes"):
+                pass
+
+    assert [r[0] for r in _profiled(body)] == ["reconcile", "label-nodes"]
+
+
+def test_with_the_profiler_off_nothing_is_recorded():
+    assert tracing.mark("perf.chain.probe") is tracing.mark("perf.operands")
+    with tracing.mark("before"):
+        pass
+    assert [r[0] for r in _profiled(lambda: None)] == []
+
+
+def test_tracing_loads_no_torch_and_marks_cost_nothing_without_it():
+    import subprocess
+    import sys
+
+    script = (
+        "import sys\n"
+        "from tpu_operator_torch import tracing\n"
+        "with tracing.mark('m'):\n"
+        "    with tracing.span('s'):\n"
+        "        tracing.count('c', 2)\n"
+        "assert 'torch' not in sys.modules, 'tracing loaded torch'\n"
+        "assert tracing.counters()['c'] == 2 and tracing.dropped_spans_total() == 1\n"
+    )
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", script], cwd=repo, capture_output=True,
+                         text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+
+
+def test_a_mark_never_enters_the_span_tree_or_the_dropped_count():
+    captured = []
+    before = tracing.dropped_spans_total()
+    with tracing.mark("outside"):
+        pass
+    with tracing.remote_trace("operand.x", f"{TRACE_ID}-{PARENT}", sink=captured.append) as root:
+        with tracing.mark("perf.operands"):
+            with tracing.span("perf.hbm") as sp:
+                with tracing.mark("perf.chain.sample"):
+                    pass
+    assert tracing.dropped_spans_total() == before
+    assert [c.name for c in root.children] == ["perf.hbm"] and sp.children == []
+    assert [r["n"] for r in records.span_to_records(captured[-1])] == ["operand.x", "perf.hbm"]
+
+
+def test_counters_add_up_and_snapshot():
+    before = tracing.counters()
+    tracing.count("test.a")
+    tracing.count("test.a", 2.5)
+    tracing.count("test.b", 0)
+    with tracing.span("orphan"):
+        pass
+    snap = tracing.counters()
+    assert snap["test.a"] == before.get("test.a", 0) + 3.5
+    assert snap["test.b"] == before.get("test.b", 0)
+    assert snap[tracing.DROPPED_SPANS] == tracing.dropped_spans_total() == \
+        before.get(tracing.DROPPED_SPANS, 0) + 1
+    snap["test.a"] = -1.0  # a snapshot, not the registry
+    assert tracing.counters()["test.a"] == before.get("test.a", 0) + 3.5
+
+
+def test_counters_lose_no_update_across_threads():
+    import sys
+    import threading
+
+    threads, per_thread = 16, 2000
+    before = tracing.counters().get("test.threads", 0)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        workers = [threading.Thread(target=lambda: [tracing.count("test.threads")
+                                                    for _ in range(per_thread)])
+                   for _ in range(threads)]
+        for w in workers:
+            w.start()
+        for w in workers:
+            w.join(timeout=60)
+        assert not any(w.is_alive() for w in workers)
+    finally:
+        sys.setswitchinterval(interval)
+    assert tracing.counters()["test.threads"] == before + threads * per_thread

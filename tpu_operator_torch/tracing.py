@@ -19,6 +19,14 @@ adds the active trace id to every log record.
 
 Propagation rides :mod:`contextvars`: outside an active trace every call is
 a free no-op, and the loss is counted (:func:`dropped_spans_total`).
+
+While ``torch.profiler`` records, every span is also a ``record_function``
+range of the same name, trace or no trace, so a device trace names the
+host's work after the program's own spans; :func:`mark` adds such a range
+alone, for steps too fine for the span log. The module never imports
+torch: with torch not loaded no profiler can be on. Process-wide counters
+(:func:`count`, :func:`counters`) add up whether or not a trace is active;
+the dropped-span count is one of them.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import logging
+import sys
 import time
 import uuid
 from collections import deque
@@ -45,20 +54,56 @@ _current_span: contextvars.ContextVar[Optional["Span"]] = contextvars.ContextVar
 _remote_sink: contextvars.ContextVar[Optional[tuple]] = contextvars.ContextVar(
     "tpu_operator_torch_remote_sink", default=None)
 
-#: spans discarded because no trace was active on the calling thread
-_dropped_lock = make_lock("tracing._dropped_lock")
-_dropped_spans = 0
+#: process-wide counters, name -> total since the process started
+_counters_lock = make_lock("tracing._counters_lock")
+_counters: Dict[str, float] = {}
+
+#: the counter of spans discarded because no trace was active on the
+#: calling thread
+DROPPED_SPANS = "tracing.dropped_spans"
 
 
-def _count_dropped() -> None:
-    global _dropped_spans
-    with _dropped_lock:
-        _dropped_spans += 1
+def count(name: str, value: float = 1) -> None:
+    """Add ``value`` to the process-wide counter ``name``."""
+    with _counters_lock:
+        _counters[name] = _counters.get(name, 0) + value
+
+
+def counters() -> Dict[str, float]:
+    """A snapshot of every counter, name -> total."""
+    with _counters_lock:
+        return dict(_counters)
 
 
 def dropped_spans_total() -> int:
-    with _dropped_lock:
-        return _dropped_spans
+    with _counters_lock:
+        return _counters.get(DROPPED_SPANS, 0)
+
+
+#: torch's profiler check and ``record_function``, looked up once torch is
+#: loaded
+_profiler_hooks = None
+_NO_RANGE = contextlib.nullcontext()
+
+
+def mark(name: str):
+    """A ``record_function`` range named ``name`` while ``torch.profiler``
+    records, else a no-op: never a span, a span-log record or a dropped
+    span. For steps inside a span that only a device trace needs named."""
+    global _profiler_hooks
+    hooks = _profiler_hooks
+    if hooks is None:
+        torch = sys.modules.get("torch")
+        if torch is None:
+            return _NO_RANGE
+        try:
+            hooks = (torch._C._autograd._profiler_enabled,
+                     torch.autograd.profiler.record_function)
+        except AttributeError:  # torch is still being imported
+            return _NO_RANGE
+        _profiler_hooks = hooks
+    enabled, record_function = hooks
+    return record_function(name) if enabled() else _NO_RANGE
 
 
 def _new_id(nbytes: int) -> str:
@@ -212,23 +257,24 @@ def current_span() -> Optional[Span]:
 @contextlib.contextmanager
 def span(name: str, kind: str = "internal", **attributes):
     """A child span of the active span; a counted no-op outside a trace."""
-    parent = _current_span.get()
-    if parent is None:
-        _count_dropped()
-        yield NOOP_SPAN
-        return
-    child = Span(name, kind=kind, parent=parent, attributes=attributes)
-    parent.children.append(child)
-    token = _current_span.set(child)
-    try:
-        yield child
-    except BaseException as e:
-        child.finish(error=e)
-        raise
-    else:
-        child.finish()
-    finally:
-        _current_span.reset(token)
+    with mark(name):
+        parent = _current_span.get()
+        if parent is None:
+            count(DROPPED_SPANS)
+            yield NOOP_SPAN
+            return
+        child = Span(name, kind=kind, parent=parent, attributes=attributes)
+        parent.children.append(child)
+        token = _current_span.set(child)
+        try:
+            yield child
+        except BaseException as e:
+            child.finish(error=e)
+            raise
+        else:
+            child.finish()
+        finally:
+            _current_span.reset(token)
 
 
 @contextlib.contextmanager
@@ -266,7 +312,7 @@ def record_span(name: str, start_unix: float, duration_s: float,
     a finished child of the active span; a counted no-op outside a trace."""
     parent = _current_span.get()
     if parent is None:
-        _count_dropped()
+        count(DROPPED_SPANS)
         return NOOP_SPAN
     child = Span(name, kind=kind, parent=parent, attributes=attributes)
     child.start_unix = float(start_unix)
@@ -287,27 +333,28 @@ def remote_trace(name: str, traceparent: Optional[str] = None,
     (and by :func:`flush_spans` from inside loops), so components that never
     exit still publish their spans. A failing sink is logged and ignored:
     span publication never fails a validation."""
-    parsed = parse_traceparent(traceparent)
-    if parsed is None:
-        yield NOOP_SPAN
-        return
-    trace_id, parent_span_id = parsed
-    root = Span(name, kind="remote", trace_id=trace_id, attributes=attributes)
-    root.parent_id = parent_span_id
-    token = _current_span.set(root)
-    sink_token = _remote_sink.set((root, sink))
-    _flush(root, sink)
-    try:
-        yield root
-    except BaseException as e:
-        root.finish(error=e)
-        raise
-    else:
-        root.finish()
-    finally:
-        _current_span.reset(token)
-        _remote_sink.reset(sink_token)
+    with mark(name):
+        parsed = parse_traceparent(traceparent)
+        if parsed is None:
+            yield NOOP_SPAN
+            return
+        trace_id, parent_span_id = parsed
+        root = Span(name, kind="remote", trace_id=trace_id, attributes=attributes)
+        root.parent_id = parent_span_id
+        token = _current_span.set(root)
+        sink_token = _remote_sink.set((root, sink))
         _flush(root, sink)
+        try:
+            yield root
+        except BaseException as e:
+            root.finish(error=e)
+            raise
+        else:
+            root.finish()
+        finally:
+            _current_span.reset(token)
+            _remote_sink.reset(sink_token)
+            _flush(root, sink)
 
 
 def _flush(root, sink) -> None:
@@ -408,7 +455,8 @@ class Tracer:
                     attributes={"controller": controller, **attributes})
         token = _current_span.set(root)
         try:
-            yield root
+            with mark(name):
+                yield root
         except BaseException as e:
             root.finish(error=e)
             raise

@@ -489,9 +489,10 @@ def _dispatch(args, status, client) -> int:
                             "ici_allreduce_gbps": args.min_ici_gbps},
                 device=args.device)
             sp.set_attribute("passed", report.passed)
-        print(json.dumps(report.to_dict()))
-        if report.passed:
-            status.write("perf", report.to_dict())
+        with tracing.mark("validator.report"):
+            print(json.dumps(report.to_dict()))
+            if report.passed:
+                status.write("perf", report.to_dict())
         return 0 if report.passed else 1
 
     if component == "serving":

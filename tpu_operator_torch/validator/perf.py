@@ -14,18 +14,31 @@ Three microbenchmarks map onto the card's throughput axes:
 
 Timing runs a chain of dependent calls closed by a one-element host fetch
 (``.item()``), minus the fetch round-trip (see ``_chain_time``).
+
+Each chain measurement is one span (``perf.gemm``, ``perf.hbm``, ``perf.k1``)
+whose attributes say where its time went, and adds to the process's
+counters: ``perf.chain.kept_s`` (the timed runs a reading is built from),
+``perf.chain.discarded_s`` (timed runs thrown away), ``perf.prep_s`` (the
+rest of its wall time) and ``perf.gemm.iters``. The all-reduce, timed in
+its ranks' own processes, is a plain span ``perf.allreduce`` with
+``ranks``, opened only where there is more than one GPU. A chain's steps
+are marks on the profiler's timeline (``perf.operands``,
+``perf.chain.warmup``, ``perf.chain.probe``, ``perf.chain.sample``), each
+opened outside the timed run it names.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import statistics
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..device import DeviceLike, device_kind, platform_of, resolve_device, synchronize
 from ..kernels.stream_copy import stream_copy
 from ..ranks import run_ranks
@@ -108,8 +121,47 @@ def _fetch_one(out: torch.Tensor):
     return out.reshape(-1)[0].item()
 
 
+@dataclasses.dataclass
+class ChainTimes:
+    """Where one measurement's timed runs went (:func:`_chain_time`)."""
+    #: seconds of the timed runs the reading is built from
+    kept_s: float = 0.0
+    #: seconds of timed runs thrown away: probes under the floor, samples at
+    #: a length the chain then grew past, a first attempt that was retried
+    discarded_s: float = 0.0
+    #: the fetch round trip subtracted from the reading
+    rtt_s: float = 0.0
+    #: the chain's settled length, calls a timed run
+    iters: int = 0
+    retried: bool = False
+
+    def retry(self) -> None:
+        """The reading is taken again: the runs it was built from are thrown away."""
+        self.discarded_s += self.kept_s
+        self.kept_s = 0.0
+        self.retried = True
+
+
+@contextlib.contextmanager
+def _measurement(name: str) -> Iterator[ChainTimes]:
+    """One measurement's span and counters; its wall time outside the
+    timed runs (operands, warm-up, round-trip probe) is its ``prep_s``."""
+    times = ChainTimes()
+    t0 = time.perf_counter()
+    with tracing.span(name) as sp:
+        yield times
+        prep_s = max(time.perf_counter() - t0 - times.kept_s - times.discarded_s, 0.0)
+        sp.set_attributes(iters=times.iters, kept_s=round(times.kept_s, 6),
+                          discarded_s=round(times.discarded_s, 6), prep_s=round(prep_s, 6),
+                          rtt_s=round(times.rtt_s, 9), retried=times.retried)
+        tracing.count("perf.chain.kept_s", times.kept_s)
+        tracing.count("perf.chain.discarded_s", times.discarded_s)
+        tracing.count("perf.prep_s", prep_s)
+
+
 def _chain_time(fn, x, iters: int, device: torch.device, cross_check: bool = False,
-                max_iters: int = 4096) -> Tuple[float, bool, int, Optional[float]]:
+                max_iters: int = 4096, times: Optional[ChainTimes] = None
+                ) -> Tuple[float, bool, int, Optional[float]]:
     """(wall time per call, trustworthy?, final iters, cross-check ratio)
     for shape-preserving ``fn``.
 
@@ -118,45 +170,54 @@ def _chain_time(fn, x, iters: int, device: torch.device, cross_check: bool = Fal
     max(20*RTT, 50 ms), median of three at the settled size. With
     ``cross_check`` the same chain is also closed by
     ``torch.cuda.synchronize``, samples interleaved, and the raw totals
-    compared."""
-    out = fn(x)
-    _fetch_one(out)  # warmup: first execution complete
+    compared. ``times`` gains the timed runs' seconds, kept and thrown
+    away, the round trip and the settled length."""
+    times = times if times is not None else ChainTimes()
+    with tracing.mark("perf.chain.warmup"):
+        out = fn(x)
+        _fetch_one(out)  # warmup: first execution complete
 
-    samples = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        _fetch_one(out)  # round-trip on an already-materialised result
-        samples.append(time.perf_counter() - t0)
+        samples = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            _fetch_one(out)  # round-trip on an already-materialised result
+            samples.append(time.perf_counter() - t0)
     rtt = min(samples)
     floor = max(20.0 * rtt, 0.05)
 
     def block(_o) -> None:
         synchronize(device)
 
-    def timed_chain(closer) -> float:
-        t0 = time.perf_counter()
-        o = out
-        for _ in range(iters):
-            o = fn(o)
-        closer(o)
-        return time.perf_counter() - t0
+    def timed_chain(closer, step: str) -> float:
+        with tracing.mark(step):
+            t0 = time.perf_counter()
+            o = out
+            for _ in range(iters):
+                o = fn(o)
+            closer(o)
+            return time.perf_counter() - t0
 
     while True:
-        probe = timed_chain(_fetch_one)
+        probe = timed_chain(_fetch_one, "perf.chain.probe")
         if probe < floor and iters * 4 <= max_iters:
+            times.discarded_s += probe
             iters *= 4
             continue
         fetch_samples, block_samples = [probe], []
         for _ in range(2):
             if cross_check:
-                block_samples.append(timed_chain(block))
-            fetch_samples.append(timed_chain(_fetch_one))
+                block_samples.append(timed_chain(block, "perf.chain.sample"))
+            fetch_samples.append(timed_chain(_fetch_one, "perf.chain.sample"))
         if cross_check:
-            block_samples.append(timed_chain(block))
+            block_samples.append(timed_chain(block, "perf.chain.sample"))
         total = statistics.median(fetch_samples)
+        timed_s = sum(fetch_samples) + sum(block_samples)
         if total >= floor or iters * 4 > max_iters:
+            times.kept_s += timed_s
             break
+        times.discarded_s += timed_s
         iters *= 4
+    times.rtt_s, times.iters = rtt, iters
     ratio = None
     if cross_check:
         block_total = max(statistics.median(block_samples), 1e-9)
@@ -170,21 +231,27 @@ def measure_mxu_tflops(dim: int = 4096, iters: int = 5, device: DeviceLike = Non
     cross_check_ratio)."""
     dev = resolve_device(device)
     chain = 8
-    gen = torch.Generator(device=dev).manual_seed(0)
-    # ~unit spectral scale keeps 8*iters repeated contractions in bf16 range
-    b = torch.randn((dim, dim), generator=gen, device=dev,
-                    dtype=torch.bfloat16) / (dim ** 0.5)
+    with _measurement("perf.gemm") as times:
+        with tracing.mark("perf.operands"):
+            gen = torch.Generator(device=dev).manual_seed(0)
+            # ~unit spectral scale keeps 8*iters repeated contractions in bf16 range
+            b = torch.randn((dim, dim), generator=gen, device=dev,
+                            dtype=torch.bfloat16) / (dim ** 0.5)
+            a = torch.randn((dim, dim), generator=gen, device=dev, dtype=torch.bfloat16)
 
-    def chained(x):
-        for _ in range(chain):
-            x = torch.matmul(x, b)
-        return x
+        def chained(x):
+            for _ in range(chain):
+                x = torch.matmul(x, b)
+            return x
 
-    a = torch.randn((dim, dim), generator=gen, device=dev, dtype=torch.bfloat16)
-    t, ok, grown, ratio = _chain_time(chained, a, iters, dev, cross_check=True)
-    if ratio is not None and not (CROSS_CHECK_BAND[0] <= ratio <= CROSS_CHECK_BAND[1]):
-        # one retry from the settled size before distrusting the timing
-        t, ok, _, ratio = _chain_time(chained, a, grown, dev, cross_check=True)
+        t, ok, grown, ratio = _chain_time(chained, a, iters, dev, cross_check=True,
+                                          times=times)
+        if ratio is not None and not (CROSS_CHECK_BAND[0] <= ratio <= CROSS_CHECK_BAND[1]):
+            # one retry from the settled size before distrusting the timing
+            times.retry()
+            t, ok, _, ratio = _chain_time(chained, a, grown, dev, cross_check=True,
+                                          times=times)
+        tracing.count("perf.gemm.iters", times.iters)
     flops = 2.0 * dim * dim * dim * chain
     return flops / t / 1e12, ok, ratio
 
@@ -211,8 +278,10 @@ def measure_hbm_gbps(mib: int = 512, iters: int = 5, device: DeviceLike = None
     """Memory-bound scale-add (:func:`scale_add`): reads + writes `mib` MiB."""
     dev = resolve_device(device)
     n = mib * 1024 * 1024 // 4  # fp32 elements
-    x = torch.ones((n,), dtype=torch.float32, device=dev)
-    t, ok, _, _ = _chain_time(scale_add, x, iters, dev)
+    with _measurement("perf.hbm") as times:
+        with tracing.mark("perf.operands"):
+            x = torch.ones((n,), dtype=torch.float32, device=dev)
+        t, ok, _, _ = _chain_time(scale_add, x, iters, dev, times=times)
     bytes_moved = 2.0 * n * 4  # one read + one write of the array
     return bytes_moved / t / 1e9, ok
 
@@ -234,13 +303,13 @@ def measure_hbm_kernel_gbps(mib: int = 512, iters: int = 5, device: DeviceLike =
     CPU, where there is no kernel to time; on CUDA it builds and launches
     the kernel, and any error propagates."""
     dev = resolve_device(device)
-    if dev.type != "cuda":
-        return 0.0, False
     rows = stream_rows(mib)
-    if rows == 0:
-        return 0.0, False
-    x = torch.ones((rows, STREAM_LANES), dtype=torch.float32, device=dev)
-    t, ok, _, _ = _chain_time(stream_copy, x, iters, dev)
+    with _measurement("perf.k1") as times:
+        if dev.type != "cuda" or rows == 0:
+            return 0.0, False
+        with tracing.mark("perf.operands"):
+            x = torch.ones((rows, STREAM_LANES), dtype=torch.float32, device=dev)
+        t, ok, _, _ = _chain_time(stream_copy, x, iters, dev, times=times)
     bytes_moved = 2.0 * rows * STREAM_LANES * 4
     return bytes_moved / t / 1e9, ok
 
@@ -314,8 +383,9 @@ def measure_ici_allreduce_gbps(mib: int = 64, iters: int = 5, growth_budget_s: f
     n = torch.cuda.device_count() if dev.type == "cuda" else 1
     if n < 2:
         return None, True
-    results = run_ranks(_allreduce_rank, n, dev.type,
-                        args=(mib, iters, growth_budget_s))
+    with tracing.span("perf.allreduce", ranks=n):
+        results = run_ranks(_allreduce_rank, n, dev.type,
+                            args=(mib, iters, growth_budget_s))
     return results[0]
 
 
@@ -329,9 +399,10 @@ def run_perf(matrix_dim: int = 4096, hbm_mib: int = 512, ici_mib: int = 64,
     report = PerfReport()
     t0 = time.perf_counter()
     try:
-        report.platform = platform_of(dev)
-        report.n_devices = torch.cuda.device_count() if dev.type == "cuda" else 1
-        report.device_kind = device_kind(dev)
+        with tracing.mark("perf.devices"):
+            report.platform = platform_of(dev)
+            report.n_devices = torch.cuda.device_count() if dev.type == "cuda" else 1
+            report.device_kind = device_kind(dev)
         mxu, mxu_ok, ratio = measure_mxu_tflops(matrix_dim, iters, device=dev)
         hbm, hbm_ok = measure_hbm_gbps(hbm_mib, iters, device=dev)
         ici, ici_ok = measure_ici_allreduce_gbps(ici_mib, iters, device=dev)
