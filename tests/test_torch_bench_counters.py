@@ -1,5 +1,5 @@
 """The benchmark's readers of the program's own counters
-(``bench_gpu/metrics/perf.{chain_kept_s,chain_discarded_s,prep_s,gemm_iters}.py``
+(``bench_gpu/metrics/perf.{chain_kept_s,chain_discarded_s,prep_s,gemm_iters,chain_probes}.py``
 over ``bench_gpu/program_counters.py``): a counter's total over the passes,
 None where the program has no such counter; their entries in
 ``BENCHMARK.json`` as the harness loads them; and a CPU certification
@@ -7,6 +7,7 @@ through the harness's own CLI pass, whose counters account for the
 passes' time."""
 
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -23,6 +24,7 @@ READERS = {
     "perf.chain_discarded_s": "perf.chain.discarded_s",
     "perf.prep_s": "perf.prep_s",
     "perf.gemm_iters": "perf.gemm.iters",
+    "perf.chain_probes": "perf.chain.probes",
 }
 
 
@@ -83,9 +85,11 @@ def test_a_cpu_certification_s_counters_account_for_its_passes():
     the chains' kept, discarded and set-up seconds add up to nearly all of a
     pass, and the GEMM's settled length, a mean over the two passes, is
     that of two lengths the chain can reach (on a loaded CPU the passes may
-    settle apart)."""
+    settle apart). The process takes one intra-op thread: torch's pool of
+    one thread a core would spread each of these tiny ops over cores the
+    suite's other workers hold, and wait at every op for the last of them."""
     out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, capture_output=True,
-                         text=True, timeout=120)
+                         text=True, timeout=120, env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert out.returncode == 0, out.stderr[-3000:]
     read = json.loads(out.stdout.splitlines()[-1])
     timed = read["perf.chain_kept_s"] + read["perf.chain_discarded_s"] + read["perf.prep_s"]

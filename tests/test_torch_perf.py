@@ -8,6 +8,7 @@ The twin of tests/test_perf.py.
 """
 
 import dataclasses
+import weakref
 
 import pytest
 import torch
@@ -188,38 +189,172 @@ class _FakeClock:
         monkeypatch.setattr(perf, "synchronize", self.close)
 
 
+@dataclasses.dataclass
+class Chain:
+    """A fake-clock chain from 1 call: the durations of its timed runs in
+    order, where they went, its settled length and the probes it threw away."""
+    runs: list
+    kept: float
+    discarded: float
+    iters: int
+    probes: int
+    cross_check: bool = False
+    max_iters: int = 4096
+    ok: bool = True
+
+
 CHAIN_CASES = {
-    # name: (cross_check, durations of the timed runs in order, kept, discarded, iters)
-    "probes under the floor": (False, [0.001, 0.004, 0.016, 0.064, 0.06, 0.07],
-                               0.194, 0.021, 64),
-    "samples at a length left": (False, [0.06, 0.01, 0.01, 0.06, 0.07, 0.06],
-                                 0.19, 0.08, 4),
-    "cross-checked": (True, [0.01, 0.06, 0.05, 0.06, 0.05, 0.06, 0.05], 0.33, 0.01, 4),
+    # the first probe's 1 ms a call predicts 64 calls, 64 ms: 4 and 16 are skipped
+    "probes under the floor": Chain([0.001, 0.064, 0.06, 0.07], 0.194, 0.001, 64, 1),
+    # the median of the first length's samples falls under the floor: x4, as before
+    "samples at a length left": Chain([0.06, 0.01, 0.01, 0.06, 0.07, 0.06], 0.19, 0.08, 4, 0),
+    # 11 ms a call: 4 calls, predicted 44 ms, is within 20% of the floor and timed first
+    "cross-checked": Chain([0.011, 0.06, 0.05, 0.06, 0.05, 0.06, 0.05], 0.33, 0.011, 4, 1,
+                           cross_check=True),
+    # 2 ms a call: 16 calls, predicted 32 ms, is far under the floor; 64 clears
+    "the jump settles at once": Chain([0.002, 0.13, 0.13, 0.12, 0.13, 0.14, 0.13], 0.78,
+                                      0.002, 64, 1, cross_check=True),
+    # predicted 64 ms at 64 calls, read 40 ms: the chain grows x4 from there
+    "a sized probe under the floor grows x4": Chain([0.001, 0.04, 0.16, 0.15, 0.17], 0.48,
+                                                    0.041, 256, 2),
+    # the guard's step below reads under the floor too: the chain goes on to 16
+    "the step below timed first, then x4": Chain([0.011, 0.045, 0.18, 0.17, 0.19], 0.54,
+                                                 0.056, 16, 2),
+    # 16 calls is the longest: the run there is kept, under the floor, as untrustworthy
+    "the max_iters cap": Chain([0.001, 0.02, 0.02, 0.02], 0.06, 0.001, 16, 1,
+                               max_iters=16, ok=False),
+    "the first probe clears": Chain([0.06, 0.05, 0.07], 0.18, 0.0, 1, 0),
 }
 
 
 @pytest.mark.parametrize("case", sorted(CHAIN_CASES))
 def test_chain_time_splits_its_runs_into_kept_and_discarded(monkeypatch, case):
-    cross_check, runs, kept, discarded, iters = CHAIN_CASES[case]
-    clock = _FakeClock(runs)
+    chain = CHAIN_CASES[case]
+    clock = _FakeClock(chain.runs)
     clock.install(monkeypatch)
     times = perf.ChainTimes()
     _, ok, settled, _ = perf._chain_time(lambda x: x, torch.zeros(2), 1, torch.device("cpu"),
-                                         cross_check=cross_check, times=times)
-    assert clock.runs == [] and ok and settled == iters == times.iters
-    assert times.kept_s == pytest.approx(kept) and times.discarded_s == pytest.approx(discarded)
-    assert times.rtt_s == 0.0 and not times.retried
+                                         cross_check=chain.cross_check,
+                                         max_iters=chain.max_iters, times=times)
+    assert clock.runs == [] and ok is chain.ok and settled == chain.iters == times.iters
+    assert times.kept_s == pytest.approx(chain.kept)
+    assert times.discarded_s == pytest.approx(chain.discarded)
+    assert times.probes == chain.probes and times.rtt_s == 0.0 and not times.retried
+
+
+class _LinearDevice:
+    """A device whose chain of ``n`` calls takes ``n * per_call`` s, and whose
+    every fetch takes ``rtt`` s more, for the port's and the reference's
+    ``_chain_time`` alike: ``fn`` counts the calls, the fetch closes them."""
+
+    def __init__(self, per_call, rtt):
+        self.per_call, self.rtt = per_call, rtt
+        self.now, self.pending, self.closes = 0.0, 0, []
+
+    def perf_counter(self):
+        return self.now
+
+    def fn(self, x):
+        self.pending += 1
+        return x
+
+    def fetch(self, _out):
+        self.now += self.pending * self.per_call + self.rtt
+        self.closes.append(self.pending)
+        self.pending = 0
+        return 0.0
+
+    def settle(self, module, monkeypatch, *device):
+        """``module._chain_time``'s settled length, and the lengths of the
+        runs it threw away (those before the three samples)."""
+        with monkeypatch.context() as m:
+            m.setattr(module, "time", self)
+            m.setattr(module, "_fetch_one", self.fetch)
+            _, _, iters, _ = module._chain_time(self.fn, torch.zeros(2), 5, *device,
+                                                cross_check=False)
+        runs = self.closes[6:]  # past the warm-up and the five round trips
+        return iters, runs[:-3]
+
+
+def _straddles():
+    """Per-call times a hundredth either side of where each x4 length from
+    5 calls (to 5120, past the 4096 cap) just clears the floor, and either
+    side of where it is predicted at the sizing guard's 80% of the floor,
+    on the floor's two forms."""
+    for rtt in (0.0, 0.004):  # floor 50 ms, then 20 RTTs: 80 ms
+        floor = max(20 * rtt, 0.05)
+        for length in (5, 20, 80, 320, 1280, 5120):
+            for side in (0.99, 1.01):
+                yield pytest.param((floor - rtt) / length * side, rtt,
+                                   id=f"rtt{rtt}-{length}x{side}")
+                yield pytest.param(((1 - perf.SIZING_MARGIN) * floor - rtt) / length * side,
+                                   rtt, id=f"rtt{rtt}-guard{length}x{side}")
+
+
+@pytest.mark.parametrize("per_call, rtt", list(_straddles()))
+def test_the_sized_chain_settles_where_the_reference_climbs(monkeypatch, per_call, rtt):
+    """On a device whose runs take their length times a per-call time, the
+    port settles at the length the reference's x4 climb reaches, and
+    throws away no more runs: the first probe, and the step below where
+    the guard times it."""
+    ref_iters, ref_thrown = _LinearDevice(per_call, rtt).settle(ref_perf, monkeypatch)
+    port_iters, port_thrown = _LinearDevice(per_call, rtt).settle(
+        perf, monkeypatch, torch.device("cpu"))
+    assert port_iters == ref_iters
+    assert len(port_thrown) <= min(len(ref_thrown), 2)
+    assert port_thrown == [n for n in ref_thrown if n in port_thrown]
+    if len(ref_thrown) > 2:
+        assert len(port_thrown) < len(ref_thrown)
+
+
+class _AllocatingDevice(_LinearDevice):
+    """A linear device whose calls each return a new buffer, and where a
+    call that holds more buffers at once than any call before it pays
+    ``alloc`` s (a caching allocator's first allocation of a block)."""
+
+    def __init__(self, per_call, rtt, alloc):
+        super().__init__(per_call, rtt)
+        self.alloc, self.live, self.peak, self.owed = alloc, 0, 0, 0.0
+
+    def fn(self, x):
+        super().fn(x)
+        buf = type("Buffer", (), {})()
+        self.live += 1
+        weakref.finalize(buf, self._free)
+        if self.live > self.peak:
+            self.peak, self.owed = self.live, self.owed + self.alloc
+        return buf
+
+    def _free(self):
+        self.live -= 1
+
+    def fetch(self, out):
+        self.now, self.owed = self.now + self.owed, 0.0
+        return super().fetch(out)
+
+
+def test_the_first_probe_pays_for_no_allocation(monkeypatch):
+    """The HBM probe on an H100: 0.36 ms a launch, two 512 MiB buffers
+    first allocated at about 0.45 ms each. Paid inside the first probe,
+    they would read 80 launches as 43 ms, near enough the floor for the
+    step below to be timed first; the warm-up pays them, and the chain
+    goes from 5 launches straight to the reference's 320."""
+    ref_iters, _ = _AllocatingDevice(0.00036, 2e-5, 0.00045).settle(ref_perf, monkeypatch)
+    port_iters, port_thrown = _AllocatingDevice(0.00036, 2e-5, 0.00045).settle(
+        perf, monkeypatch, torch.device("cpu"))
+    assert port_iters == ref_iters == 320 and port_thrown == [5]
 
 
 @pytest.mark.parametrize("retry", [False, True], ids=["in-band", "retried"])
 def test_a_retried_cross_check_discards_the_first_attempt(monkeypatch, retry):
-    """The GEMM grows 5 -> 20 calls; out of band (fetch twice the block
-    close) it is timed again from 20, and its first attempt is thrown away."""
+    """The GEMM's first probe, 15 ms at 5 calls, sizes it at 20; out of band
+    (fetch twice the block close) it is timed again from 20, and its first
+    attempt is thrown away."""
     from tpu_operator_torch import tracing
     from tpu_operator_torch.joinprofile import records
 
     first_block = 0.03 if retry else 0.06
-    runs = [0.01, 0.06, first_block, 0.06, first_block, 0.06, first_block]
+    runs = [0.015, 0.06, first_block, 0.06, first_block, 0.06, first_block]
     if retry:
         runs += [0.0] * 6 + [0.06] * 6  # the retry's warm-up fetches, then its runs
     clock = _FakeClock(runs)
@@ -235,8 +370,8 @@ def test_a_retried_cross_check_discards_the_first_attempt(monkeypatch, retry):
     def delta(name):
         return after.get(name, 0) - before.get(name, 0)
 
-    kept, discarded = (0.36, 0.01 + 0.27) if retry else (0.36, 0.01)
-    assert delta("perf.gemm.iters") == 20
+    kept, discarded = (0.36, 0.015 + 0.27) if retry else (0.36, 0.015)
+    assert delta("perf.gemm.iters") == 20 and delta("perf.chain.probes") == 1
     assert delta("perf.chain.kept_s") == pytest.approx(kept)
     assert delta("perf.chain.discarded_s") == pytest.approx(discarded)
     assert delta("perf.prep_s") == pytest.approx(0.0, abs=1e-12)  # the clock moves in runs only

@@ -18,8 +18,9 @@ Timing runs a chain of dependent calls closed by a one-element host fetch
 Each chain measurement is one span (``perf.gemm``, ``perf.hbm``, ``perf.k1``)
 whose attributes say where its time went, and adds to the process's
 counters: ``perf.chain.kept_s`` (the timed runs a reading is built from),
-``perf.chain.discarded_s`` (timed runs thrown away), ``perf.prep_s`` (the
-rest of its wall time) and ``perf.gemm.iters``. The all-reduce, timed in
+``perf.chain.discarded_s`` (timed runs thrown away), ``perf.chain.probes``
+(probes under the floor thrown away), ``perf.prep_s`` (the rest of its
+wall time) and ``perf.gemm.iters``. The all-reduce, timed in
 its ranks' own processes, is a plain span ``perf.allreduce`` with
 ``ranks``, opened only where there is more than one GPU. A chain's steps
 are marks on the profiler's timeline (``perf.operands``,
@@ -63,6 +64,12 @@ CROSS_CHECK_BAND = (0.9, 1.1)
 #: Probe / streaming-kernel agreement band: the two move identical bytes,
 #: so an honest card reports them within noise of each other.
 HBM_STREAMING_BAND = (0.8, 1.25)
+
+#: a chain sized from its first probe (:func:`_sized_length`) times the
+#: step below the predicted length first when that step is predicted
+#: within this share of the floor, so that a per-call time read a little
+#: high never settles the chain past where the x4 climb would
+SIZING_MARGIN = 0.2
 
 #: fp32 lanes per row of the streaming kernel's array, and rows per block
 #: in the whole-block rule (2 MiB blocks, as the TPU kernel's)
@@ -133,6 +140,8 @@ class ChainTimes:
     rtt_s: float = 0.0
     #: the chain's settled length, calls a timed run
     iters: int = 0
+    #: probes under the floor thrown away
+    probes: int = 0
     retried: bool = False
 
     def retry(self) -> None:
@@ -156,7 +165,29 @@ def _measurement(name: str) -> Iterator[ChainTimes]:
                           rtt_s=round(times.rtt_s, 9), retried=times.retried)
         tracing.count("perf.chain.kept_s", times.kept_s)
         tracing.count("perf.chain.discarded_s", times.discarded_s)
+        tracing.count("perf.chain.probes", times.probes)
         tracing.count("perf.prep_s", prep_s)
+
+
+def _sized_length(probe: float, rtt: float, floor: float, iters: int, max_iters: int) -> int:
+    """The length, ``iters`` times a power of 4, that a chain whose probe
+    of ``iters`` calls took ``probe`` s (under ``floor``) is timed at next.
+
+    The x4 climb settles at the first length whose run clears the floor;
+    the probe's per-call time predicts it, the smallest length predicted
+    to clear, as far as ``max_iters`` allows. Where the step below it is
+    predicted within :data:`SIZING_MARGIN` of the floor, that step is
+    timed first, as the climb would."""
+    per_call = max(probe - rtt, 1e-9) / iters
+    length = iters
+    while length * 4 <= max_iters:
+        length *= 4
+        if length * per_call + rtt >= floor:
+            break
+    below = length // 4
+    if below > iters and below * per_call + rtt >= (1.0 - SIZING_MARGIN) * floor:
+        return below
+    return length
 
 
 def _chain_time(fn, x, iters: int, device: torch.device, cross_check: bool = False,
@@ -167,7 +198,9 @@ def _chain_time(fn, x, iters: int, device: torch.device, cross_check: bool = Fal
 
     A chain of dependent calls closed by one one-element fetch, minus the
     minimum fetch round-trip; grown until the total clears
-    max(20*RTT, 50 ms), median of three at the settled size. With
+    max(20*RTT, 50 ms), median of three at the settled size. A first
+    probe under the floor sizes the chain (:func:`_sized_length`); past
+    that it grows x4, as the reference's does from the start. With
     ``cross_check`` the same chain is also closed by
     ``torch.cuda.synchronize``, samples interleaved, and the raw totals
     compared. ``times`` gains the timed runs' seconds, kept and thrown
@@ -175,7 +208,10 @@ def _chain_time(fn, x, iters: int, device: torch.device, cross_check: bool = Fal
     times = times if times is not None else ChainTimes()
     with tracing.mark("perf.chain.warmup"):
         out = fn(x)
-        _fetch_one(out)  # warmup: first execution complete
+        # warmup: first execution complete, and two calls chained on from
+        # it hold every buffer a timed run holds, so that the first probe,
+        # which sizes the chain, pays for no allocation
+        _fetch_one(fn(fn(out)))
 
         samples = []
         for _ in range(5):
@@ -197,11 +233,14 @@ def _chain_time(fn, x, iters: int, device: torch.device, cross_check: bool = Fal
             closer(o)
             return time.perf_counter() - t0
 
+    first = True
     while True:
         probe = timed_chain(_fetch_one, "perf.chain.probe")
+        sizing, first = first, False
         if probe < floor and iters * 4 <= max_iters:
             times.discarded_s += probe
-            iters *= 4
+            times.probes += 1
+            iters = _sized_length(probe, rtt, floor, iters, max_iters) if sizing else iters * 4
             continue
         fetch_samples, block_samples = [probe], []
         for _ in range(2):
